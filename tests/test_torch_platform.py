@@ -1,0 +1,116 @@
+"""Package-wide rules of the port: no JAX, one device predicate, kernel
+wrappers that refuse CPU tensors, and a chip smoke that refuses to run
+without a card."""
+
+import dataclasses
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import demiurge_tpu_torch
+from demiurge_tpu.ops import ocean as jocean
+from demiurge_tpu_torch.core.grid import Grid
+from demiurge_tpu_torch.core.platform import check_kernel_inputs, \
+    use_cuda_kernels
+from demiurge_tpu_torch.kernels import advect as ka
+from demiurge_tpu_torch.kernels import jacobi as kj
+from demiurge_tpu_torch.utils import interop
+
+torch.set_num_threads(2)
+
+PKG = pathlib.Path(demiurge_tpu_torch.__file__).parent
+REPO = PKG.parent
+
+
+def _sources():
+    """The package's Python sources, without what a build left behind."""
+    return sorted(p for p in PKG.rglob("*.py")
+                  if "_build" not in p.relative_to(PKG).parts)
+
+
+def test_package_never_imports_jax():
+    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    offenders = [str(p.relative_to(PKG)) for p in _sources()
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
+    smoke = (REPO / "chip_smoke.py").read_text()
+    assert not pattern.search(smoke)
+    assert "demiurge_tpu." not in smoke.replace("demiurge_tpu_torch", "")
+
+
+def test_only_platform_tests_the_device():
+    """Choosing between a kernel and its twin is core/platform.py's job; no
+    other module may look at the device to pick a path."""
+    pattern = re.compile(r"\.is_cuda\b|\.device\.type\b"
+                         r"|torch\.cuda\.is_available\(\)")
+    offenders = [str(p.relative_to(PKG)) for p in _sources()
+                 if not (p.name == "platform.py" and p.parent.name == "core")
+                 and pattern.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_use_cuda_kernels_is_false_for_cpu_tensors():
+    x = torch.zeros(2, 2)
+    assert use_cuda_kernels(x, x) is False
+    assert use_cuda_kernels() is False
+
+
+def test_check_kernel_inputs_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        check_kernel_inputs(("x",), (torch.zeros(4, 4),), shape=(4, 4))
+    with pytest.raises(TypeError):
+        check_kernel_inputs(("x",), (np.zeros((4, 4)),))
+
+
+def test_kernel_wrappers_raise_on_cpu_tensors():
+    g = Grid(64, 32)
+    z = torch.zeros(g.shape)
+    launches = (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        kj.pressure_solve_cuda(z, z, z, z, z, z, z, g, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kj.diffusion_solve_cuda(z, z, z, z, z, z, z, g, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ka.advect_sample_cuda(z, z, z, z, ka.global_meta(8), 32, 2)
+    assert (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES) \
+        == launches
+
+
+def test_interop_round_trip_and_config():
+    rng = np.random.default_rng(0)
+    arrays = {"u": rng.standard_normal((4, 8)),
+              "p": rng.standard_normal((4, 8)).astype(np.float32)}
+    tensors = interop.fields_from_numpy(arrays, torch.device("cpu"))
+    assert all(t.dtype == torch.float32 for t in tensors.values())
+    back = interop.fields_to_numpy(tensors)
+    for k, a in arrays.items():
+        np.testing.assert_array_equal(back[k], a.astype(np.float32))
+    jcfg = jocean.OceanConfig(jacobi_iters=200, diffusion_iters=50)
+    tcfg = interop.ocean_config_from_dict(dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    hash(tcfg)
+    with pytest.raises(ValueError):
+        interop.ocean_config_from_dict({"no_such_field": 1})
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """With no card (this suite's host) and alone in a directory, the
+    smoke exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the smoke would run for real")
+    here = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"],
+                           capture_output=True, text=True, timeout=120,
+                           cwd=tmp_path)
+    for run in (here, alone):
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout
