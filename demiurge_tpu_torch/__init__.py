@@ -8,8 +8,11 @@ explicit ``device``.  The TPU's Pallas kernels are replaced by CUDA kernels
 written for Hopper (``csrc/*.cu``), each with a plain PyTorch twin beside its
 wrapper in ``kernels/``; the twin runs when the tensors lie on the CPU.
 
-Ported so far: the grid and its wrap topology, default-mode fBm noise, and
-the ocean step (``ops.ocean``) with its ``ocean`` CLI command.
+Ported so far: the grid, its wrap topology and stencils, default-mode fBm
+noise, the ocean step (``ops.ocean``), the climate (``ops.temperature``),
+the blur, the device flow path (``ops.flow.flow_filter_device``), the
+erosion pass, and the coupled step (``model.coupled_step``), with the
+``ocean``, ``climate`` and ``coupled`` CLI commands.
 """
 
 from .core import Grid

@@ -1,4 +1,4 @@
 from .grid import Grid
-from . import platform, topology
+from . import fastroll, platform, stencils, topology
 
-__all__ = ["Grid", "platform", "topology"]
+__all__ = ["Grid", "fastroll", "platform", "stencils", "topology"]

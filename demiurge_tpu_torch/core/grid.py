@@ -91,15 +91,21 @@ class Grid:
         """Broadcastable (lambda (1,W), phi (H,1)) pair of pixel centers."""
         return self.col_lam(device), self.row_phi(device)
 
+    def row_spacing(self) -> float:
+        """dy, the constant pixel height in circumference units, rounded to
+        float32 as the reference computes it."""
+        scale = self.circumference / (2 * PI)
+        return float(np.float32((self.phi1 - self.phi0) * scale
+                                / self.height))
+
     def pixelsize_rows(self, device):
         """Physical pixel size (dx (H,1), dy 0-d) in circumference units."""
         phi = self.row_phi(device)
         scale = self.circumference / (2 * PI)
         dx = (self.lam1 - self.lam0) * torch.cos(phi) * scale / self.width
         # a fill, not a copy from the host: no stream synchronisation
-        dy = torch.full((), float(np.float32(
-            (self.phi1 - self.phi0) * scale / self.height)),
-            dtype=torch.float32, device=device)
+        dy = torch.full((), self.row_spacing(), dtype=torch.float32,
+                        device=device)
         return dx, dy
 
     def cell_area_rows(self, device) -> torch.Tensor:

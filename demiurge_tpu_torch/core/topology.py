@@ -4,8 +4,9 @@ Counterpart of ``demiurge_tpu/core/topology.py`` for integer offsets:
 ``shift(field, dx, dy, grid)`` is the wrap every stencil relies on — the
 dateline is a ring in x, the row beyond a pole is the same-latitude row on
 the other side of the pole rolled W/2 columns, and everything else clamps
-to the edge (GL_CLAMP_TO_EDGE).  The fractional-coordinate samplers are
-not ported yet.
+to the edge (GL_CLAMP_TO_EDGE); ``pole_wrap=False`` clamps at the poles too
+(the flow pass's "coordsMod" grid).  Also the D8 direction tables of the
+flow routing.  The fractional-coordinate samplers are not ported yet.
 """
 
 from __future__ import annotations
@@ -82,3 +83,17 @@ def _pole_col_shift(grid: Grid) -> int:
     """Column shift of the pole reflection: half the world, W/2 pixels
     (rounded to the nearest integer for odd W, as the reference does)."""
     return int(round(grid.width / 2))
+
+
+#: The 8 neighbor offsets in the reference's scan order for steepest-descent
+#: style loops (FlowFilter.cpp:181-236).
+NEIGHBORS_FLOW_ORDER = ((1, 1), (0, 1), (-1, 1), (1, 0), (-1, 0), (1, -1),
+                        (0, -1), (-1, -1))
+
+#: Keypad code of each direction offset (FlowFilter.cpp:159-166); code 5 is
+#: the sink (no offset).
+DIR_CODE = {(1, 1): 9, (0, 1): 8, (-1, 1): 7, (1, 0): 6, (0, 0): 5,
+            (-1, 0): 4, (1, -1): 3, (0, -1): 2, (-1, -1): 1}
+
+#: code -> offset (inverse of DIR_CODE)
+CODE_DIR = {v: k for k, v in DIR_CODE.items()}

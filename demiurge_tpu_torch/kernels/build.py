@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, from a kernel wrapper that was handed a CUDA tensor, and
-lands in ``demiurge_tpu_torch/_build/`` (git-ignored) under a name keyed by
-a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing library.  Nothing here runs at import.
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``.  The build runs at first use, from a kernel wrapper that was
+handed a CUDA tensor, and lands in ``demiurge_tpu_torch/_build/``
+(git-ignored) under a name keyed by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads the existing library.
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -25,10 +27,11 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
 SIGNATURES = {
@@ -42,6 +45,18 @@ SIGNATURES = {
     # stream
     "demiurge_advect_sample": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 5
     + [_P],
+    # T cinv asr shifts ping pong, H W wrap_s wrap_n pole_shift substeps,
+    # diff_scale olr_coef, stream
+    "demiurge_climate_step": [_P] * 6 + [_I] * 6 + [_F] * 2 + [_P],
+    # field vk vw hk hw weights ping pong, H W wrap_s wrap_n pole_shift
+    # n_iter, stream
+    "demiurge_blur": [_P] * 8 + [_I] * 6 + [_P],
+    # hb sel q dx8 code, H W, dy8, stream
+    "demiurge_flow_directions": [_P] * 5 + [_I] * 2 + [_F, _P],
+    # packed area A flags, H W n, stream
+    "demiurge_flow_area_sweeps": [_P] * 4 + [_I] * 3 + [_P],
+    # packed vis flags, H W n, stream
+    "demiurge_flow_vis_sweeps": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -78,20 +93,32 @@ def build() -> tuple[pathlib.Path, str, float]:
     if lib.exists():
         return lib, "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [pathlib.Path(tmpdir) / f"{src.stem}.o" for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        # link to a private name, then rename: a concurrent process never
+        # loads a half-written library
+        tmp = pathlib.Path(tmpdir) / lib.name
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib, "".join(logs), time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,3 +1,3 @@
-from . import noise, ocean
+from . import blur, erosion, flow, noise, ocean, temperature
 
-__all__ = ["noise", "ocean"]
+__all__ = ["blur", "erosion", "flow", "noise", "ocean", "temperature"]

@@ -1,0 +1,69 @@
+"""Landscape evolution: tectonic uplift + stream-power fluvial erosion.
+
+Counterpart of the coupled model's part of ``demiurge_tpu/ops/erosion.py``,
+after the reference 'cpufilter' (src/filter/cpufilter.cpp):
+
+- uplift U = max(h0, 0)/50 from the initial heights, and the initial
+  h = h/50 on land, unchanged in the ocean (cpufilter.cpp:47-84);
+- one erosion pass (cpufilter.cpp:110-199): the steepest slope to the 8
+  neighbours over their metric distances, the 30-degree critical-slope
+  cap, and stream-power incision factor*4*A*S^m/0.1^m*0.1 against the
+  uplift, on land only.
+
+Plain PyTorch: the reference package has no kernel here.  The erosion
+loops (``landscape_evolution``, ``coupled_tectonic_erosion``) need the
+full flow filter with lakes and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..core.grid import Grid
+from ..core.topology import NEIGHBORS_FLOW_ORDER, shift
+
+PI = math.pi
+
+
+@dataclasses.dataclass(frozen=True)
+class ErosionConfig:
+    exponent: float = 0.5        # cpufilter.h:20 (flow accumulation exponent)
+    slope_exponent: float = 1.0  # cpufilter.h:22
+    factor: float = 1.0          # cpufilter.h:21
+    lakes: bool = False          # 'dolakes' toggle
+    n: int = 50                  # uplift divisor N (cpufilter.cpp:42)
+    iterations: int = 150        # N*3 (cpufilter.cpp:93)
+
+
+def init_uplift(height: torch.Tensor, cfg: ErosionConfig = ErosionConfig()):
+    """(U, h_init) — cpufilter.cpp:47-84."""
+    U = torch.clamp(height, min=0.0) / cfg.n
+    h = torch.where(height <= 0, height, height / cfg.n)
+    return U, h
+
+
+def erosion_pass(h, flow_map, uplift, grid: Grid, factor: float,
+                 slope_exponent: float) -> torch.Tensor:
+    """One erosion update (cpufilter.cpp:110-199)."""
+    dxr, dyr = grid.pixelsize_rows(h.device)
+
+    maxslope = torch.zeros_like(h)
+    dist = torch.sqrt(dxr * dxr + dyr * dyr) * torch.ones_like(h)
+    for dx, dy in NEIGHBORS_FLOW_ORDER:
+        hn = shift(h, dx, dy, grid)
+        ndist = torch.sqrt((dxr * dx) ** 2 + (dyr * dy) ** 2) \
+            * torch.ones_like(h)
+        s = (h - hn) / ndist
+        better = s > maxslope
+        maxslope = torch.where(better, s, maxslope)
+        dist = torch.where(better, ndist, dist)
+
+    SLOPE = math.tan(PI / 2 / 3)  # 30 degrees (cpufilter.cpp:191)
+    hdiff = SLOPE * dist - maxslope * dist
+    eros = factor * 4.0 * flow_map * torch.pow(maxslope, slope_exponent) \
+        / (0.1 ** slope_exponent) * 0.1
+    hnew = h + torch.minimum(hdiff, torch.clamp(uplift - eros, min=0.0))
+    return torch.where(h <= 0, h, hnew)

@@ -4,8 +4,10 @@ Fields cross as numpy arrays, so the two packages compute on the same
 inputs without importing each other: ``fields_from_numpy`` turns the
 reference's fields (``u``, ``v``, ``terrain``, ``p``, ... given as numpy
 arrays) into float32 tensors on a device, ``fields_to_numpy`` goes back,
-and ``ocean_config_from_dict`` rebuilds an ``OceanConfig`` from
-``dataclasses.asdict`` of the reference's.
+``ocean_config_from_dict`` / ``coupled_config_from_dict`` rebuild a config
+from ``dataclasses.asdict`` of the reference's, and
+``coupled_state_from_numpy`` / ``coupled_state_to_numpy`` carry a whole
+``CoupledState``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..model import CoupledConfig, CoupledState
 from ..ops.ocean import OceanConfig
 
 
@@ -40,3 +43,33 @@ def ocean_config_from_dict(d: Mapping) -> OceanConfig:
     if unknown:
         raise ValueError(f"OceanConfig has no field(s) {sorted(unknown)}")
     return OceanConfig(**dict(d))
+
+
+def coupled_config_from_dict(d: Mapping) -> CoupledConfig:
+    """The port's CoupledConfig from the reference's, as a dict (its
+    ``ocean`` entry a dict too); unknown keys raise."""
+    names = {f.name for f in dataclasses.fields(CoupledConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"CoupledConfig has no field(s) {sorted(unknown)}")
+    d = dict(d)
+    if "ocean" in d and not isinstance(d["ocean"], OceanConfig):
+        d["ocean"] = ocean_config_from_dict(d["ocean"])
+    return CoupledConfig(**d)
+
+
+def coupled_state_from_numpy(arrays: Mapping[str, np.ndarray], device
+                             ) -> CoupledState:
+    """A CoupledState on ``device`` from one numpy array per field (the
+    0-d ``t_index`` included); a missing or unknown field raises."""
+    names = [f.name for f in dataclasses.fields(CoupledState)]
+    if set(arrays) != set(names):
+        raise ValueError(f"CoupledState fields {sorted(names)}, got "
+                         f"{sorted(arrays)}")
+    return CoupledState(**fields_from_numpy(arrays, device))
+
+
+def coupled_state_to_numpy(state: CoupledState) -> dict:
+    """field name -> float32 numpy array, for every CoupledState field."""
+    return fields_to_numpy({f.name: getattr(state, f.name)
+                            for f in dataclasses.fields(CoupledState)})

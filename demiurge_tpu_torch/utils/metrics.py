@@ -1,7 +1,7 @@
 """Step metrics and JSONL logging.
 
 Counterpart of ``demiurge_tpu/utils/metrics.py``: per-step physical
-diagnostics (mass, divergence norm), throughput accounting
+diagnostics (mass, divergence norm, mean temperature), throughput accounting
 (grid-points/s), and a JSON-lines step logger.  The reference's ``--xprof``
 trace flag is not ported; the CLI does not accept it.
 """
@@ -31,6 +31,12 @@ def divergence_norm(u, v, terrain, grid: Grid, cfg=None) -> torch.Tensor:
     cfg = cfg or _ocean.OceanConfig()
     d = _ocean.divergence(u, v, terrain, grid, cfg)
     return torch.sqrt(torch.mean(torch.where(terrain <= 0, d * d, 0.0)))
+
+
+def mean_temperature(T: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """Area-weighted mean of the temperature field."""
+    area = grid.cell_area_rows(T.device)
+    return torch.sum(T * area) / torch.sum(area * torch.ones_like(T))
 
 
 class StepLogger:

@@ -139,3 +139,128 @@ def test_wrappers_reject_bad_inputs(dev):
         ka.advect_sample_cuda(zt, zt, zt, zt, ka.global_meta(8), 32, 2)
     with pytest.raises(ValueError, match="cover"):
         ka.advect_sample_cuda(z, z, z, z, ka.global_meta(8), 16, 2)
+
+
+# ---------------------------------------------------------------------------
+# the coupled step's kernels: climate, blur, directions, flow fixpoint
+# ---------------------------------------------------------------------------
+
+
+def _terrain(W, H, dev, seed=0):
+    """A smooth random terrain with land, ocean and coastlines."""
+    grid, h, _, _ = _case(W, H, GLOBAL, dev, seed)
+    return grid, (h - 0.05) * 20
+
+
+@pytest.mark.parametrize("shape", [(256, 128), (200, 100)],
+                         ids=["256x128", "200x100"])
+def test_climate_kernel_equals_plain_twin(dev, shape):
+    from demiurge_tpu_torch.kernels import climate as kc
+    from demiurge_tpu_torch.ops import temperature
+
+    grid, h = _terrain(*shape, dev)
+    T = temperature.init_temperature(grid, dev) + h
+    i0 = torch.full((), 3.0, device=dev)
+    asr = temperature.insolation_table(grid, i0, 10, 0.30)
+    cinv = (temperature.YEAR_SECONDS / temperature.SUBSTEPS_PER_YEAR
+            / temperature.heat_capacity(h)).contiguous()
+    before = kc.LAUNCHES
+    got = kc.climate_step_cuda(T, cinv, asr, grid, 0.55e6)
+    want = kc.climate_step_plain(T, cinv, asr, grid, 0.55e6)
+    torch.cuda.synchronize()
+    assert kc.LAUNCHES - before == 10
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("radius", [0.5, 3.0])
+def test_blur_kernel_equals_plain_twin(dev, radius):
+    """Radius 0.5 is the pre-blur; 3.0 has taps several rows away, across
+    the poles."""
+    from demiurge_tpu_torch.kernels import blur as kb
+    from demiurge_tpu_torch.ops.blur import sigma_list
+
+    grid, h = _terrain(256, 128, dev)
+    rlist = sigma_list(radius)
+    before = kb.LAUNCHES
+    got = kb.blur_cuda(h, grid, rlist)
+    want = kb.blur_plain(h, grid, rlist)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES - before == 2 * len(rlist)
+    assert torch.equal(got, want)
+
+
+def test_directions_kernel_against_plain_twin(dev):
+    """Equal but for knife-edge ties (atan2f of two builds): at most one in
+    10^4 pixels."""
+    from demiurge_tpu_torch.kernels import directions as kd
+    from demiurge_tpu_torch.ops.blur import blur
+
+    grid, h = _terrain(256, 128, dev)
+    hb = blur(h, grid, 0.5)
+    sel = torch.ones_like(hb)
+    sel[:, :16] = 0.0
+    before = kd.LAUNCHES
+    got = kd.flow_directions_cuda(hb, sel, grid)
+    want = kd.flow_directions_plain(hb, sel, grid)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES - before == 1
+    assert got.dtype == torch.int32
+    assert int((got != want).sum()) <= hb.numel() // 10000
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_flow_kernels_equal_plain_twins(dev, warm):
+    """A bit for bit and vis exactly, cold and from a warm start (the
+    fixpoint of a slightly different terrain)."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.ops import flow
+
+    grid, h = _terrain(256, 128, dev)
+    sel = torch.ones_like(h)
+    area = flow.cell_area_lower_edge(grid, dev)
+
+    def packed_of(height):
+        hb = flow.blur(height, grid, 0.5)
+        code = flow.flow_directions(hb, sel, grid)
+        _, mouth, _ = flow.incoming_mask(code, grid)
+        return kf.pack_masks(code, mouth, grid)
+
+    a0 = None
+    if warm:
+        a0 = kf.flow_solve_area_plain(packed_of(h * 1.01 + 0.01), area, grid)
+    packed = packed_of(h)
+    before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
+    A = kf.flow_solve_area_cuda(packed, area, grid, a0)
+    vis = kf.vis_solve_cuda(packed, grid)
+    torch.cuda.synchronize()
+    assert kf.LAUNCHES_A > before[0] and kf.LAUNCHES_VIS > before[1]
+    assert torch.equal(A, kf.flow_solve_area_plain(packed, area, grid, a0))
+    assert torch.equal(vis, kf.vis_solve_plain(packed, grid))
+    assert bool(vis.any()) and float(A.max()) > float(area.max())
+
+
+def test_coupled_step_on_the_card_matches_the_cpu(dev):
+    """Three coupled steps at 256x128 on the card against the CPU: u, v
+    and T as the ocean test allows; the height wherever the direction
+    codes agree."""
+    from demiurge_tpu_torch.model import CoupledConfig, coupled_step, \
+        init_coupled
+
+    grid, h = _terrain(256, 128, dev)
+    cfg = CoupledConfig(climate_substeps=4,
+                        ocean=ocean.OceanConfig(jacobi_iters=40,
+                                                diffusion_iters=10))
+    states = {}
+    for where in (dev, torch.device("cpu")):
+        s = init_coupled(h.to(where), grid)
+        for _ in range(3):
+            s = coupled_step(s, grid, cfg)
+        states[where.type] = s
+    g, c = states["cuda"], states["cpu"]
+    for name in ("u", "v", "temperature", "height"):
+        got = getattr(g, name).cpu()
+        assert bool(torch.isfinite(got).all())
+        if name != "height":
+            assert _rel_err(got, getattr(c, name)) <= 1e-4
+    dh = (g.height.cpu() - c.height).abs() / c.height.abs().max()
+    assert float((dh > 1e-4).float().mean()) <= 1e-2

@@ -34,8 +34,22 @@ def _sources():
                   if "_build" not in p.relative_to(PKG).parts)
 
 
+# modules the grep tests must reach (they scan every source of the package)
+PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
+          "ops/temperature.py", "ops/blur.py", "ops/flow.py",
+          "ops/erosion.py", "kernels/climate.py", "kernels/blur.py",
+          "kernels/directions.py", "kernels/flow.py")
+
+
+def test_grep_tests_cover_the_ported_modules():
+    scanned = {str(p.relative_to(PKG)) for p in _sources()}
+    assert set(PORTED) <= scanned
+
+
 def test_package_never_imports_jax():
-    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+    pattern = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b"
+                         r"|import\s+demiurge_tpu\b|from\s+demiurge_tpu\b"
+                         r"|from\s+demiurge_tpu\.)", re.M)
     offenders = [str(p.relative_to(PKG)) for p in _sources()
                  if pattern.search(p.read_text())]
     assert not offenders, offenders
@@ -80,6 +94,29 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
         ka.advect_sample_cuda(z, z, z, z, ka.global_meta(8), 32, 2)
     assert (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES) \
         == launches
+
+
+def test_coupled_kernel_wrappers_raise_on_cpu_tensors():
+    from demiurge_tpu_torch.kernels import blur as kb
+    from demiurge_tpu_torch.kernels import climate as kc
+    from demiurge_tpu_torch.kernels import directions as kd
+    from demiurge_tpu_torch.kernels import flow as kf
+
+    g = Grid(64, 32)
+    z = torch.zeros(g.shape)
+    packed = torch.zeros(g.shape, dtype=torch.int32)
+    counts = (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kf.LAUNCHES_A,
+              kf.LAUNCHES_VIS)
+    for call in (lambda: kc.climate_step_cuda(z, z, torch.zeros(4, 32), g,
+                                              0.55e6),
+                 lambda: kb.blur_cuda(z, g, [0.1, 0.2]),
+                 lambda: kd.flow_directions_cuda(z, z, g),
+                 lambda: kf.flow_solve_area_cuda(packed, z, g),
+                 lambda: kf.vis_solve_cuda(packed, g)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kf.LAUNCHES_A,
+            kf.LAUNCHES_VIS) == counts
 
 
 def test_interop_round_trip_and_config():
