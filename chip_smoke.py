@@ -37,7 +37,20 @@
    1e-5 of max, the height beyond 1e-5 of max at no more than 1e-3 of the
    pixels; and a per-stage device profile of one step (CUDA events; the
    rows sum to the step);
-8. prints the kernels' JSON line, the card line and, last, the result line
+8. the sharded path on a 1x1 mesh, in this process, in a world-size-1
+   NCCL group: the two-level flow kernels (K10a with exit ids, K10b with a
+   zero and a nonzero seed) at 2048x1024 on the coupled path's masks
+   (band 128), each bit for bit against its twin; ``flow_solve_twolevel``
+   at 2048x1024 and 8192x4096 against K7's A (rtol 1e-5, atol 1e-7), and
+   both sharded flow solves on the mesh against K7 and K8 (same bound, vis
+   exact), each timed beside K7; then, with every launch counter at 0, 3
+   ``coupled_step(mesh=1x1)``s against 3 single-card steps (height rtol
+   1e-5 atol 1e-6, T rtol 1e-5 atol 1e-4, u and v rtol 1e-5 atol 1e-6),
+   ms per step, fails unless K5, K6, K10a and K10b launched; a per-stage
+   device profile of one mesh step; and ``coupled --mesh 1x1`` through
+   ``torch.distributed.run`` (2 steps at 2048x1024): finite logs and K10
+   launches;
+9. prints the kernels' JSON line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is non-zero.  Without a card, or
@@ -50,6 +63,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -126,6 +140,7 @@ def main() -> int:
     from demiurge_tpu_torch.kernels import climate as kc
     from demiurge_tpu_torch.kernels import directions as kd
     from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow2 as k2
     from demiurge_tpu_torch.kernels import jacobi as kj
     from demiurge_tpu_torch.ops import blur as ob
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
@@ -156,7 +171,11 @@ def main() -> int:
                 "blur": (kb, "LAUNCHES"),
                 "flow_directions": (kd, "LAUNCHES"),
                 "flow_solve": (kf, "LAUNCHES_A"),
-                "flow_vis": (kf, "LAUNCHES_VIS")}
+                "flow_vis": (kf, "LAUNCHES_VIS"),
+                "flow_local_solve": (k2, "LAUNCHES_LOCAL"),
+                "flow_local_vis": (k2, "LAUNCHES_LOCAL_VIS")}
+    # the kernels of the single-card path; the mesh path's are phase 8's
+    single_card = [n for n in counters if not n.startswith("flow_local")]
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -435,7 +454,7 @@ def main() -> int:
         big = cli.main(["coupled", "--steps", "1"])
         clim = cli.main(["climate", "--steps", "500"])
     torch.cuda.synchronize()
-    launches = read_counts(list(counters))
+    launches = read_counts(single_card)
     records = [json.loads(line) for line in log_text.getvalue().splitlines()
                if line.startswith("{")]
     for rec in records:
@@ -579,9 +598,255 @@ def main() -> int:
     print(f"  {'sum of rows':32s} {sum(t for _, t in rows):9.3f} ms; "
           f"first-to-last event {total:.3f} ms; host clock {host_ms:.3f} ms")
 
-    # -- 8. results ----------------------------------------------------------
+    # -- 8. the sharded path on a 1x1 mesh (NCCL, world size 1) -----------
+    import torch.distributed as tdist
+
+    from demiurge_tpu_torch.dist import mesh as dmesh
+    from demiurge_tpu_torch.dist.flowdist import (_pick_dist_band,
+                                                  flow_solve_sharded_twolevel)
+    from demiurge_tpu_torch.dist.halo import flow_solve_sharded
+
+    mdev = dmesh.initialize(DEVICE)
+    mesh = dmesh.make_mesh(shape=(1, 1), device=mdev)
+    print(f"mesh {mesh.ny}x{mesh.nx} on {mdev}: backend "
+          f"{tdist.get_backend()}, world size {tdist.get_world_size()}")
+
+    # K10a / K10b on the coupled path's packed masks (phase 5)
+    band = _pick_dist_band(H // mesh.size)
+    ploc = k2.mask_local(packed, band)
+    local_edges = float(sum(((ploc >> i) & 1).sum() for i in range(8)))
+    got_A, got_E = k2.flow_local_solve_cuda(ploc, area, area, band)
+    stats = dict(k2.LAST_SOLVE["A"])
+    want_A, want_E = k2.flow_local_solve_plain(ploc, area, area, band)
+    torch.cuda.synchronize()
+    assert torch.equal(got_A, want_A) and torch.equal(got_E, want_E)
+    k_ms = cuda_ms(lambda: k2.flow_local_solve_cuda(ploc, area, area, band),
+                   3)
+    p_ms = cuda_ms(lambda: k2.flow_local_solve_plain(ploc, area, area, band),
+                   1)
+    record("flow_local_solve", "demiurge_tpu_torch/csrc/flow.cu",
+           "demiurge_tpu/pallas_kernels/flow2.py:150", 0.0, k_ms, p_ms,
+           5 * plane, local_edges + N,
+           f"band {band}: A and exit ids bit-exact; {stats['sweeps']} "
+           f"sweeps, {stats['launched']} launched, {stats['host_reads']} "
+           f"host reads; {int((got_E >= 0).sum())} cells exit their band")
+    del want_A, want_E
+
+    seed = torch.zeros_like(area)
+    seed[band - 1::band, ::7] = 1.0    # last rows of the bands
+    seed[band::band, 3::11] = 1.0      # first rows of the next bands
+    vis_notes = []
+    for label, s_ in (("zero seed", torch.zeros_like(area)),
+                      ("seeded", seed)):
+        got = k2.flow_local_vis_cuda(ploc, s_, band)
+        st_ = dict(k2.LAST_SOLVE["vis"])
+        want = k2.flow_local_vis_plain(ploc, s_, band)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), label
+        vis_notes.append(f"{label}: {st_['sweeps']} sweeps, "
+                         f"{st_['launched']} launched, reachable "
+                         f"{float(got.mean()):.3f}")
+    ms = cuda_ms(lambda: k2.flow_local_vis_cuda(ploc, seed, band), 3)
+    plain_ms = cuda_ms(lambda: k2.flow_local_vis_plain(ploc, seed, band), 1)
+    out_edges = float((((ploc >> 8) & 0xFF) != 0).sum())
+    record("flow_local_vis", "demiurge_tpu_torch/csrc/flow.cu",
+           "demiurge_tpu/pallas_kernels/flow2.py:331", 0.0, ms, plain_ms,
+           3 * plane, out_edges,
+           "vis exact; " + "; ".join(vis_notes) + " (time: seeded)")
+
+    # flow_solve_twolevel against K7, both from the codes (masks packed)
+    def twolevel_against_k7(g, code_, mouth_):
+        ar = of.cell_area_lower_edge(g, dev)
+        want = kf.flow_solve_area_cuda(kf.pack_masks(code_, mouth_, g), ar, g)
+        k7_stats = dict(kf.LAST_SOLVE["A"])
+        before = k2.LAUNCHES_LOCAL
+        got = k2.flow_solve_twolevel(code_, ar, mouth_, g)
+        resolve = dict(k2.LAST_SOLVE["A"])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        print(f"  at {g.width}x{g.height}: K7 {k7_stats['sweeps']} sweeps, "
+              f"{k7_stats['launched']} launched; two-level: K10a "
+              f"{k2.LAUNCHES_LOCAL - before} launched in its two solves, "
+              f"the re-solve {resolve['sweeps']} sweeps")
+        t_two = cuda_ms(lambda: k2.flow_solve_twolevel(code_, ar, mouth_, g),
+                        3)
+        t_k7 = cuda_ms(lambda: kf.flow_solve_area_cuda(
+            kf.pack_masks(code_, mouth_, g), ar, g), 3)
+        print(f"  flow_solve_twolevel at {g.width}x{g.height} (band "
+              f"{k2.pick_band(g.height)}): within rtol 1e-5, atol 1e-7 of "
+              f"K7; {t_two:.3f} ms against K7 {t_k7:.3f} ms (both with "
+              f"pack_masks; {card})")
+        return t_two, t_k7
+
+    twolevel_ms = {"2048x1024": twolevel_against_k7(grid, code, mouth)}
+    big_grid = Grid(*BIG)
+    hb_big = ob.blur(cli._terrain(big_grid, SEED, dev), big_grid,
+                     ccfg.flow_preblur)
+    code_big = of.flow_directions(hb_big, torch.ones_like(hb_big), big_grid)
+    _, mouth_big, _ = of.incoming_mask(code_big, big_grid)
+    twolevel_ms["8192x4096"] = twolevel_against_k7(big_grid, code_big,
+                                                   mouth_big)
+    del hb_big, code_big, mouth_big
+    torch.cuda.empty_cache()
+
+    # both sharded flow solves on the mesh against K7 and K8
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    sharded_flow_ms = {}
+    for fname, fn in (("flow_solve_sharded_twolevel",
+                       flow_solve_sharded_twolevel),
+                      ("flow_solve_sharded", flow_solve_sharded)):
+        A_s, vis_s = fn(code, area, mouth, grid, mesh)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(A_s, A7, rtol=1e-5, atol=1e-7)
+        assert torch.equal(vis_s, vis8), fname
+        sharded_flow_ms[fname] = cuda_ms(
+            lambda: fn(code, area, mouth, grid, mesh), 1)
+        print(f"  {fname} on the 1x1 mesh: A within rtol 1e-5, atol 1e-7 "
+              f"of K7, vis equal to K8; {sharded_flow_ms[fname]:.3f} ms "
+              f"({card})")
+
+    # the mesh path, counted: 3 coupled steps on the 1x1 mesh
+    s_mesh = model.init_coupled(terrain, grid, mesh=mesh)
+    s_one = model.init_coupled(terrain, grid)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        s_mesh = model.coupled_step(s_mesh, grid, ccfg, mesh=mesh)
+    torch.cuda.synchronize()
+    mesh_step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    mesh_launches = read_counts(list(counters))
+    print(f"launches on the mesh path (3 steps): {mesh_launches}")
+    for name in ("blur", "flow_directions", "flow_local_solve",
+                 "flow_local_vis"):
+        assert mesh_launches[name] > 0, f"{name} never launched on the mesh"
+    t0 = time.perf_counter()
+    for _ in range(3):
+        s_one = model.coupled_step(s_one, grid, ccfg)
+    torch.cuda.synchronize()
+    one_step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    mesh_bounds = {"height": (1e-5, 1e-6), "temperature": (1e-5, 1e-4),
+                   "u": (1e-5, 1e-6), "v": (1e-5, 1e-6)}
+
+    def hold_to_single(got_state, want_state, what):
+        for name, (rtol, atol) in mesh_bounds.items():
+            a, b = getattr(got_state, name), getattr(want_state, name)
+            assert a.shape == (H, W) and bool(torch.isfinite(a).all()), name
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{what} {name}: {m}")
+            print(f"  {what}, {name}: max abs err {max_err(a, b):.3e} "
+                  f"(rtol {rtol}, atol {atol})")
+
+    hold_to_single(s_mesh, s_one, "3 mesh steps against 3 single-card")
+    assert float(s_mesh.t_index) == float(s_one.t_index)
+    print(f"coupled step at {W}x{H} on the 1x1 mesh: {mesh_step_ms:.2f} "
+          f"ms/step; on one card without a mesh {one_step_ms:.2f} ms/step "
+          f"(3 steps each, host clock, {card})")
+
+    def staged_mesh_step(st, mark):
+        """coupled_step(mesh=...) written out stage by stage."""
+        def sc(fn):
+            return dmesh.sharded_call(fn, mesh)
+
+        T_, ti = temperature.temperature_step(
+            st.temperature, st.height, st.t_index, grid,
+            ccfg.climate_substeps, mesh=mesh)
+        mark("climate (row groups, 10 substeps; torch)")
+        oc = ccfg.ocean
+        uu, vv = ocean.advect(st.u, st.v, st.height, grid, oc, mesh=mesh)
+        mark("ocean advect (sampler on blocks; torch)")
+        uu, vv = ocean.diffusion(uu, vv, st.height, grid, oc, mesh=mesh)
+        mark("ocean viscosity (halo rounds, 50 sweeps; torch)")
+        dv = sc(ocean.divergence)(uu, vv, st.height, grid, oc)
+        mark("ocean divergence (sharded_call)")
+        pp = ocean.pressure_solve(dv, st.height, grid, oc, mesh=mesh)
+        mark("ocean pressure (halo rounds, 200 sweeps; torch)")
+        uu, vv = sc(ocean.project)(uu, vv, pp, st.height, grid, oc)
+        mark("ocean projection (sharded_call)")
+        cd, mo = sc(of._codes_and_mouths)(st.height, st.sel, grid,
+                                          ccfg.flow_preblur)
+        mark("flow blur, directions, mouths (sharded_call; K5, K6)")
+        ar = dmesh.local_part(of.cell_area_lower_edge(grid, dev), grid.shape,
+                              mesh)
+        acc, vis = flow_solve_sharded_twolevel(cd, ar, mo, grid, mesh)
+        mark("flow two-level solve (K10a x2, K10b x2, coarse graph)")
+        fm = torch.where(vis, torch.pow(acc, ccfg.flow_exponent), -1.0)
+        hh = sc(erosion.erosion_pass)(st.height, fm, st.uplift, grid,
+                                      ccfg.erosion_factor,
+                                      ccfg.erosion_slope_exponent)
+        mark("flow map + erosion (sharded_call)")
+        return model.CoupledState(height=hh, uplift=st.uplift, sel=st.sel,
+                                  u=uu, v=vv, temperature=T_, t_index=ti,
+                                  flow_acc=acc)
+
+    want = model.coupled_step(s_mesh, grid, ccfg, mesh=mesh)
+    events.clear()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    mark("start")
+    got = staged_mesh_step(s_mesh, mark)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = read_counts(["flow_local_solve", "flow_local_vis"])
+    # the coarse graph's scatter-adds run in atomics: the two runs may
+    # round the chain sums apart
+    hold_to_single(got, want, "the staged mesh step against coupled_step")
+    rows = [(name, events[i][1].elapsed_time(ev))
+            for i, (name, ev) in enumerate(events[1:])]
+    total = events[0][1].elapsed_time(events[-1][1])
+    print(f"profile of one coupled step on the 1x1 mesh at {W}x{H} (CUDA "
+          f"events; device-timeline ms, gaps included; {card}):")
+    for name, t in rows:
+        print(f"  {name:56s} {t:9.3f} ms  {100 * t / total:5.1f}%")
+    print(f"  {'sum of rows':56s} {sum(t for _, t in rows):9.3f} ms; "
+          f"first-to-last event {total:.3f} ms; host clock {host_ms:.3f} ms;"
+          f" K10 launches in the step {step_launches}")
+    del s_mesh, s_one, want, got
+    tdist.destroy_process_group()
+
+    # the CLI under torch.distributed.run, one process on this card
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "demiurge_tpu_torch.api.cli",
+           "coupled", "--mesh", "1x1", "--width", str(W), "--height", str(H),
+           "--steps", "2"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    assert run.returncode == 0, (run.returncode, run.stderr[-4000:])
+
+    def json_lines(text):
+        out = []
+        for line in text.splitlines():
+            i = line.find("{")
+            if i >= 0:
+                with contextlib.suppress(ValueError):
+                    out.append(json.loads(line[i:]))
+        return out
+
+    logs = [r for r in json_lines(run.stderr) if "step" in r]
+    (cli_launches,) = [r["kernel_launches"] for r in json_lines(run.stdout)
+                       if "kernel_launches" in r]
+    for rec in logs:
+        print("cli --mesh 1x1:", json.dumps(rec))
+    print(f"cli --mesh 1x1 launches: {cli_launches} ({cli_s:.1f} s with "
+          f"start-up)")
+    assert [r["step"] for r in logs] == [0, 1], run.stderr[-4000:]
+    for rec in logs:
+        for key, val in rec.items():
+            assert isinstance(val, (int, float)) and val == val, rec
+    assert cli_launches["flow_local_solve"] > 0
+    assert cli_launches["flow_local_vis"] > 0
+
+    # -- 9. results ----------------------------------------------------------
+    main_launches = {**launches, **{n: mesh_launches[n] for n in counters
+                                    if n not in single_card}}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = main_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

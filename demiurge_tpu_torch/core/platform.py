@@ -21,6 +21,25 @@ def use_cuda_kernels(*tensors: torch.Tensor) -> bool:
     return bool(tensors) and all(t.is_cuda for t in tensors)
 
 
+def collective_backend(device) -> str:
+    """The torch.distributed backend for tensors on ``device``: NCCL for a
+    CUDA device, gloo for the CPU.  Picked by the device the caller names,
+    never by what the machine has."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def claim_rank_device(device, local_rank: int) -> torch.device:
+    """The device of one process of a group: a CUDA device without an
+    index becomes the process's own card, ``cuda:<local_rank>``, and the
+    current CUDA device (NCCL needs it set)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", local_rank)
+        torch.cuda.set_device(device)
+    return device
+
+
 def host_to_device(array: np.ndarray, device) -> torch.Tensor:
     """A small host table as a tensor on ``device``.  To a CUDA device the
     copy goes through pinned memory and does not wait for the stream (a

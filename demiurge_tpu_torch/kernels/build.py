@@ -57,6 +57,10 @@ SIGNATURES = {
     "demiurge_flow_area_sweeps": [_P] * 4 + [_I] * 3 + [_P],
     # packed vis flags, H W n, stream
     "demiurge_flow_vis_sweeps": [_P] * 3 + [_I] * 3 + [_P],
+    # packed area A E(nullable) flags, H W band n, stream
+    "demiurge_flow_local_sweeps": [_P] * 5 + [_I] * 4 + [_P],
+    # packed vis flags, H W band n, stream
+    "demiurge_flow_local_vis_sweeps": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 

@@ -109,27 +109,22 @@ def vis_solve_plain(packed, grid: Grid, check_every: int = 64
     raise RuntimeError("vis relaxation did not converge")
 
 
-def _solve_cuda(entry: str, packed, state, area, grid: Grid) -> dict:
-    """Rounds of in-place sweeps on ``state`` until a sweep changes
-    nothing.  A round launches n sweeps (8, doubling up to 512), each
-    setting its own flag when it changed a cell; one host read of the n
-    flags ends the round.  A sweep that changed nothing saw the current
-    state everywhere (no cell was written while it ran), so it certifies
-    the fixpoint; the sweeps after it in its round are no-ops."""
+def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
+    """Rounds of in-place sweeps until a sweep changes nothing.  A round
+    launches n sweeps (8, doubling up to 512) through the C entry point
+    ``entry(*args(flags_ptr, n))``, each sweep setting its own flag when
+    it changed a cell; one host read of the n flags ends the round.  A
+    sweep that changed nothing saw the current state everywhere (no cell
+    was written while it ran), so it certifies the fixpoint; the sweeps
+    after it in its round are no-ops."""
     from . import build
 
-    H, W = grid.shape
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    flags = torch.empty(MAX_ROUND, dtype=torch.int32, device=packed.device)
+    flags = torch.empty(MAX_ROUND, dtype=torch.int32, device=device)
     fn = getattr(build.library(), entry)
     n, sweeps, reads, launched = FIRST_ROUND, 0, 0, 0
-    while sweeps < _max_sweeps(grid):
+    while sweeps < max_sweeps:
         flags[:n].zero_()
-        args = (packed.data_ptr(), state.data_ptr(), flags.data_ptr(), H, W,
-                n, stream)
-        if area is not None:
-            args = (packed.data_ptr(), area.data_ptr()) + args[1:]
-        build.check(fn(*args), entry)
+        build.check(fn(*args(flags.data_ptr(), n)), entry)
         launched += n
         changed = flags[:n].tolist()  # the round's one host read
         reads += 1
@@ -152,7 +147,13 @@ def flow_solve_area_cuda(packed, area, grid: Grid, a0=None) -> torch.Tensor:
     if not grid.wrap_x:
         raise NotImplementedError("the flow solve needs an x-periodic grid")
     A = start.clone()
-    stats = _solve_cuda("demiurge_flow_area_sweeps", packed, A, area, grid)
+    H, W = grid.shape
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    stats = solve_rounds_cuda(
+        "demiurge_flow_area_sweeps",
+        lambda flags, n: (packed.data_ptr(), area.data_ptr(), A.data_ptr(),
+                          flags, H, W, n, stream),
+        A.device, _max_sweeps(grid))
     LAUNCHES_A += stats["launched"]
     LAST_SOLVE["A"] = stats
     return A
@@ -166,7 +167,13 @@ def vis_solve_cuda(packed, grid: Grid) -> torch.Tensor:
     if not grid.wrap_x:
         raise NotImplementedError("the flow solve needs an x-periodic grid")
     vis = ((packed >> 16) & 1).to(torch.uint8)
-    stats = _solve_cuda("demiurge_flow_vis_sweeps", packed, vis, None, grid)
+    H, W = grid.shape
+    stream = torch.cuda.current_stream(vis.device).cuda_stream
+    stats = solve_rounds_cuda(
+        "demiurge_flow_vis_sweeps",
+        lambda flags, n: (packed.data_ptr(), vis.data_ptr(), flags, H, W, n,
+                          stream),
+        vis.device, _max_sweeps(grid))
     LAUNCHES_VIS += stats["launched"]
     LAST_SOLVE["vis"] = stats
     return vis.bool()

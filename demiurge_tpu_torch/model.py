@@ -14,8 +14,8 @@ advances
      the previous step's fixpoint.
 
 The state is a dataclass of tensors on one device; the step returns a new
-state and never moves data between devices.  The reference's ``mesh``
-(sharded solvers) is not ported yet.
+state.  With a ``mesh`` (``dist.mesh``) the state holds this rank's
+(H/ny, W/nx) blocks and the step runs on every rank of the mesh together.
 """
 
 from __future__ import annotations
@@ -54,32 +54,54 @@ class CoupledState:
 
 
 def init_coupled(height: torch.Tensor, grid: Grid,
-                 cfg: CoupledConfig = CoupledConfig()) -> CoupledState:
-    """The initial state on ``height``'s device."""
+                 cfg: CoupledConfig = CoupledConfig(),
+                 mesh=None) -> CoupledState:
+    """The initial state on ``height``'s device.  Under a ``mesh``,
+    ``height`` is this rank's block and so is every field of the state."""
     device = height.device
     uplift, h = erosion.init_uplift(height)
     u, v = ocean.init_ocean(grid, device)
-    return CoupledState(
-        height=h, uplift=uplift,
+    fields = dict(
         sel=torch.ones(grid.shape, dtype=torch.float32, device=device),
         u=u, v=v, temperature=temperature.init_temperature(grid, device),
-        t_index=torch.zeros((), dtype=torch.float32, device=device),
         flow_acc=torch.zeros(grid.shape, dtype=torch.float32, device=device))
+    if mesh is not None:
+        from .dist.mesh import local_part
+
+        fields = {k: local_part(x, grid.shape, mesh)
+                  for k, x in fields.items()}
+    return CoupledState(
+        height=h, uplift=uplift,
+        t_index=torch.zeros((), dtype=torch.float32, device=device),
+        **fields)
 
 
 def coupled_step(state: CoupledState, grid: Grid,
-                 cfg: CoupledConfig = CoupledConfig()) -> CoupledState:
-    """One coupled step; returns the new state."""
+                 cfg: CoupledConfig = CoupledConfig(),
+                 mesh=None) -> CoupledState:
+    """One coupled step; returns the new state.
+
+    ``mesh``: a ``dist.mesh.Mesh``; the state's fields are then this
+    rank's blocks, and the climate, the ocean's sampler and solvers and
+    the flow fixpoint run their block forms (``dist``), the other stages
+    on the gathered fields (``dist.mesh.sharded_call``)."""
     h = state.height
     T, ti = temperature.temperature_step(
         state.temperature, h, state.t_index, grid,
-        substeps=cfg.climate_substeps)
-    u, v, _, _ = ocean.ocean_step(state.u, state.v, h, grid, cfg.ocean)
+        substeps=cfg.climate_substeps, mesh=mesh)
+    u, v, _, _ = ocean.ocean_step(state.u, state.v, h, grid, cfg.ocean,
+                                  mesh=mesh)
     fm, acc = flow.flow_filter_device(h, state.sel, grid,
                                       exponent=cfg.flow_exponent,
                                       preblur=cfg.flow_preblur,
-                                      acc0=state.flow_acc, return_acc=True)
-    h = erosion.erosion_pass(h, fm, state.uplift, grid, cfg.erosion_factor,
-                             cfg.erosion_slope_exponent)
+                                      acc0=state.flow_acc, return_acc=True,
+                                      mesh=mesh)
+    erode = erosion.erosion_pass
+    if mesh is not None:
+        from .dist.mesh import sharded_call
+
+        erode = sharded_call(erosion.erosion_pass, mesh)
+    h = erode(h, fm, state.uplift, grid, cfg.erosion_factor,
+              cfg.erosion_slope_exponent)
     return CoupledState(height=h, uplift=state.uplift, sel=state.sel, u=u,
                         v=v, temperature=T, t_index=ti, flow_acc=acc)

@@ -212,22 +212,58 @@ def flow_solve_stencil(code, area2d, mouth, grid: Grid, conn_from=None,
     return A, vis
 
 
+def _codes_and_mouths(height, sel, grid: Grid, preblur: float):
+    hb = blur(height, grid, preblur)
+    code = flow_directions(hb, sel, grid)
+    _, mouth, _ = incoming_mask(code, grid)
+    return code, mouth
+
+
 def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
                        preblur: float = 0.5, acc0=None,
-                       return_acc: bool = False):
+                       return_acc: bool = False, mesh=None):
     """Flow accumulation without the host lake-merge stage: cells that
     reach a river mouth get (upstream area)^exponent, the rest -1
     (endorheic basins do not drain).
 
     ``acc0``: warm start of the area relaxation (the previous step's
     fixpoint; the fixpoint is unique, so only the convergence changes).
-    ``return_acc=True`` also returns the raw accumulation, to carry it."""
-    hb = blur(height, grid, preblur)
-    code = flow_directions(hb, sel, grid)
-    _, mouth, _ = incoming_mask(code, grid)
+    ``return_acc=True`` also returns the raw accumulation, to carry it.
+
+    ``mesh``: the fields are this rank's blocks.  The pre-blur, directions
+    and masks run on the gathered fields (``sharded_call``); the fixpoint
+    is the two-level sharded solve (``dist.flowdist``) or, where that does
+    not apply, the halo-exchange relaxation (``dist.halo``); ``acc0`` is
+    not used there, as in the reference."""
+    if mesh is not None:
+        return _flow_filter_sharded(height, sel, grid, exponent, preblur,
+                                    acc0, return_acc, mesh)
+    code, mouth = _codes_and_mouths(height, sel, grid, preblur)
     area = cell_area_lower_edge(grid, height.device)
     packed = kf.pack_masks(code, mouth, grid)
     acc = kf.flow_solve_area(packed, area, grid, a0=acc0)
     vis = kf.vis_solve(packed, grid)
+    out = torch.where(vis, torch.pow(acc, exponent), -1.0)
+    return (out, acc) if return_acc else out
+
+
+def _flow_filter_sharded(height, sel, grid: Grid, exponent, preblur, acc0,
+                         return_acc, mesh):
+    from ..dist.flowdist import (flow_sharded_twolevel_supported,
+                                 flow_solve_sharded_twolevel)
+    from ..dist.halo import flow_solve_sharded
+    from ..dist.mesh import local_part, sharded_call
+
+    if not grid.wrap_x:
+        return sharded_call(flow_filter_device, mesh)(
+            height, sel, grid, exponent, preblur, acc0, return_acc)
+    code, mouth = sharded_call(_codes_and_mouths, mesh)(height, sel, grid,
+                                                        preblur)
+    area = local_part(cell_area_lower_edge(grid, height.device), grid.shape,
+                      mesh)
+    if flow_sharded_twolevel_supported(grid, mesh):
+        acc, vis = flow_solve_sharded_twolevel(code, area, mouth, grid, mesh)
+    else:
+        acc, vis = flow_solve_sharded(code, area, mouth, grid, mesh)
     out = torch.where(vis, torch.pow(acc, exponent), -1.0)
     return (out, acc) if return_acc else out

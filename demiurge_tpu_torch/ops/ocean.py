@@ -228,17 +228,33 @@ def advect_clamped_fraction(u, v, terrain, grid: Grid,
 # ---------------------------------------------------------------------------
 
 
-def advect(u, v, terrain, grid: Grid, cfg: OceanConfig):
-    """Semi-Lagrangian advection + wind forcing."""
-    (s2, t2, qx, qy, qz, ax, ay, az, arclength,
-     ex, ey, nx, ny, nz) = _departure(u, v, grid, cfg)
+def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
+    """Semi-Lagrangian advection + wind forcing.
 
+    ``mesh``: the fields are this rank's blocks; the departure points run
+    on the gathered fields (``sharded_call``), the sampler on blocks with
+    one halo exchange and one global radius (``dist.advect``), the rest
+    elementwise on the blocks."""
     if cfg.advect_method != "fast" or not grid.wrap_x:
         raise NotImplementedError(
             "the gather sampler (advect_method='exact', or a grid that is "
             "not x-periodic) is not ported yet")
-    nu, nv = _advect_sample_fast(u, v, s2, t2, grid, cfg.tap_radius_x,
-                                 cfg.tap_radius_y, cfg=cfg)
+    wx, wy = wind_profile(grid, u.device)
+    if mesh is None:
+        dep = _departure(u, v, grid, cfg)
+        nu, nv = _advect_sample_fast(u, v, dep[0], dep[1], grid,
+                                     cfg.tap_radius_x, cfg.tap_radius_y,
+                                     cfg=cfg)
+    else:
+        from ..dist.advect import advect_sample_sharded
+        from ..dist.mesh import local_part, sharded_call
+
+        dep = sharded_call(_departure, mesh)(u, v, grid, cfg)
+        nu, nv = advect_sample_sharded(u, v, dep[0], dep[1], grid, mesh,
+                                       Rx=cfg.tap_radius_x,
+                                       Ry=cfg.tap_radius_y)
+        wx, wy = (local_part(w, grid.shape, mesh) for w in (wx, wy))
+    (_, _, qx, qy, qz, ax, ay, az, arclength, ex, ey, nx, ny, nz) = dep
 
     # parallel transport back (rotate the sampled vector by +arclength);
     # the landing-point basis comes from q: cos(phi2) = hypot(qx, qy)
@@ -280,7 +296,6 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig):
     nv = cfg.dissipation * nv
 
     # wind stress + drag
-    wx, wy = wind_profile(grid, u.device)
     sx = 1.0 + 0.0001 * torch.abs(wx - nu) ** 2
     sy = 1.0 + 0.0001 * torch.abs(wy - nv) ** 2
     drag = 1.0 - 0.4 ** (1.0 / 24.0)
@@ -346,10 +361,20 @@ def _diffusion_quirks(u, v, terrain, grid: Grid, cfg: OceanConfig):
     return u, v
 
 
-def diffusion(u, v, terrain, grid: Grid, cfg: OceanConfig):
+def diffusion(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
     """Implicit-viscosity Jacobi sweeps.  Intent mode runs the coefficient
     sweep (the Jacobi kernel on CUDA tensors); ``exact_quirks`` keeps the
-    reference's sweep as written, as the reference package does."""
+    reference's sweep as written, as the reference package does.  Under a
+    ``mesh`` (blocks) intent mode runs the amortized halo-exchange solver
+    (``dist.halo.diffusion_solve_sharded``)."""
+    if mesh is not None:
+        from ..dist.halo import diffusion_solve_sharded
+        from ..dist.mesh import sharded_call
+
+        if not cfg.exact_quirks and grid.wrap_x:
+            return diffusion_solve_sharded(u, v, terrain, grid, mesh,
+                                           iters=cfg.diffusion_iters)
+        return sharded_call(diffusion, mesh)(u, v, terrain, grid, cfg)
     if cfg.exact_quirks:
         return _diffusion_quirks(u, v, terrain, grid, cfg)
     coeffs = kj.diffusion_coefficients(terrain, grid)
@@ -378,13 +403,25 @@ def divergence(u, v, terrain, grid: Grid, cfg: OceanConfig):
     return 0.5 * ((vEx - vWx) / pwx + (vNy - vSy) / pwy)
 
 
-def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None):
+def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None,
+                   mesh=None):
     """Jacobi Poisson solve for pressure, from zero unless ``p0`` is
-    given (a warm start with the same fixpoint)."""
+    given (a warm start with the same fixpoint).  Under a ``mesh``
+    (blocks), from zero, the amortized halo-exchange solver
+    (``dist.halo.pressure_solve_sharded``)."""
     if cfg.pressure_method == "cg":
         raise NotImplementedError("pressure_method='cg' is not ported yet")
     if cfg.pressure_method not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown pressure_method {cfg.pressure_method!r}")
+    if mesh is not None:
+        from ..dist.halo import pressure_solve_sharded
+        from ..dist.mesh import sharded_call
+
+        if grid.wrap_x and p0 is None:
+            return pressure_solve_sharded(divw, terrain, grid, mesh,
+                                          iters=cfg.jacobi_iters)
+        return sharded_call(pressure_solve, mesh)(divw, terrain, grid, cfg,
+                                                  p0)
     coeffs = kj.coefficients(divw, terrain, grid)
     p = torch.zeros_like(divw) if p0 is None else p0
     return kj.pressure_solve(*coeffs, p, grid, cfg.jacobi_iters)
@@ -447,13 +484,26 @@ def project(u, v, p, terrain, grid: Grid, cfg: OceanConfig):
     return fu, fv
 
 
-def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig()):
-    """One full outer step. Returns (u, v, p, div)."""
-    u, v = advect(u, v, terrain, grid, cfg)
-    u, v = diffusion(u, v, terrain, grid, cfg)
-    div = divergence(u, v, terrain, grid, cfg)
-    p = pressure_solve(div, terrain, grid, cfg)
-    u, v = project(u, v, p, terrain, grid, cfg)
+def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig(),
+               mesh=None):
+    """One full outer step. Returns (u, v, p, div).
+
+    ``mesh``: the fields are this rank's blocks; the sampler and the two
+    iterative solvers run their block forms (``dist.advect``,
+    ``dist.halo``), divergence and projection run on the gathered fields
+    (``sharded_call``)."""
+    if mesh is None:
+        div_fn, project_fn = divergence, project
+    else:
+        from ..dist.mesh import sharded_call
+
+        div_fn = sharded_call(divergence, mesh)
+        project_fn = sharded_call(project, mesh)
+    u, v = advect(u, v, terrain, grid, cfg, mesh=mesh)
+    u, v = diffusion(u, v, terrain, grid, cfg, mesh=mesh)
+    div = div_fn(u, v, terrain, grid, cfg)
+    p = pressure_solve(div, terrain, grid, cfg, mesh=mesh)
+    u, v = project_fn(u, v, p, terrain, grid, cfg)
     return u, v, p, div
 
 

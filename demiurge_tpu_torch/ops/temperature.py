@@ -123,10 +123,27 @@ def insolation_table(grid: Grid, i0: torch.Tensor, substeps: int,
 
 
 def temperature_step(T, terrain, i0, grid: Grid, substeps: int = 10,
-                     albedo: float = 0.30, diffusivity: float = 0.55e6):
+                     albedo: float = 0.30, diffusivity: float = 0.55e6,
+                     mesh=None):
     """Advance the climate model by ``substeps`` substeps from substep index
     ``i0`` (mean anomaly M = 2 pi i / 15000 — Temperature.cpp:146).
-    Returns (T_new, i0 + substeps), the index a 0-d float32 tensor."""
+    Returns (T_new, i0 + substeps), the index a 0-d float32 tensor.
+
+    ``mesh``: a ``dist.mesh.Mesh``; T and terrain are then this rank's
+    blocks, and the substeps run in the row-group layout, K substeps per
+    row-halo exchange (``dist.climate``), or, where that does not apply,
+    on the gathered fields (``sharded_call``)."""
+    if mesh is not None:
+        from ..dist.climate import (climate_sharded_supported,
+                                    climate_step_sharded)
+        from ..dist.mesh import sharded_call
+
+        if climate_sharded_supported(grid, mesh, substeps):
+            return climate_step_sharded(T, terrain, i0, grid, mesh,
+                                        substeps=substeps, albedo=albedo,
+                                        diffusivity=diffusivity)
+        return sharded_call(temperature_step, mesh)(
+            T, terrain, i0, grid, substeps, albedo, diffusivity)
     i0 = _as_index(i0, T.device)
     if substeps == 0:
         return T, i0

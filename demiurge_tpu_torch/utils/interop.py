@@ -7,7 +7,8 @@ arrays) into float32 tensors on a device, ``fields_to_numpy`` goes back,
 ``ocean_config_from_dict`` / ``coupled_config_from_dict`` rebuild a config
 from ``dataclasses.asdict`` of the reference's, and
 ``coupled_state_from_numpy`` / ``coupled_state_to_numpy`` carry a whole
-``CoupledState``.
+``CoupledState``, and ``coupled_state_blocks_from_numpy`` /
+``coupled_state_blocks_to_numpy`` one split over a ``dist.mesh.Mesh``.
 """
 
 from __future__ import annotations
@@ -73,3 +74,27 @@ def coupled_state_to_numpy(state: CoupledState) -> dict:
     """field name -> float32 numpy array, for every CoupledState field."""
     return fields_to_numpy({f.name: getattr(state, f.name)
                             for f in dataclasses.fields(CoupledState)})
+
+
+def coupled_state_blocks_from_numpy(arrays: Mapping[str, np.ndarray], mesh,
+                                    device) -> CoupledState:
+    """This rank's block of a CoupledState given as full-grid numpy arrays
+    (as ``coupled_state_from_numpy``; the 0-d ``t_index`` is replicated)."""
+    from ..dist.mesh import shard_field
+
+    state = coupled_state_from_numpy(arrays, "cpu")
+    return CoupledState(**{
+        f.name: (shard_field(x, mesh) if x.dim() == 2 else x).to(device)
+        for f in dataclasses.fields(CoupledState)
+        for x in [getattr(state, f.name)]})
+
+
+def coupled_state_blocks_to_numpy(state: CoupledState, mesh) -> dict:
+    """Full-grid numpy arrays of a sharded CoupledState, on every rank (a
+    collective: every rank of the mesh calls it)."""
+    from ..dist.mesh import gather_field
+
+    return fields_to_numpy({
+        f.name: (gather_field(x, mesh) if x.dim() == 2 else x)
+        for f in dataclasses.fields(CoupledState)
+        for x in [getattr(state, f.name)]})

@@ -264,3 +264,62 @@ def test_coupled_step_on_the_card_matches_the_cpu(dev):
             assert _rel_err(got, getattr(c, name)) <= 1e-4
     dh = (g.height.cpu() - c.height).abs() / c.height.abs().max()
     assert float((dh > 1e-4).float().mean()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the two-level flow solve's band-local kernels (K10)
+# ---------------------------------------------------------------------------
+
+
+def _flow_inputs(W, H, dev):
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.ops import flow
+
+    grid, h = _terrain(W, H, dev)
+    hb = flow.blur(h, grid, 0.5)
+    code = flow.flow_directions(hb, torch.ones_like(hb), grid)
+    _, mouth, _ = flow.incoming_mask(code, grid)
+    area = flow.cell_area_lower_edge(grid, dev)
+    return grid, code, mouth, area, kf.pack_masks(code, mouth, grid)
+
+
+@pytest.mark.parametrize("band", [16, 32])
+def test_local_flow_kernels_equal_plain_twins(dev, band):
+    """K10a's A and exit ids bit for bit, cold and from a warm start, and
+    K10b's vis exactly with an all-zero and a nonzero seed."""
+    from demiurge_tpu_torch.kernels import flow2 as k2
+
+    grid, _, _, area, packed = _flow_inputs(256, 128, dev)
+    ploc = k2.mask_local(packed, band)
+    before = (k2.LAUNCHES_LOCAL, k2.LAUNCHES_LOCAL_VIS)
+    A, E = k2.flow_local_solve_cuda(ploc, area, area, band)
+    wA, wE = k2.flow_local_solve_plain(ploc, area, area, band)
+    torch.cuda.synchronize()
+    assert torch.equal(A, wA) and torch.equal(E, wE)
+    assert bool((E >= 0).any()) and float(A.max()) > 10 * float(area.max())
+    warm = torch.rand(grid.shape, device=dev) * 2 * area
+    A2, E2 = k2.flow_local_solve_cuda(ploc, area, warm, band, with_exit=False)
+    assert E2 is None and torch.equal(A2, wA)
+    seed = torch.zeros(grid.shape, device=dev)
+    seed[band - 1, ::7] = 1.0
+    seed[band, 3::11] = 1.0
+    for s in (torch.zeros_like(seed), seed):
+        got = k2.flow_local_vis_cuda(ploc, s, band)
+        want = k2.flow_local_vis_plain(ploc, s, band)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert k2.LAUNCHES_LOCAL > before[0] and k2.LAUNCHES_LOCAL_VIS > before[1]
+
+
+def test_twolevel_on_the_card_matches_k7(dev):
+    """flow_solve_twolevel (K10a, the coarse graph, atomic scatter-adds)
+    against K7's A at the reference's bound, rtol 1e-5, atol 1e-7."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow2 as k2
+
+    grid, code, mouth, area, packed = _flow_inputs(256, 128, dev)
+    want = kf.flow_solve_area_cuda(packed, area, grid)
+    for band in (16, 32, 64):
+        got = k2.flow_solve_twolevel(code, area, mouth, grid, band=band)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)

@@ -170,9 +170,25 @@ def test_cli_coupled_and_climate(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint", "ck.npz"], ["--resume"],
-                                  ["--mesh", "2x2"], ["--png", "x.png"]])
+                                  ["--checkpoint-every", "5"],
+                                  ["--png", "x.png"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit) as exc:
         tcli.main(["coupled", "--device", "cpu"] + flag)
     assert exc.value.code != 0
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mesh, says", [("2x2", "needs 4 processes"),
+                                        ("2by2", "expected NYxNX")])
+def test_cli_mesh_needs_its_processes(mesh, says, capsys):
+    """--mesh is ported (tests/test_torch_dist.py runs it under gloo);
+    a mesh that is malformed or does not match the process count is
+    refused before any process group is joined."""
+    import torch.distributed as dist
+
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["coupled", "--device", "cpu", "--mesh", mesh])
+    assert exc.value.code != 0
+    assert says in capsys.readouterr().err
+    assert not dist.is_initialized()

@@ -38,7 +38,9 @@ def _sources():
 PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "ops/temperature.py", "ops/blur.py", "ops/flow.py",
           "ops/erosion.py", "kernels/climate.py", "kernels/blur.py",
-          "kernels/directions.py", "kernels/flow.py")
+          "kernels/directions.py", "kernels/flow.py", "kernels/flow2.py",
+          "dist/mesh.py", "dist/halo.py", "dist/flowdist.py",
+          "dist/climate.py", "dist/advect.py")
 
 
 def test_grep_tests_cover_the_ported_modules():
@@ -67,6 +69,22 @@ def test_only_platform_tests_the_device():
                  if not (p.name == "platform.py" and p.parent.name == "core")
                  and pattern.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_only_platform_picks_the_collective_backend():
+    """NCCL or gloo follows the device the caller names
+    (``collective_backend``); no other module names a backend, so none
+    can pick one because a card is missing."""
+    pattern = re.compile(r"""["'](nccl|gloo)["']""")
+    offenders = [str(p.relative_to(PKG)) for p in _sources()
+                 if not (p.name == "platform.py" and p.parent.name == "core")
+                 and pattern.search(p.read_text())]
+    assert not offenders, offenders
+    from demiurge_tpu_torch.core.platform import collective_backend
+
+    assert collective_backend("cpu") == "gloo"
+    assert collective_backend("cuda") == collective_backend("cuda:1") \
+        == "nccl"
 
 
 def test_use_cuda_kernels_is_false_for_cpu_tensors():
