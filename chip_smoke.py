@@ -11,10 +11,12 @@
    against its plain PyTorch twin on the card, timed with CUDA events:
    pressure Jacobi (200 and 1000 sweeps, within 1e-4 of max|p|), viscosity
    Jacobi (50 sweeps, within 2e-5 of max|u|), the tiered advect sampler
-   (atol 1e-5);
+   (atol 1e-5) and, at 2048x1000 (H not a whole number of 32-row strips),
+   the same kernel with a one-row table (K4b, atol 1e-5);
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
-   at --jacobi 1000, 5 at --jacobi 200) and 5 ``ocean_step``s at the coupled
-   model's solver depths; fails unless its three kernels launched, the
+   at --jacobi 1000, 5 at --jacobi 200, 1 at 2048x1000, which takes the
+   one-row table) and 5 ``ocean_step``s at the coupled model's solver
+   depths; fails unless its kernels launched, the
    fields are finite, the CLI logged ``advect_clamped``, and the kernel
    path's (u, v) match the same 5 steps through the plain twins (1e-5 of
    max|u|);
@@ -50,7 +52,18 @@
    device profile of one mesh step; and ``coupled --mesh 1x1`` through
    ``torch.distributed.run`` (2 steps at 2048x1024): finite logs and K10
    launches;
-9. prints the kernels' JSON line, the card line and, last, the result line
+9. the reference's alternative flow solvers and the packed Jacobi (K11):
+   with every launch counter at 0, the two tools run as subprocesses at
+   2048x1024 (``tools.flow_tune``, which checks K11a-d against K7/K8 on an
+   evolved state, and ``tools.flow_rounds``; both must exit 0 and report
+   their launches) and the packed Jacobi solves the coupled depths (200
+   pressure sweeps, 50 viscosity sweeps on u and v); then, on the flow
+   masks after 10 coupled steps at 2048x1024, K11a-d each bit for bit
+   against its twin, A bit for bit against K7 (the wave within rtol 1e-5,
+   atol 1e-7) and vis equal to K8, timed beside K7+K8; at 8192x4096 the
+   same against K7/K8 without twins; K11e bit for bit against its twin and
+   within phase 3's bounds of K2 and K3, timed beside them;
+10. prints the kernels' JSON line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is non-zero.  Without a card, or
@@ -77,6 +90,7 @@ W, H = 2048, 1024
 SEED = 7
 DEVICE = "cuda"
 BIG = (8192, 4096)      # the coupled CLI's default size
+HB = H - 24             # K4b's grid height: not a whole number of strips
 CLIMATE = (4096, 2048)  # the climate CLI's default size
 
 # published peaks of one H100 SXM (dense, at the 700 W limit)
@@ -141,7 +155,9 @@ def main() -> int:
     from demiurge_tpu_torch.kernels import directions as kd
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.kernels import flow2 as k2
+    from demiurge_tpu_torch.kernels import flow_deadends as kx
     from demiurge_tpu_torch.kernels import jacobi as kj
+    from demiurge_tpu_torch.kernels import jacobi_packed as kp
     from demiurge_tpu_torch.ops import blur as ob
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
     from demiurge_tpu_torch.ops import flow as of
@@ -173,9 +189,18 @@ def main() -> int:
                 "flow_solve": (kf, "LAUNCHES_A"),
                 "flow_vis": (kf, "LAUNCHES_VIS"),
                 "flow_local_solve": (k2, "LAUNCHES_LOCAL"),
-                "flow_local_vis": (k2, "LAUNCHES_LOCAL_VIS")}
-    # the kernels of the single-card path; the mesh path's are phase 8's
-    single_card = [n for n in counters if not n.startswith("flow_local")]
+                "flow_local_vis": (k2, "LAUNCHES_LOCAL_VIS"),
+                "advect_sample_pallas": (ka, "LAUNCHES_ONE_ROW"),
+                "flow_solve_2d": (kx, "LAUNCHES_2D"),
+                "flow_solve_fused": (kx, "LAUNCHES_FUSED"),
+                "flow_solve_wave": (kx, "LAUNCHES_WAVE"),
+                "flow_banded_rounds": (kx, "LAUNCHES_BANDED"),
+                "jacobi_packed": (kp, "LAUNCHES")}
+    # the kernels of the single-card coupled path; the mesh path's are
+    # phase 8's, K4b's phase 4's, K11's phase 9's
+    single_card = ["jacobi_pressure", "jacobi_diffusion",
+                   "advect_sample_tiered", "climate", "blur",
+                   "flow_directions", "flow_solve", "flow_vis"]
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -289,12 +314,41 @@ def main() -> int:
            "demiurge_tpu/pallas_kernels/advect.py:235", err, ms, plain_ms,
            6 * plane, 40 * N, "real clamped (dx, dy), atol 1e-5")
 
+    # K4b: the single-radius form (one-row table), which the ocean takes on
+    # the card when H is not a whole number of 32-row strips
+    grid_b = Grid(W, HB)
+    ub, vb = u[:HB].contiguous(), v[:HB].contiguous()
+    s2b, t2b = ocean._departure(ub, vb, grid_b, cfg)[:2]
+    cb, rb = ocean._row_col(grid_b, dev)
+    rx1, ry1 = cfg.tap_radius_x, cfg.tap_radius_y
+    dxb = torch.clamp(s2b * W - 0.5 - cb, -rx1, rx1)
+    dyb = torch.clamp(t2b * HB - 0.5 - rb, -ry1, ry1)
+    one_row = ka.global_meta(rx1)
+    gu, gv = ka.advect_sample_cuda(ub, vb, dxb, dyb, one_row, HB, ry1)
+    wu, wv = ka.advect_sample_tiered_plain(ub, vb, dxb, dyb, one_row, HB,
+                                           ry1)
+    torch.cuda.synchronize()
+    err = max(max_err(gu, wu), max_err(gv, wv))
+    assert err <= 1e-5, err
+    ms = cuda_ms(lambda: ka.advect_sample_cuda(ub, vb, dxb, dyb, one_row,
+                                               HB, ry1), 20)
+    plain_ms = cuda_ms(lambda: ka.advect_sample_tiered_plain(
+        ub, vb, dxb, dyb, one_row, HB, ry1), 3)
+    nb_ = W * HB
+    record("advect_sample_pallas", "demiurge_tpu_torch/csrc/advect.cu",
+           "demiurge_tpu/pallas_kernels/advect.py:297", err, ms, plain_ms,
+           6 * 4.0 * nb_, (2 * rx1 + 1) * (2 * ry1 + 1) * 7 * nb_,
+           f"K4b at {W}x{HB}: one-row table (Rx {rx1}, Ry {ry1}), atol "
+           f"1e-5; bound: 7 f32 operations a tap")
+
     # -- 4. the ocean path, counted ------------------------------------------
     zero_counts()
     log_text = io.StringIO()
     with contextlib.redirect_stderr(log_text):
         cli.main(["ocean", "--steps", "1"])
         cli.main(["ocean", "--steps", "5", "--jacobi", "200"])
+        cli.main(["ocean", "--width", str(W), "--height", str(HB), "--steps",
+                  "1", "--jacobi", "200"])
     torch.cuda.synchronize()
     u, v = u0, v0
     t0 = time.perf_counter()
@@ -303,12 +357,13 @@ def main() -> int:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 5
     ocean_launches = read_counts(["jacobi_pressure", "jacobi_diffusion",
-                                  "advect_sample_tiered"])
+                                  "advect_sample_tiered",
+                                  "advect_sample_pallas"])
     records = [json.loads(line) for line in log_text.getvalue().splitlines()
                if line.startswith("{")]
     for rec in records:
         print("cli:", json.dumps(rec))
-    assert len(records) == 6, log_text.getvalue()
+    assert len(records) == 7, log_text.getvalue()
     assert all("advect_clamped" in rec for rec in records)
     for name, n in ocean_launches.items():
         assert n > 0, f"{name} was never launched on the ocean path"
@@ -842,9 +897,204 @@ def main() -> int:
     assert cli_launches["flow_local_solve"] > 0
     assert cli_launches["flow_local_vis"] > 0
 
-    # -- 9. results ----------------------------------------------------------
-    main_launches = {**launches, **{n: mesh_launches[n] for n in counters
-                                    if n not in single_card}}
+    # -- 9. K11: the alternative flow solvers and the packed Jacobi --------
+    k11_names = ["flow_solve_2d", "flow_solve_fused", "flow_solve_wave",
+                 "flow_banded_rounds"]
+    zero_counts()
+    tool_cmds = {
+        "flow_tune": [sys.executable, "-m",
+                      "demiurge_tpu_torch.tools.flow_tune", str(W), str(H),
+                      "--reps", "1"],
+        "flow_rounds": [sys.executable, "-m",
+                        "demiurge_tpu_torch.tools.flow_rounds", str(W),
+                        str(H)]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for name, cmd in tool_cmds.items()}
+    tool_out = {name: proc.communicate(timeout=600)
+                for name, proc in procs.items()}
+    tools_s = time.perf_counter() - t0
+    tool_launches = {}
+    for name, proc in procs.items():
+        out, err_text = tool_out[name]
+        for line in out.splitlines():
+            print(f"{name}: {line}")
+        assert proc.returncode == 0, (name, proc.returncode, err_text[-4000:])
+        for kname, n in json_lines(out)[-1]["kernel_launches"].items():
+            tool_launches[kname] = tool_launches.get(kname, 0) + n
+    assert "MISMATCH" not in tool_out["flow_tune"][0]
+    print(f"tools (both, concurrently): {tools_s:.1f} s with start-up")
+
+    # K11e at the coupled depths, on the ocean of phase 4
+    div_e = ocean.divergence(u, v, terrain, grid, cfg)
+    co_e = kj.coefficients(div_e, terrain, grid)
+    dco_e = kj.diffusion_coefficients(terrain, grid)
+    ob_p = kp.pack_ob(terrain, grid, sea_bit=True)
+    tab_p = kp.row_table(grid, "pressure", dev)
+    ob_v = kp.pack_ob(terrain, grid, sea_bit=False)
+    tab_v = kp.row_table(grid, "viscosity", dev)
+    p0 = torch.zeros_like(div_e)
+
+    def packed_pressure():
+        return kp.resident_call_packed(ob_p, tab_p, co_e[5], [p0], grid, 200,
+                                       True, False)
+
+    def packed_viscosity():
+        return kp.resident_call_packed(ob_v, tab_v, None, [u, v], grid, 50,
+                                       False, True)
+
+    (got_p,) = packed_pressure()
+    got_u, got_v = packed_viscosity()
+    torch.cuda.synchronize()
+    k11_launches = {**{n: tool_launches[n] for n in k11_names},
+                    "jacobi_packed": kp.LAUNCHES}
+    print(f"launches on the K11 paths (tools, packed solves): "
+          f"{k11_launches}")
+    for name, n in k11_launches.items():
+        assert n > 0, f"{name} was never launched on its path"
+
+    (want_p,) = kp.resident_call_packed_plain(ob_p, tab_p, co_e[5], [p0],
+                                              grid, 200, True, False)
+    want_u, want_v = kp.resident_call_packed_plain(ob_v, tab_v, None, [u, v],
+                                                   grid, 50, False, True)
+    k2_p = kj.pressure_solve_cuda(*co_e, p0, grid, 200)
+    k3_u, k3_v = kj.diffusion_solve_cuda(*dco_e, u, v, grid, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(got_p, want_p)
+    assert torch.equal(got_u, want_u) and torch.equal(got_v, want_v)
+    scale_p, scale_u = float(k2_p.abs().max()), float(k3_u.abs().max())
+    err_p = max_err(got_p, k2_p)
+    err_u = max(max_err(got_u, k3_u), max_err(got_v, k3_v))
+    assert err_p <= 1e-4 * scale_p and err_u <= 2e-5 * scale_u, \
+        (err_p, scale_p, err_u, scale_u)
+    ms_p = cuda_ms(packed_pressure, 10)
+    ms_v = cuda_ms(packed_viscosity, 10)
+    ms_k2 = cuda_ms(lambda: kj.pressure_solve_cuda(*co_e, p0, grid, 200), 10)
+    ms_k3 = cuda_ms(lambda: kj.diffusion_solve_cuda(*dco_e, u, v, grid, 50),
+                    10)
+    plain_ms = cuda_ms(lambda: kp.resident_call_packed_plain(
+        ob_p, tab_p, co_e[5], [p0], grid, 200, True, False), 1)
+    print(f"  packed viscosity (50 sweeps on u, v): bit-exact against its "
+          f"twin, err/max against K3 {err_u / scale_u:.3e}; {ms_v:.3f} ms "
+          f"against K3 {ms_k3:.3f} ms ({card})")
+    record("jacobi_packed", "demiurge_tpu_torch/csrc/jacobi_packed.cu",
+           "attic/jacobi_packed.py:212", 0.0, ms_p, plain_ms, 4 * plane,
+           200 * 8 * N,
+           f"pressure, 200 sweeps: bit-exact against its twin, err/max "
+           f"against K2 {err_p / scale_p:.3e}; K2 {ms_k2:.3f} ms in the "
+           f"same run")
+    del want_p, want_u, want_v, k2_p, k3_u, k3_v
+
+    # K11a-d on the masks after 10 coupled steps, against twins and K7/K8
+    s10 = model.init_coupled(terrain, grid)
+    for _ in range(10):
+        s10 = model.coupled_step(s10, grid, ccfg)
+    cd10, mo10 = of._codes_and_mouths(s10.height, s10.sel, grid,
+                                      ccfg.flow_preblur)
+    pk10 = kf.pack_masks(cd10, mo10, grid)
+    edges10 = float(sum(((pk10 >> i) & 1).sum() for i in range(8)))
+
+    def timed(fn):
+        """(fn(), device ms of that one call)."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    solvers = {
+        "flow_solve_2d": ("attic/flow_deadends.py:115", kx.flow_solve_2d_cuda,
+                          kx.flow_solve_2d_plain, {}),
+        "flow_solve_fused": ("attic/flow_deadends.py:319",
+                             kx.flow_solve_fused_cuda,
+                             kx.flow_solve_fused_plain, {}),
+        "flow_solve_wave": ("attic/flow_deadends.py:804",
+                            kx.flow_solve_wave_cuda,
+                            kx.flow_solve_wave_plain, {}),
+        "flow_banded_rounds": ("tools/flow_rounds.py:24",
+                               kx.flow_solve_banded_rounds_cuda,
+                               kx.flow_solve_banded_rounds_plain,
+                               {"band": 64, "k": 16})}
+
+    def hold_to_k7(name, A, vis, A7, vis8):
+        """A bit for bit against K7 (the wave within rtol 1e-5, atol
+        1e-7), vis equal to K8; returns the count of differing A cells."""
+        if name == "flow_solve_wave":
+            torch.testing.assert_close(A, A7, rtol=1e-5, atol=1e-7)
+        else:
+            assert torch.equal(A, A7), name
+        assert torch.equal(vis, vis8), name
+        return int((A != A7).sum())
+
+    def k78(pk, ar, g):
+        return kf.flow_solve_area_cuda(pk, ar, g), kf.vis_solve_cuda(pk, g)
+
+    A7, vis8 = k78(pk10, area, grid)
+    k78_ms = cuda_ms(lambda: k78(pk10, area, grid), 3)
+    print(f"K11 at {W}x{H} on the masks after 10 coupled steps; K7+K8 "
+          f"{k78_ms:.3f} ms ({card})")
+    for name, (replaces, cuda_fn, plain_fn, kw) in solvers.items():
+        A, vis, st = cuda_fn(pk10, area, grid, **kw)
+        (wA, wvis, wst), p_ms = timed(lambda: plain_fn(pk10, area, grid,
+                                                       **kw))
+        torch.cuda.synchronize()
+        assert torch.equal(A, wA) and torch.equal(vis, wvis), name
+        differ = hold_to_k7(name, A, vis, A7, vis8)
+        k_ms = cuda_ms(lambda: cuda_fn(pk10, area, grid, **kw), 3)
+        st = {k: v for k, v in st.items() if k != "active"}
+        note = (f"bit-exact against its twin; against K7: {differ} A cells "
+                f"differ, vis equal to K8; stats {st}; twin "
+                f"{ {k: v for k, v in wst.items() if k != 'active'} }; "
+                f"K7+K8 {k78_ms:.3f} ms")
+        if name == "flow_solve_fused":
+            (sA, _, sa), (_, sv, sv_st) = (
+                kx.flow_solve_fused_cuda(pk10, area, grid, mode="A"),
+                kx.flow_solve_fused_cuda(pk10, area, grid, mode="vis"))
+            hold_to_k7(name, sA, sv, A7, vis8)
+            split_ms = cuda_ms(lambda: (
+                kx.flow_solve_fused_cuda(pk10, area, grid, mode="A"),
+                kx.flow_solve_fused_cuda(pk10, area, grid, mode="vis")), 3)
+            note += (f"; split A then vis {split_ms:.3f} ms ({sa['sweeps']} "
+                     f"+ {sv_st['sweeps']} sweeps)")
+        record(name, "demiurge_tpu_torch/csrc/flow_deadends.cu", replaces,
+               0.0, k_ms, p_ms, 3 * plane + N, edges10 + N, note)
+        del wA, wvis
+
+    # at the coupled CLI's default size, against K7/K8 only
+    hb_big = ob.blur(cli._terrain(big_grid, SEED, dev), big_grid,
+                     ccfg.flow_preblur)
+    code_big = of.flow_directions(hb_big, torch.ones_like(hb_big), big_grid)
+    _, mouth_big, _ = of.incoming_mask(code_big, big_grid)
+    pk_big = kf.pack_masks(code_big, mouth_big, big_grid)
+    area_big = of.cell_area_lower_edge(big_grid, dev)
+    del hb_big, code_big, mouth_big
+    (A7b, vis8b), ms7b = timed(lambda: k78(pk_big, area_big, big_grid))
+    big_ms = {"K7+K8": round(ms7b, 3)}
+    for name, (_, cuda_fn, _, kw) in solvers.items():
+        (A, vis, st), ms_b = timed(lambda: cuda_fn(pk_big, area_big,
+                                                   big_grid, **kw))
+        differ = hold_to_k7(name, A, vis, A7b, vis8b)
+        big_ms[name] = round(ms_b, 3)
+        print(f"  {name} at {BIG[0]}x{BIG[1]}: against K7 {differ} A cells "
+              f"differ, vis equal to K8; {ms_b:.3f} ms (one call); stats "
+              f"{ {k: v for k, v in st.items() if k != 'active'} }")
+    print(f"K11 at {BIG[0]}x{BIG[1]} (one call each, CUDA events, {card}): "
+          f"{json.dumps(big_ms)}")
+    del A7b, vis8b, pk_big, area_big
+    torch.cuda.empty_cache()
+
+    # -- 10. results ---------------------------------------------------------
+    main_launches = {**launches,
+                     **{n: mesh_launches[n] for n in ("flow_local_solve",
+                                                      "flow_local_vis")},
+                     "advect_sample_pallas":
+                         ocean_launches["advect_sample_pallas"],
+                     **k11_launches}
     for k in kernels:
         k["launches"] = main_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

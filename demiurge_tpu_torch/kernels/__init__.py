@@ -2,10 +2,11 @@
 its plain PyTorch twin.  ``build`` compiles the sources at first use; it is
 imported only by a wrapper that was handed a CUDA tensor."""
 
-from . import advect, blur, climate, directions, flow, flow2, jacobi
+from . import (advect, blur, climate, directions, flow, flow2,
+               flow_deadends, jacobi, jacobi_packed)
 
 __all__ = ["advect", "blur", "climate", "directions", "flow", "flow2",
-           "jacobi", "launch_counts"]
+           "flow_deadends", "jacobi", "jacobi_packed", "launch_counts"]
 
 
 def launch_counts() -> dict:
@@ -19,4 +20,10 @@ def launch_counts() -> dict:
             "flow_solve": flow.LAUNCHES_A,
             "flow_vis": flow.LAUNCHES_VIS,
             "flow_local_solve": flow2.LAUNCHES_LOCAL,
-            "flow_local_vis": flow2.LAUNCHES_LOCAL_VIS}
+            "flow_local_vis": flow2.LAUNCHES_LOCAL_VIS,
+            "advect_sample_pallas": advect.LAUNCHES_ONE_ROW,
+            "flow_solve_2d": flow_deadends.LAUNCHES_2D,
+            "flow_solve_fused": flow_deadends.LAUNCHES_FUSED,
+            "flow_solve_wave": flow_deadends.LAUNCHES_WAVE,
+            "flow_banded_rounds": flow_deadends.LAUNCHES_BANDED,
+            "jacobi_packed": jacobi_packed.LAUNCHES}

@@ -12,7 +12,9 @@ row (``global_meta``) gives the single-radius form.
 
 ``advect_sample`` launches the CUDA kernel (``csrc/advect.cu``) for CUDA
 tensors and runs the plain twin ``advect_sample_tiered_plain`` — the literal
-tap sum — for CPU tensors.  ``LAUNCHES`` counts kernel launches.
+tap sum — for CPU tensors.  ``LAUNCHES`` counts kernel launches;
+``LAUNCHES_ONE_ROW`` counts those of them with a one-row table, the
+single-radius form that replaces the reference's ``advect_sample_pallas``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ RF = 6         # exact-tap radius inside a polar strip
 STRIDE = 8     # lattice stride of a polar strip's coarse taps
 
 LAUNCHES = 0
+LAUNCHES_ONE_ROW = 0
 
 
 def strip_radii(grid, vmax: float, timestep: float, strip: int = STRIP,
@@ -109,7 +112,7 @@ def advect_sample_tiered_plain(u, v, dx, dy, meta, strip_rows: int, Ry: int):
 def advect_sample_cuda(u, v, dx, dy, meta, strip_rows: int, Ry: int):
     """The closed-form sampler on the card: one thread per pixel, one
     launch on the current stream, no synchronisation."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_ONE_ROW
     check_kernel_inputs(("u", "v", "dx", "dy"), (u, v, dx, dy),
                         shape=tuple(u.shape))
     H, W = u.shape
@@ -125,6 +128,7 @@ def advect_sample_cuda(u, v, dx, dy, meta, strip_rows: int, Ry: int):
         ov.data_ptr(), H, W, Ry, RF, STRIDE, stream)
     build.check(err, "demiurge_advect_sample")
     LAUNCHES += 1
+    LAUNCHES_ONE_ROW += int(meta.shape[0] == 1)
     return ou, ov
 
 

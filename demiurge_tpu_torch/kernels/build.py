@@ -61,6 +61,18 @@ SIGNATURES = {
     "demiurge_flow_local_sweeps": [_P] * 5 + [_I] * 4 + [_P],
     # packed vis flags, H W band n, stream
     "demiurge_flow_local_vis_sweeps": [_P] * 3 + [_I] * 4 + [_P],
+    # packed area A vis flags bands(host), nact H W band k, stream
+    "demiurge_flow_banded_round": [_P] * 6 + [_I] * 5 + [_P],
+    # packed area A vis prev cur act, H W ty tx k, stream
+    "demiurge_flow_tiles_round": [_P] * 7 + [_I] * 5 + [_P],
+    # packed d0 d1 A vis flags, H W first n, stream
+    "demiurge_flow_wave_sweeps": [_P] * 6 + [_I] * 4 + [_P],
+    # packed area A vis ws, H W band k narrow mode max_rounds, blocks(host),
+    # stream
+    "demiurge_flow_fused": [_P] * 5 + [_I] * 7 + [_P] * 2,
+    # ob rowtab b in0 in1 ping0 pong0 ping1 pong1, H W wrap_x wrap_s wrap_n
+    # pole_shift sea_mask negate iters, stream
+    "demiurge_jacobi_packed": [_P] * 9 + [_I] * 9 + [_P],
 }
 
 

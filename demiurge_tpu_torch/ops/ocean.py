@@ -215,7 +215,10 @@ def advect_clamped_fraction(u, v, terrain, grid: Grid,
     dx = torch.remainder(dx + W / 2.0, float(W)) - W / 2.0   # shortest wrap
     dy = t2 * H - 0.5 - r
     radii = ka.strip_radii(grid, resolved_vmax(cfg), cfg.timestep)
-    rxrow = _strip_radius_rows(radii, H // len(radii), u.device)
+    # the last strip is short when H is not a whole number of strips (the
+    # reference repeats H // len(radii) rows a strip, which then does not
+    # cover H and fails to broadcast)
+    rxrow = _strip_radius_rows(radii, ka.STRIP, u.device)[:H]
     ry = tap_radius_y(grid, cfg)
     clamped = (torch.abs(dx) > rxrow) | (torch.abs(dy) > ry)
     water = terrain <= 0

@@ -8,7 +8,9 @@ arrays) into float32 tensors on a device, ``fields_to_numpy`` goes back,
 from ``dataclasses.asdict`` of the reference's, and
 ``coupled_state_from_numpy`` / ``coupled_state_to_numpy`` carry a whole
 ``CoupledState``, and ``coupled_state_blocks_from_numpy`` /
-``coupled_state_blocks_to_numpy`` one split over a ``dist.mesh.Mesh``.
+``coupled_state_blocks_to_numpy`` one split over a ``dist.mesh.Mesh``;
+``packed_jacobi_from_reference`` cuts the packed Jacobi's padded tables
+down to the port's unpadded ones.
 """
 
 from __future__ import annotations
@@ -87,6 +89,17 @@ def coupled_state_blocks_from_numpy(arrays: Mapping[str, np.ndarray], mesh,
         f.name: (shard_field(x, mesh) if x.dim() == 2 else x).to(device)
         for f in dataclasses.fields(CoupledState)
         for x in [getattr(state, f.name)]})
+
+
+def packed_jacobi_from_reference(ob_padded: np.ndarray,
+                                 rowtab_padded: np.ndarray, k: int):
+    """The port's (H, W) obstacle bits and (H, 3) row table from the
+    reference's padded ones (``attic/jacobi_packed.py`` ``_pack_ob``, (R, W)
+    int32, and ``_row_table``, (R, 8) float32, R = H + 2k): the interior
+    rows, and the table's (cx, cy, c0) columns."""
+    ob = np.array(np.asarray(ob_padded)[k:-k], dtype=np.int32)
+    tab = np.array(np.asarray(rowtab_padded)[k:-k, :3], dtype=np.float32)
+    return ob, tab
 
 
 def coupled_state_blocks_to_numpy(state: CoupledState, mesh) -> dict:

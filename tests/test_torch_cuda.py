@@ -323,3 +323,104 @@ def test_twolevel_on_the_card_matches_k7(dev):
         got = k2.flow_solve_twolevel(code, area, mouth, grid, band=band)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the reference's alternative flow solvers (K11a-d) and the packed Jacobi
+# (K11e)
+# ---------------------------------------------------------------------------
+
+
+def _deadend_solvers():
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+
+    return {
+        "banded": (lambda p, a, g: kd.flow_solve_banded_rounds_cuda(
+            p, a, g, band=16, k=8), lambda p, a, g:
+            kd.flow_solve_banded_rounds_plain(p, a, g, band=16, k=8),
+            "LAUNCHES_BANDED"),
+        "tiles": (lambda p, a, g: kd.flow_solve_2d_cuda(p, a, g, k=8),
+                  lambda p, a, g: kd.flow_solve_2d_plain(p, a, g, k=8),
+                  "LAUNCHES_2D"),
+        **{f"fused-{m}": (
+            lambda p, a, g, m=m: kd.flow_solve_fused_cuda(
+                p, a, g, band=32, narrow=128, mode=m),
+            lambda p, a, g, m=m: kd.flow_solve_fused_plain(
+                p, a, g, band=32, narrow=128, mode=m),
+            "LAUNCHES_FUSED") for m in ("both", "A", "vis")},
+        "wave": (kd.flow_solve_wave_cuda, kd.flow_solve_wave_plain,
+                 "LAUNCHES_WAVE"),
+    }
+
+
+@pytest.mark.parametrize("name", ["banded", "tiles", "fused-both", "fused-A",
+                                  "fused-vis", "wave"])
+def test_deadend_flow_kernels_equal_plain_twins(dev, name):
+    """A bit for bit and vis exactly against the twin; A bit for bit
+    against K7 (the wave within rtol 1e-5, atol 1e-7: it adds arrivals in
+    hop order) and vis against K8."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+
+    # 1536x384, fBm: long rivers, and the 2-D solve's 128x512 tiles come
+    # 3x3, so tiles skip once the activity narrows
+    from demiurge_tpu_torch.ops.noise import NoiseParams, fbm
+    from demiurge_tpu_torch.tools import flow_inputs
+
+    grid = Grid(1536, 384)
+    packed, area = flow_inputs(fbm(grid, NoiseParams(
+        octaves=4, scale=2.0, min=-2.0, max=3.0, seed=7), dev), grid)
+    mouth = ((packed >> 16) & 1).bool()
+    cuda, plain, counter = _deadend_solvers()[name]
+    before = getattr(kd, counter)
+    A, vis, stats = cuda(packed, area, grid)
+    wA, wvis, _ = plain(packed, area, grid)
+    torch.cuda.synchronize()
+    assert getattr(kd, counter) > before and stats["launches"] > 0
+    assert torch.equal(A, wA) and torch.equal(vis, wvis)
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    if name == "fused-vis":
+        assert torch.equal(A, area)
+    elif name == "wave":
+        torch.testing.assert_close(A, A7, rtol=1e-5, atol=1e-7)
+    else:
+        assert torch.equal(A, A7)
+    assert torch.equal(vis, mouth if name == "fused-A" else vis8)
+
+
+@pytest.mark.parametrize("coords", [GLOBAL, REGIONAL],
+                         ids=["global", "regional"])
+def test_packed_jacobi_kernel_equals_plain_twin(dev, coords):
+    """Both solves bit for bit against the twin, and within phase 3's
+    bounds of the coefficient-plane kernels K2 and K3."""
+    from demiurge_tpu_torch.kernels import jacobi_packed as kp
+
+    grid, h, u, v = _case(256, 128, coords, dev)
+    div = ocean.divergence(u, v, h, grid, ocean.OceanConfig())
+    coeffs = kj.coefficients(div, h, grid)
+    p0 = torch.zeros_like(div)
+    ob = kp.pack_ob(h, grid, sea_bit=True)
+    tab = kp.row_table(grid, "pressure", dev)
+    before = kp.LAUNCHES
+    (got,) = kp.resident_call_packed_cuda(ob, tab, coeffs[5], [p0], grid, 41,
+                                          True, False)
+    (want,) = kp.resident_call_packed_plain(ob, tab, coeffs[5], [p0], grid,
+                                            41, True, False)
+    k2 = kj.pressure_solve_cuda(*coeffs, p0, grid, 41)
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES - before == 41
+    assert torch.equal(got, want)
+    assert _rel_err(got, k2) <= 1e-4
+
+    dco = kj.diffusion_coefficients(h, grid)
+    obv = kp.pack_ob(h, grid, sea_bit=False)
+    tabv = kp.row_table(grid, "viscosity", dev)
+    gu, gv = kp.resident_call_packed_cuda(obv, tabv, None, [u, v], grid, 50,
+                                          False, True)
+    wu, wv = kp.resident_call_packed_plain(obv, tabv, None, [u, v], grid, 50,
+                                           False, True)
+    ku, kv = kj.diffusion_solve_cuda(*dco, u, v, grid, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(gu, wu) and torch.equal(gv, wv)
+    assert _rel_err(gu, ku) <= 2e-5 and _rel_err(gv, kv) <= 2e-5

@@ -40,7 +40,9 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "ops/erosion.py", "kernels/climate.py", "kernels/blur.py",
           "kernels/directions.py", "kernels/flow.py", "kernels/flow2.py",
           "dist/mesh.py", "dist/halo.py", "dist/flowdist.py",
-          "dist/climate.py", "dist/advect.py")
+          "dist/climate.py", "dist/advect.py", "kernels/flow_deadends.py",
+          "kernels/jacobi_packed.py", "tools/__init__.py",
+          "tools/flow_rounds.py", "tools/flow_tune.py")
 
 
 def test_grep_tests_cover_the_ported_modules():
@@ -135,6 +137,38 @@ def test_coupled_kernel_wrappers_raise_on_cpu_tensors():
             call()
     assert (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kf.LAUNCHES_A,
             kf.LAUNCHES_VIS) == counts
+
+
+def test_k11_kernel_wrappers_raise_on_cpu_tensors():
+    from demiurge_tpu_torch.kernels import flow_deadends as kx
+    from demiurge_tpu_torch.kernels import jacobi_packed as kp
+
+    g = Grid(256, 128)
+    z = torch.zeros(g.shape)
+    packed = torch.zeros(g.shape, dtype=torch.int32)
+    counts = (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
+              kx.LAUNCHES_BANDED, kp.LAUNCHES)
+    for call in (lambda: kx.flow_solve_2d_cuda(packed, z, g),
+                 lambda: kx.flow_solve_fused_cuda(packed, z, g),
+                 lambda: kx.flow_solve_wave_cuda(packed, z, g),
+                 lambda: kx.flow_solve_banded_rounds_cuda(packed, z, g),
+                 lambda: kp.resident_call_packed_cuda(
+                     packed, torch.zeros(128, 3), None, [z], g, 2, False,
+                     True)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
+            kx.LAUNCHES_BANDED, kp.LAUNCHES) == counts
+
+
+def test_launch_counts_name_every_counter():
+    """The CLI's kernel_launches line names every wrapper's counter."""
+    from demiurge_tpu_torch.kernels import launch_counts
+
+    names = set(launch_counts())
+    assert {"advect_sample_pallas", "flow_solve_2d", "flow_solve_fused",
+            "flow_solve_wave", "flow_banded_rounds", "jacobi_packed"} <= names
+    assert len(names) == 16
 
 
 def test_interop_round_trip_and_config():
