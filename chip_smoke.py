@@ -53,16 +53,16 @@
    ``torch.distributed.run`` (2 steps at 2048x1024): finite logs and K10
    launches;
 9. the reference's alternative flow solvers and the packed Jacobi (K11):
-   with every launch counter at 0, the two tools run as subprocesses at
-   2048x1024 (``tools.flow_tune``, which checks K11a-d against K7/K8 on an
-   evolved state, and ``tools.flow_rounds``; both must exit 0 and report
-   their launches) and the packed Jacobi solves the coupled depths (200
-   pressure sweeps, 50 viscosity sweeps on u and v); then, on the flow
-   masks after 10 coupled steps at 2048x1024, K11a-d each bit for bit
-   against its twin, A bit for bit against K7 (the wave within rtol 1e-5,
-   atol 1e-7) and vis equal to K8, timed beside K7+K8; at 8192x4096 the
-   same against K7/K8 without twins; K11e bit for bit against its twin and
-   within phase 3's bounds of K2 and K3, timed beside them;
+   ``tools.flow_rounds`` at 2048x1024 as a subprocess (must exit 0 and
+   report K11d launches); then, with every launch counter at 0,
+   ``tools.flow_tune``'s run in this process at 2048x1024 (on the flow
+   masks after 10 coupled steps: K11a-d each bit for bit against its
+   twin, A bit for bit against K7, the wave within rtol 1e-5, atol 1e-7,
+   vis equal to K8, each timed beside K7+K8) and the packed Jacobi (K11e)
+   at the coupled depths (200 pressure sweeps, 50 viscosity sweeps on u
+   and v), bit for bit against its twin and within phase 3's bounds of K2
+   and K3, timed beside them; at 8192x4096, K11a-d against K7/K8 without
+   twins, one call each;
 10. prints the kernels' JSON line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -161,6 +161,7 @@ def main() -> int:
     from demiurge_tpu_torch.ops import blur as ob
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
     from demiurge_tpu_torch.ops import flow as of
+    from demiurge_tpu_torch.tools import flow_tune as ft
 
     # -- 1. setup ------------------------------------------------------------
     card = card_line()
@@ -337,9 +338,9 @@ def main() -> int:
     nb_ = W * HB
     record("advect_sample_pallas", "demiurge_tpu_torch/csrc/advect.cu",
            "demiurge_tpu/pallas_kernels/advect.py:297", err, ms, plain_ms,
-           6 * 4.0 * nb_, (2 * rx1 + 1) * (2 * ry1 + 1) * 7 * nb_,
+           6 * 4.0 * nb_, 40 * nb_,
            f"K4b at {W}x{HB}: one-row table (Rx {rx1}, Ry {ry1}), atol "
-           f"1e-5; bound: 7 f32 operations a tap")
+           f"1e-5")
 
     # -- 4. the ocean path, counted ------------------------------------------
     zero_counts()
@@ -898,36 +899,25 @@ def main() -> int:
     assert cli_launches["flow_local_vis"] > 0
 
     # -- 9. K11: the alternative flow solvers and the packed Jacobi --------
-    k11_names = ["flow_solve_2d", "flow_solve_fused", "flow_solve_wave",
-                 "flow_banded_rounds"]
-    zero_counts()
-    tool_cmds = {
-        "flow_tune": [sys.executable, "-m",
-                      "demiurge_tpu_torch.tools.flow_tune", str(W), str(H),
-                      "--reps", "1"],
-        "flow_rounds": [sys.executable, "-m",
-                        "demiurge_tpu_torch.tools.flow_rounds", str(W),
-                        str(H)]}
+    rounds_cmd = [sys.executable, "-m", "demiurge_tpu_torch.tools.flow_rounds",
+                  str(W), str(H)]
     t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE)
-             for name, cmd in tool_cmds.items()}
-    tool_out = {name: proc.communicate(timeout=600)
-                for name, proc in procs.items()}
-    tools_s = time.perf_counter() - t0
-    tool_launches = {}
-    for name, proc in procs.items():
-        out, err_text = tool_out[name]
-        for line in out.splitlines():
-            print(f"{name}: {line}")
-        assert proc.returncode == 0, (name, proc.returncode, err_text[-4000:])
-        for kname, n in json_lines(out)[-1]["kernel_launches"].items():
-            tool_launches[kname] = tool_launches.get(kname, 0) + n
-    assert "MISMATCH" not in tool_out["flow_tune"][0]
-    print(f"tools (both, concurrently): {tools_s:.1f} s with start-up")
+    run = subprocess.run(rounds_cmd, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    for line in run.stdout.splitlines():
+        print(f"flow_rounds: {line}")
+    assert run.returncode == 0, (run.returncode, run.stderr[-4000:])
+    rounds_launches = json_lines(run.stdout)[-1]["kernel_launches"]
+    assert rounds_launches["flow_banded_rounds"] > 0, rounds_launches
+    print(f"flow_rounds: {time.perf_counter() - t0:.1f} s with start-up")
 
-    # K11e at the coupled depths, on the ocean of phase 4
+    # flow_tune's run in this process, each solver also held to its twin;
+    # then K11e at the coupled depths, on the ocean of phase 4
+    k11_names = ["flow_solve_2d", "flow_solve_fused", "flow_solve_wave",
+                 "flow_banded_rounds", "jacobi_packed"]
+    zero_counts()
+    pk10, tune_rows, tune_ok = ft.run(W, H, DEVICE, twins=True)
+    assert tune_ok, "flow_tune: a solver disagrees with K7/K8 or its twin"
     div_e = ocean.divergence(u, v, terrain, grid, cfg)
     co_e = kj.coefficients(div_e, terrain, grid)
     dco_e = kj.diffusion_coefficients(terrain, grid)
@@ -948,9 +938,8 @@ def main() -> int:
     (got_p,) = packed_pressure()
     got_u, got_v = packed_viscosity()
     torch.cuda.synchronize()
-    k11_launches = {**{n: tool_launches[n] for n in k11_names},
-                    "jacobi_packed": kp.LAUNCHES}
-    print(f"launches on the K11 paths (tools, packed solves): "
+    k11_launches = read_counts(k11_names)
+    print(f"launches on the K11 paths (flow_tune, packed solves): "
           f"{k11_launches}")
     for name, n in k11_launches.items():
         assert n > 0, f"{name} was never launched on its path"
@@ -979,22 +968,33 @@ def main() -> int:
     print(f"  packed viscosity (50 sweeps on u, v): bit-exact against its "
           f"twin, err/max against K3 {err_u / scale_u:.3e}; {ms_v:.3f} ms "
           f"against K3 {ms_k3:.3f} ms ({card})")
+    # a pressure sweep: cx*(pE+pW) + cy*(pN+pS) + b, 6 operations a pixel
     record("jacobi_packed", "demiurge_tpu_torch/csrc/jacobi_packed.cu",
            "attic/jacobi_packed.py:212", 0.0, ms_p, plain_ms, 4 * plane,
-           200 * 8 * N,
+           200 * 6 * N,
            f"pressure, 200 sweeps: bit-exact against its twin, err/max "
            f"against K2 {err_p / scale_p:.3e}; K2 {ms_k2:.3f} ms in the "
            f"same run")
     del want_p, want_u, want_v, k2_p, k3_u, k3_v
 
-    # K11a-d on the masks after 10 coupled steps, against twins and K7/K8
-    s10 = model.init_coupled(terrain, grid)
-    for _ in range(10):
-        s10 = model.coupled_step(s10, grid, ccfg)
-    cd10, mo10 = of._codes_and_mouths(s10.height, s10.sel, grid,
-                                      ccfg.flow_preblur)
-    pk10 = kf.pack_masks(cd10, mo10, grid)
+    # K11a-d from flow_tune's rows: bit-exact against their twins there
     edges10 = float(sum(((pk10 >> i) & 1).sum() for i in range(8)))
+    replaces = {"flow_solve_2d": "attic/flow_deadends.py:115",
+                "flow_solve_fused": "attic/flow_deadends.py:319",
+                "flow_solve_wave": "attic/flow_deadends.py:804",
+                "flow_banded_rounds": "tools/flow_rounds.py:24"}
+    k78_ms = tune_rows[0]["ms"]
+    split_row = next(r for r in tune_rows if "split" in r["label"])
+    for name, where in replaces.items():
+        row = next(r for r in tune_rows if r["kernel"] == name)
+        note = (f"{row['label']}: bit-exact against its twin; against K7: "
+                f"{row['differ']} A cells differ, vis equal to K8; stats "
+                f"{row['stats']}; K7+K8 {k78_ms:.3f} ms")
+        if name == "flow_solve_fused":
+            note += f"; split A then vis {split_row['ms']:.3f} ms"
+        record(name, "demiurge_tpu_torch/csrc/flow_deadends.cu", where, 0.0,
+               row["ms"], row["twin_ms"], 3 * plane + N, edges10 + N, note)
+    del pk10
 
     def timed(fn):
         """(fn(), device ms of that one call)."""
@@ -1007,64 +1007,6 @@ def main() -> int:
         end.synchronize()
         return out, start.elapsed_time(end)
 
-    solvers = {
-        "flow_solve_2d": ("attic/flow_deadends.py:115", kx.flow_solve_2d_cuda,
-                          kx.flow_solve_2d_plain, {}),
-        "flow_solve_fused": ("attic/flow_deadends.py:319",
-                             kx.flow_solve_fused_cuda,
-                             kx.flow_solve_fused_plain, {}),
-        "flow_solve_wave": ("attic/flow_deadends.py:804",
-                            kx.flow_solve_wave_cuda,
-                            kx.flow_solve_wave_plain, {}),
-        "flow_banded_rounds": ("tools/flow_rounds.py:24",
-                               kx.flow_solve_banded_rounds_cuda,
-                               kx.flow_solve_banded_rounds_plain,
-                               {"band": 64, "k": 16})}
-
-    def hold_to_k7(name, A, vis, A7, vis8):
-        """A bit for bit against K7 (the wave within rtol 1e-5, atol
-        1e-7), vis equal to K8; returns the count of differing A cells."""
-        if name == "flow_solve_wave":
-            torch.testing.assert_close(A, A7, rtol=1e-5, atol=1e-7)
-        else:
-            assert torch.equal(A, A7), name
-        assert torch.equal(vis, vis8), name
-        return int((A != A7).sum())
-
-    def k78(pk, ar, g):
-        return kf.flow_solve_area_cuda(pk, ar, g), kf.vis_solve_cuda(pk, g)
-
-    A7, vis8 = k78(pk10, area, grid)
-    k78_ms = cuda_ms(lambda: k78(pk10, area, grid), 3)
-    print(f"K11 at {W}x{H} on the masks after 10 coupled steps; K7+K8 "
-          f"{k78_ms:.3f} ms ({card})")
-    for name, (replaces, cuda_fn, plain_fn, kw) in solvers.items():
-        A, vis, st = cuda_fn(pk10, area, grid, **kw)
-        (wA, wvis, wst), p_ms = timed(lambda: plain_fn(pk10, area, grid,
-                                                       **kw))
-        torch.cuda.synchronize()
-        assert torch.equal(A, wA) and torch.equal(vis, wvis), name
-        differ = hold_to_k7(name, A, vis, A7, vis8)
-        k_ms = cuda_ms(lambda: cuda_fn(pk10, area, grid, **kw), 3)
-        st = {k: v for k, v in st.items() if k != "active"}
-        note = (f"bit-exact against its twin; against K7: {differ} A cells "
-                f"differ, vis equal to K8; stats {st}; twin "
-                f"{ {k: v for k, v in wst.items() if k != 'active'} }; "
-                f"K7+K8 {k78_ms:.3f} ms")
-        if name == "flow_solve_fused":
-            (sA, _, sa), (_, sv, sv_st) = (
-                kx.flow_solve_fused_cuda(pk10, area, grid, mode="A"),
-                kx.flow_solve_fused_cuda(pk10, area, grid, mode="vis"))
-            hold_to_k7(name, sA, sv, A7, vis8)
-            split_ms = cuda_ms(lambda: (
-                kx.flow_solve_fused_cuda(pk10, area, grid, mode="A"),
-                kx.flow_solve_fused_cuda(pk10, area, grid, mode="vis")), 3)
-            note += (f"; split A then vis {split_ms:.3f} ms ({sa['sweeps']} "
-                     f"+ {sv_st['sweeps']} sweeps)")
-        record(name, "demiurge_tpu_torch/csrc/flow_deadends.cu", replaces,
-               0.0, k_ms, p_ms, 3 * plane + N, edges10 + N, note)
-        del wA, wvis
-
     # at the coupled CLI's default size, against K7/K8 only
     hb_big = ob.blur(cli._terrain(big_grid, SEED, dev), big_grid,
                      ccfg.flow_preblur)
@@ -1073,16 +1015,18 @@ def main() -> int:
     pk_big = kf.pack_masks(code_big, mouth_big, big_grid)
     area_big = of.cell_area_lower_edge(big_grid, dev)
     del hb_big, code_big, mouth_big
-    (A7b, vis8b), ms7b = timed(lambda: k78(pk_big, area_big, big_grid))
+    big_solvers = ft.solvers(pk_big, area_big, big_grid)
+    (A7b, vis8b, _), ms7b = timed(big_solvers[0][2])
     big_ms = {"K7+K8": round(ms7b, 3)}
-    for name, (_, cuda_fn, _, kw) in solvers.items():
-        (A, vis, st), ms_b = timed(lambda: cuda_fn(pk_big, area_big,
-                                                   big_grid, **kw))
-        differ = hold_to_k7(name, A, vis, A7b, vis8b)
-        big_ms[name] = round(ms_b, 3)
-        print(f"  {name} at {BIG[0]}x{BIG[1]}: against K7 {differ} A cells "
-              f"differ, vis equal to K8; {ms_b:.3f} ms (one call); stats "
+    for label, _, solve, _, exact in big_solvers[1:]:
+        (A, vis, st), ms_b = timed(solve)
+        assert ft.agrees(A, vis, A7b, vis8b, exact), label
+        big_ms[label] = round(ms_b, 3)
+        print(f"  {label} at {BIG[0]}x{BIG[1]}: against K7 "
+              f"{int((A != A7b).sum())} A cells differ, vis equal to K8; "
+              f"{ms_b:.3f} ms (one call); stats "
               f"{ {k: v for k, v in st.items() if k != 'active'} }")
+        del A, vis
     print(f"K11 at {BIG[0]}x{BIG[1]} (one call each, CUDA events, {card}): "
           f"{json.dumps(big_ms)}")
     del A7b, vis8b, pk_big, area_big

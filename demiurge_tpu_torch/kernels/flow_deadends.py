@@ -27,8 +27,8 @@ fixpoint is unique; ``csrc/flow_deadends.cu`` gives the argument that the
 skip rules keep it) but for the wave, whose A adds arrivals in hop order.
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 twin (Jacobi sweeps under the same rules) for CPU tensors.  The
-``LAUNCHES_*`` counters count kernel launches: sweeps for K11a, c and d,
-one a solve for K11b.
+``LAUNCHES_*`` counters count kernel launches: one a sweep for K11c and d,
+one a sweep and one activity pass a round for K11a, one a solve for K11b.
 """
 
 from __future__ import annotations
@@ -316,8 +316,8 @@ def flow_solve_2d_cuda(packed, area, grid: Grid, k: int = 16):
                        vis.data_ptr(), prev.data_ptr(), cur.data_ptr(),
                        act.data_ptr(), H, W, ty, tx, k, _stream(A)),
                     "demiurge_flow_tiles_round")
-        LAUNCHES_2D += k
-        launched += k
+        LAUNCHES_2D += k + 1  # the activity pass and k sweeps
+        launched += k + 1
         flags = np.asarray(cur.tolist(), np.int32).reshape(nby, nbx)
         prev, cur = cur, prev
         rounds += 1

@@ -376,7 +376,9 @@ def test_deadend_flow_kernels_equal_plain_twins(dev, name):
     A, vis, stats = cuda(packed, area, grid)
     wA, wvis, _ = plain(packed, area, grid)
     torch.cuda.synchronize()
-    assert getattr(kd, counter) > before and stats["launches"] > 0
+    assert getattr(kd, counter) - before == stats["launches"] > 0
+    if name == "tiles":  # the activity pass and k = 8 sweeps a round
+        assert stats["launches"] == 9 * stats["rounds"]
     assert torch.equal(A, wA) and torch.equal(vis, wvis)
     A7 = kf.flow_solve_area_cuda(packed, area, grid)
     vis8 = kf.vis_solve_cuda(packed, grid)

@@ -272,18 +272,39 @@ def _window_rule(H, W, band, k, narrow):
     return rule
 
 
-@pytest.mark.parametrize("rule", ["banded", "windows"])
+def _tile_rule(H, W, ty, tx, reach=1):
+    """K11a's rule: the tiles of whose 3x3 tile neighbourhood (x wraps, y
+    clips) changed; ``reach`` 0 is a wrong rule, a tile's own flag only."""
+    def rule(changed):
+        if changed is None:
+            return np.ones((H, W), bool)
+        flags = changed.reshape(H // ty, ty, W // tx, tx).any(axis=(1, 3))
+        act = kd.tile_activity(flags) if reach else flags
+        return act.repeat(ty, 0).repeat(tx, 1)
+    return rule
+
+
+@pytest.mark.parametrize("rule", ["banded", "windows", "tiles"])
 @pytest.mark.parametrize("order_seed", [0, 1])
 def test_in_place_schedule_with_skips_reaches_the_fixpoint(rule, order_seed):
-    """The kernels' schedule (in-place, any row order) under the band and
-    window skip rules certifies K7's A bit for bit and K8's vis."""
-    tg, packed, area = _port_case(64, 32)
-    chosen = (_banded_rule(32, 64, 8, 2) if rule == "banded"
-              else _window_rule(32, 64, 8, 2, 12))
-    A, vis = _in_place_rounds(packed, area, chosen, order_seed, k=2)
-    np.testing.assert_array_equal(
-        A, kf.flow_solve_area_plain(packed, area, tg).numpy())
+    """The kernels' schedule (in-place, any row order) under the band,
+    window and 3x3 tile skip rules certifies K7's A bit for bit and K8's
+    vis.  The tiles are 8x8 of (8, 16) with one sweep a round, a case where
+    the rule skips quiet tiles and a tile's own flag alone would stop
+    short."""
+    W, H = (128, 64) if rule == "tiles" else (64, 32)
+    tg, packed, area = _port_case(W, H)
+    chosen, k = {"banded": (_banded_rule(H, W, 8, 2), 2),
+                 "windows": (_window_rule(H, W, 8, 2, 12), 2),
+                 "tiles": (_tile_rule(H, W, 8, 16), 1)}[rule]
+    A, vis = _in_place_rounds(packed, area, chosen, order_seed, k=k)
+    want_A = kf.flow_solve_area_plain(packed, area, tg).numpy()
+    np.testing.assert_array_equal(A, want_A)
     np.testing.assert_array_equal(vis, kf.vis_solve_plain(packed, tg).numpy())
+    if rule == "tiles":
+        A_own, _ = _in_place_rounds(packed, area, _tile_rule(H, W, 8, 16, 0),
+                                    order_seed, k=k)
+        assert not np.array_equal(A_own, want_A)
 
 
 def test_cpu_tensors_take_the_twins(case):

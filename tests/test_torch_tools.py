@@ -40,8 +40,8 @@ def test_flow_rounds_prints_the_reference_lines(capsys):
 
 
 def test_flow_tune_checks_every_solver(capsys):
-    rc, lines = _run(flow_tune.main, ["128", "64", "--device", "cpu",
-                                      "--reps", "1"], capsys)
+    rc, lines = _run(flow_tune.main, ["128", "64", "--device", "cpu"],
+                            capsys)
     assert rc == 0
     assert lines[0].startswith("flow_tune 128x64 after 10 coupled steps on "
                                "cpu")
@@ -67,11 +67,26 @@ def test_flow_tune_exits_1_on_a_mismatch(capsys, monkeypatch):
         return A.clone().index_fill_(0, torch.tensor([3]), 1.0), vis, stats
 
     monkeypatch.setattr(kd, "flow_solve_2d", off_by_one)
-    rc, lines = _run(flow_tune.main, ["128", "64", "--device", "cpu",
-                                      "--reps", "1"], capsys)
+    rc, lines = _run(flow_tune.main, ["128", "64", "--device", "cpu"],
+                            capsys)
     assert rc == 1
     (bad,) = [row for row in lines if "MISMATCH" in row]
     assert bad.startswith("K11a")
+
+
+def test_flow_tune_run_holds_each_solver_to_its_twin(capsys):
+    """``run(twins=True)``, as the chip smoke calls it: a row for each
+    solver, every K11 row timed against its twin too."""
+    packed, rows, ok = flow_tune.run(128, 64, "cpu", twins=True)
+    out = capsys.readouterr().out
+    assert ok and packed.shape == (64, 128)
+    assert [r["kernel"] for r in rows] == [
+        None, "flow_solve_2d", "flow_solve_fused", "flow_solve_fused",
+        "flow_solve_wave", "flow_banded_rounds"]
+    assert rows[0]["twin_ms"] is None
+    assert all(r["twin_ms"] >= 0 and r["ms"] >= 0 for r in rows[1:])
+    assert out.count("bit-exact") == 5 and "DIFFERS" not in out
+    assert rows[1]["differ"] == 0 and rows[1]["stats"]["rounds"] > 0
 
 
 @pytest.mark.parametrize("main", [flow_rounds.main, flow_tune.main],
