@@ -24,8 +24,10 @@
    after one coupled step through the plain twins), each against its twin:
    climate (10 substeps, exact expected, fails above 1e-6 of max|T|), blur
    (radius 0.5, same bound on max|h|), directions (ties at most 1 per 10^4
-   pixels), the flow A fixpoint cold and warm (bit for bit) and vis
-   (exact);
+   pixels), the flow A fixpoint (K7) cold and warm (bit for bit) and
+   vis (K8, exact), each with its rounds, host reads and tile visits, and
+   both on a serpentine river (32 columns x 200 rows over the dateline)
+   and on a 2000x1000 grid that no tile shape divides;
 6. the coupled path with every launch counter at 0: the ``coupled`` CLI at
    2048x1024 for 3 steps and at its default 8192x4096 for 1 step, and the
    ``climate`` CLI at its default 4096x2048 for 500 substeps; fails unless
@@ -90,6 +92,7 @@ W, H = 2048, 1024
 SEED = 7
 DEVICE = "cuda"
 BIG = (8192, 4096)      # the coupled CLI's default size
+RAGGED = (2000, 1000)   # a grid no tile shape of K7/K8 divides
 HB = H - 24             # K4b's grid height: not a whole number of strips
 CLIMATE = (4096, 2048)  # the climate CLI's default size
 
@@ -162,6 +165,7 @@ def main() -> int:
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
     from demiurge_tpu_torch.ops import flow as of
     from demiurge_tpu_torch.tools import flow_tune as ft
+    from demiurge_tpu_torch.tools import serpentine
 
     # -- 1. setup ------------------------------------------------------------
     card = card_line()
@@ -229,6 +233,13 @@ def main() -> int:
     kernels = []
     N = W * H
     plane = 4.0 * N
+
+    def solve_note(st):
+        """A tiled K7/K8 solve's LAST_SOLVE entry, in words."""
+        return (f"{st['rounds']} rounds to the certifying one, "
+                f"{st['launched']} launched, {st['host_reads']} host reads, "
+                f"{st['tiles_run']} tile visits ({st['tile']}), at most "
+                f"{st['max_inner_sweeps']} inner sweeps a visit")
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
                note):
@@ -464,16 +475,14 @@ def main() -> int:
         p_ms = cuda_ms(lambda: kf.flow_solve_area_plain(packed, area, grid,
                                                         a0), 1)
         solves[label] = (k_ms, p_ms, stats)
-        print(f"  flow A {label}: bit-exact; {stats['sweeps']} sweeps to "
-              f"the certifying one, {stats['launched']} launched, "
-              f"{stats['host_reads']} host reads; kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms ({card})")
-    k_ms, p_ms, _ = solves["warm"]
+        print(f"  flow A {label}: bit-exact; {solve_note(stats)}; kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms ({card})")
+    k_ms, p_ms, stats = solves["warm"]
     record("flow_solve", "demiurge_tpu_torch/csrc/flow.cu",
            "demiurge_tpu/pallas_kernels/flow.py:294", 0.0, k_ms, p_ms,
            4 * plane, edges + N,
-           "A bit-exact cold and warm; time of the warm solve (a step "
-           "after the first)")
+           f"A bit-exact cold and warm; time of the warm solve (a step "
+           f"after the first): {solve_note(stats)}")
 
     got = kf.vis_solve_cuda(packed, grid)
     stats = dict(kf.LAST_SOLVE["vis"])
@@ -482,12 +491,36 @@ def main() -> int:
     assert torch.equal(got, want)
     ms = cuda_ms(lambda: kf.vis_solve_cuda(packed, grid), 3)
     plain_ms = cuda_ms(lambda: kf.vis_solve_plain(packed, grid), 1)
-    print(f"  vis: exact; {stats['sweeps']} sweeps, {stats['launched']} "
-          f"launched, {stats['host_reads']} host reads; reachable "
+    print(f"  vis: exact; {solve_note(stats)}; reachable "
           f"{float(got.float().mean()):.3f}")
     record("flow_vis", "demiurge_tpu_torch/csrc/flow.cu",
            "demiurge_tpu/pallas_kernels/visbits.py:102", 0.0, ms, plain_ms,
-           plane + N, edges, "vis exact (K8; also serves K9)")
+           plane + N, edges,
+           f"vis exact (K8; also serves K9): {solve_note(stats)}")
+
+    # K7 and K8 on a hand-built serpentine river, and on a grid that no
+    # tile shape divides, against their twins
+    g_r = Grid(*RAGGED)
+    hb_r = ob.blur(cli._terrain(g_r, SEED, dev), g_r, ccfg.flow_preblur)
+    code_r = of.flow_directions(hb_r, torch.ones_like(hb_r), g_r)
+    _, mouth_r, _ = of.incoming_mask(code_r, g_r)
+    for label, g_, (pk_, ar_) in (
+            ("serpentine", grid, serpentine(grid, dev, W - 16, 32, 200)),
+            (f"{RAGGED[0]}x{RAGGED[1]}", g_r,
+             (kf.pack_masks(code_r, mouth_r, g_r),
+              of.cell_area_lower_edge(g_r, dev)))):
+        got_A = kf.flow_solve_area_cuda(pk_, ar_, g_)
+        st_A = dict(kf.LAST_SOLVE["A"])
+        got_v = kf.vis_solve_cuda(pk_, g_)
+        st_v = dict(kf.LAST_SOLVE["vis"])
+        want_A = kf.flow_solve_area_plain(pk_, ar_, g_)
+        want_v = kf.vis_solve_plain(pk_, g_)
+        torch.cuda.synchronize()
+        assert torch.equal(got_A, want_A), label
+        assert torch.equal(got_v, want_v), label
+        print(f"  flow A and vis on the {label}: bit-exact; A "
+              f"{solve_note(st_A)}; vis {solve_note(st_v)}")
+    del hb_r, code_r, mouth_r, pk_, ar_, got_A, got_v, want_A, want_v
 
     # -- 6. the coupled path, counted ----------------------------------------
     def climate_unstable(g) -> bool:
@@ -720,8 +753,8 @@ def main() -> int:
         resolve = dict(k2.LAST_SOLVE["A"])
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
-        print(f"  at {g.width}x{g.height}: K7 {k7_stats['sweeps']} sweeps, "
-              f"{k7_stats['launched']} launched; two-level: K10a "
+        print(f"  at {g.width}x{g.height}: K7 {solve_note(k7_stats)}; "
+              f"two-level: K10a "
               f"{k2.LAUNCHES_LOCAL - before} launched in its two solves, "
               f"the re-solve {resolve['sweeps']} sweeps")
         t_two = cuda_ms(lambda: k2.flow_solve_twolevel(code_, ar, mouth_, g),
@@ -1016,8 +1049,10 @@ def main() -> int:
     area_big = of.cell_area_lower_edge(big_grid, dev)
     del hb_big, code_big, mouth_big
     big_solvers = ft.solvers(pk_big, area_big, big_grid)
-    (A7b, vis8b, _), ms7b = timed(big_solvers[0][2])
+    (A7b, vis8b, st7b), ms7b = timed(big_solvers[0][2])
     big_ms = {"K7+K8": round(ms7b, 3)}
+    print(f"  K7+K8 at {BIG[0]}x{BIG[1]}: {ms7b:.3f} ms (one call); K7 "
+          f"{solve_note(st7b['A'])}; K8 {solve_note(st7b['vis'])}")
     for label, _, solve, _, exact in big_solvers[1:]:
         (A, vis, st), ms_b = timed(solve)
         assert ft.agrees(A, vis, A7b, vis8b, exact), label

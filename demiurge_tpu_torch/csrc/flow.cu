@@ -1,8 +1,8 @@
-// The flow fixpoint — upstream area accumulation and mouth reachability —
-// for Hopper (sm_90a); the band-local fixpoints of the two-level solve
-// (K10) are at the end of the file.
+// The flow fixpoint — upstream area accumulation (K7) and mouth
+// reachability (K8) — for Hopper (sm_90a); the band-local fixpoints of the
+// two-level solve (K10) are at the end of the file.
 //
-// Replaces:
+// K7 and K8 replace:
 //   - demiurge_tpu/pallas_kernels/flow.py flow_solve_pallas (:294, _kernel
 //     :83, _sweep_body :165) in mode "A" (the area half) and in modes
 //     "vis"/"both" (its f32 reachability, the H % 32 != 0 fallback);
@@ -13,45 +13,84 @@
 //
 // Over the packed masks (kernels/flow.py pack_masks: bits 0..7 incoming,
 // 8..15 outgoing, 16 mouth; neighbour i at NEIGHBORS_FLOW_ORDER[i], x
-// periodic, out-of-range rows already masked off) one launch is one sweep,
-// one thread per pixel, IN PLACE:
+// periodic, out-of-range rows already masked off) each kernel relaxes to
+// the fixpoint of
 //     A[p]   = area[p] + sum_{i in scan order, inc_i} A[neighbour_i]
 //     vis[p] = vis[p] | OR_i (out_i & vis[neighbour_i])   (vis starts at
 //                                                          the mouths)
-// The TPU kernel walks row bands in order with aliased in/out buffers,
-// which gives Gauss-Seidel order across bands, and skips inactive bands.
-// CUDA blocks run concurrently and in no order, so a thread may read a
-// neighbour's value from before or after that neighbour's update in the
-// same sweep.  That is safe here:
-//   - every value read is one the cell held at some time in this sweep
-//     (4-byte stores do not tear; loads go through L2, __ldcg);
-//   - a cell whose upstream cells are all final computes its final value,
-//     and a final cell rewrites the same bits; the graph is acyclic, so
-//     after s sweeps every cell with a longest upstream path < s is final,
-//     as with ping-pong buffers, and often sooner;
-//   - a sweep writes a cell only when its bits change, and raises its own
-//     flag when it writes.  A sweep with its flag down wrote nothing, so
-//     every read in it saw the current state: each cell then satisfies its
-//     equation, which proves the fixpoint.  The fixpoint is unique (each
-//     A is the f32 sum, in scan order, of its area and its upstream
-//     fixpoint values), so A equals the plain twin's Jacobi result bit for
-//     bit from any warm start, and vis exactly.
-// The host launches rounds of n sweeps, each with its own flag, and reads
-// the n flags once per round (kernels/flow.py _solve_cuda); the sweeps of
-// the round after the certifying one change nothing.
+// with the f32 sum taken by __fadd_rn in scan order.  D8 flow is acyclic,
+// so each fixpoint is unique: A equals the plain twin's Jacobi result bit
+// for bit from any start, and vis exactly.
 //
-// Bound on this card: device-memory bytes.  The function must read the
-// packed masks, the area and the start and write A (33.5 MB at
-// 2048x1024), with one add per flow edge; the relaxation repeats sweeps of
-// 16 bytes a pixel, which stay in the 50 MB L2 at that size.  Skipping
-// converged tiles, as the TPU kernel skips bands, is later work.
+// Design.  The TPU kernel keeps a row band resident in VMEM, runs up to k
+// sweeps on it per visit and skips bands whose flags were quiet.  Here the
+// unit is a 2-D tile of TY x TX cells, one block of TX threads, thread t
+// owning column t of the tile:
+//   1. Wake.  Thread 0 reads the 9 tile flags of the tile's 3x3
+//      neighbourhood (x wraps, y clips) from the last round's array; if
+//      none is set the block writes its own flag 0 and returns: one load
+//      a block, not one a thread (PR 2's per-thread early return cost 7
+//      ms).
+//   2. Load.  The tile and a one-cell halo of A (f32; vis: one byte) go to
+//      shared memory; x wraps over the dateline inside the halo; rows
+//      beyond the grid load as 0 (no mask bit reads them).  Each cell's 8
+//      mask bits (incoming for A, outgoing for vis), a "real" bit (edge
+//      tiles are ragged where TX does not divide W or TY H) and a "feeds
+//      its row" bit (an edge of dy = 0 leaves it), and the area, sit
+//      beside them.  The halo stays as loaded for the whole visit.
+//   3. Relax in shared memory to the tile's local fixpoint.  A pass walks
+//      the rows in order, down on even passes and up on odd ones; a row is
+//      one step of every thread, ended by __syncthreads_or, and repeated
+//      while a cell that feeds its own row changed.  So a pass carries a
+//      change along any stretch of a path that runs with it or sideways,
+//      and a path needs about one pass per reversal of its direction in y.
+//      A pass that changes nothing ends the visit (__syncthreads_or): it
+//      read the current tile everywhere, so every cell of the tile
+//      satisfies its equation against the halo as loaded.  (The row
+//      repeats and the passes are capped at the longest path a row or a
+//      tile can hold, so a launch ends even on masks with a cycle; the
+//      host then finds no certifying round.)  With SYNC false
+//      the rows run free (only __syncwarp between them): cheaper passes,
+//      more of them.
+//   4. Write back the cells whose bits changed (__stcg), raise the tile's
+//      flag in the next round's array if any did, and count the visit
+//      (atomicAdd) and its passes (atomicMax).
+// One launch is one round over every tile; the flags ping-pong between two
+// arrays.  The host launches rounds in batches and reads the batch's
+// round flags once (kernels/flow.py _solve_tiles_cuda); the rounds after
+// the certifying one launch blocks that return after step 1.
+//
+// Why the stale halo is sound (K11a's argument, csrc/flow_deadends.cu,
+// for whole tiles).  A tile's cells are written by that tile's block only.
+// Claim: at the end of round t, every tile not woken for round t+1 (no
+// tile of its 3x3 neighbourhood wrote in round t) satisfies its equations.
+// Its neighbourhood wrote nothing in round t, so its cells and its halo
+// did not change during the round.  If it ran in round t, it relaxed
+// against a halo that held to the end of the round and wrote nothing, so
+// its cells are its local fixpoint against the current halo.  If it did
+// not run, it was not woken for round t, so it satisfied its equations at
+// the end of round t-1 (induction; round 0 runs every tile), and nothing
+// it reads has changed since.  So a round in which no tile wrote leaves
+// every cell satisfied: the global fixpoint.  A tile whose neighbour did
+// write is woken by that write and relaxes again against the new halo.
+// Reads of other tiles' cells go through L2 (__ldcg), and 4-byte stores do
+// not tear.
+//
+// Bound on this card: device-memory bytes: read the masks, the area and
+// the start and write A once (16 bytes a pixel, 0.0100 ms at 2048x1024),
+// and the masks and vis (5 bytes a pixel, 0.0031 ms), at 3.35 TB/s; one
+// add per flow edge is far below the f32 rate.  One-sweep-a-launch kernels
+// touched every pixel in L2 on every sweep (~20 us each, 504 a solve); the
+// tiles keep the sweeps in shared memory, skip the tiles whose
+// neighbourhood is quiet, and need about as many rounds as the longest
+// path crosses tile edges.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockX = 128;
+constexpr int kBlockX = 128;  // K10's block
 
 __constant__ int kDx[8] = {1, 0, -1, 1, -1, 1, 0, -1};
 __constant__ int kDy[8] = {1, 1, 1, 0, 0, -1, -1, -1};
@@ -62,50 +101,263 @@ __device__ __forceinline__ long neighbour(int r, int c, int k, int W) {
   return (long)(r + kDy[k]) * W + cc;
 }
 
-__global__ void flow_area_sweep_kernel(const int* __restrict__ packed,
-                                       const float* __restrict__ area,
-                                       float* A, int* flag, int H, int W) {
-  const int c = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y;
-  bool changed = false;
-  if (c < W) {
-    const long i = (long)r * W + c;
-    const int p = __ldg(packed + i);
-    float acc = __ldg(area + i);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if ((p >> k) & 1)
-        acc = __fadd_rn(acc, __ldcg(A + neighbour(r, c, k, W)));
-    if (__float_as_int(acc) != __float_as_int(__ldcg(A + i))) {
-      __stcg(A + i, acc);
-      changed = true;
-    }
-  }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) *flag = 1;
+// ---------------------------------------------------------------------------
+// K7 / K8: shared-memory tiles relaxed to a local fixpoint, quiet tiles
+// skipped.
+// ---------------------------------------------------------------------------
+
+// NEIGHBORS_FLOW_ORDER as compile-time offsets
+__host__ __device__ constexpr int dxk(int k) {
+  return (k == 0 || k == 3 || k == 5) ? 1 : ((k == 1 || k == 6) ? 0 : -1);
+}
+__host__ __device__ constexpr int dyk(int k) {
+  return k < 3 ? 1 : (k < 5 ? 0 : -1);
 }
 
-__global__ void flow_vis_sweep_kernel(const int* __restrict__ packed,
-                                      uint8_t* vis, int* flag, int H,
-                                      int W) {
-  const int c = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y;
-  bool changed = false;
-  if (c < W) {
-    const long i = (long)r * W + c;
-    const int p = __ldg(packed + i);
-    if (vis[i] == 0 && (p >> 8) & 0xff) {
-      const volatile uint8_t* v = vis;
+constexpr int kFeed = 1 << 8;  // a change of this cell feeds its own row
+constexpr int kReal = 1 << 9;  // a cell of the grid (edge tiles are ragged)
+constexpr int kRowOut = (1 << 3) | (1 << 4);  // the dy = 0 neighbours
+
+// stats: [0] tile visits, [1] most passes of a visit, [2 + j] round j of
+// the batch wrote
+constexpr int kStatsHead = 2;
+
+__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ uint8_t ld_cg(const uint8_t* p) {
+  return __ldcg(p);
+}
+
+// Step 1: whether a tile of the block's 3x3 neighbourhood wrote last
+// round; a quiet block clears its own flag for this round.
+__device__ bool tile_awake(const int* __restrict__ prev, int* cur, int nby,
+                           int nbx) {
+  __shared__ int awake;
+  if (threadIdx.x == 0) {
+    const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
+    int a = 0;
+    for (int di = -1; di <= 1; ++di) {
+      const int ii = ti + di;
+      if (ii < 0 || ii >= nby) continue;  // y clips
+      for (int dj = -1; dj <= 1; ++dj)
+        a |= prev[ii * nbx + (tj + dj + nbx) % nbx];  // x wraps
+    }
+    awake = a;
+    if (!a) cur[blockIdx.x] = 0;
+  }
+  __syncthreads();
+  return awake != 0;
+}
+
+// Step 2, the halo'd field: (TY + 2) x (TX + 2) cells from row r0 - 1 and
+// column c0 - 1, x periodic, rows beyond the grid 0.
+template <int TY, int TX, typename T>
+__device__ void load_halo(volatile T* s, const T* g, int r0, int c0, int H,
+                          int W) {
+  constexpr int SW = TX + 2;
+  for (int k = threadIdx.x; k < (TY + 2) * SW; k += TX) {
+    const int li = k / SW, lj = k - (k / SW) * SW;
+    const int r = r0 + li - 1;
+    int c = (c0 + lj - 1) % W;
+    if (c < 0) c += W;
+    s[k] = (r >= 0 && r < H) ? ld_cg(g + (long)r * W + c) : T(0);
+  }
+}
+
+// Step 4's bookkeeping, by thread 0.
+__device__ __forceinline__ void finish(int* cur, int* stats, int slot,
+                                       bool wrote, int passes) {
+  if (threadIdx.x != 0) return;
+  cur[blockIdx.x] = wrote;
+  atomicAdd(stats, 1);
+  atomicMax(stats + 1, passes);
+  if (wrote) atomicOr(stats + kStatsHead + slot, 1);
+}
+
+template <int TY, int TX>
+constexpr size_t area_smem() {
+  return sizeof(float) * ((TY + 2) * (TX + 2) + TY * TX) +
+         sizeof(uint16_t) * TY * TX;
+}
+
+template <int TY, int TX>
+constexpr size_t vis_smem() {
+  return ((TY + 2) * (TX + 2) + 15) / 16 * 16 + sizeof(uint16_t) * TY * TX;
+}
+
+template <int TY, int TX, bool SYNC>
+__global__ void __launch_bounds__(TX)
+    area_tile_kernel(const int* __restrict__ packed,
+                     const float* __restrict__ area, float* A,
+                     const int* __restrict__ prev, int* cur, int* stats,
+                     int slot, int H, int W, int nby, int nbx) {
+  static_assert(TY <= 64, "a thread's touched rows are one 64-bit mask");
+  constexpr int SW = TX + 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  volatile float* sA = reinterpret_cast<float*>(smem);
+  float* sArea = reinterpret_cast<float*>(smem) + (TY + 2) * SW;
+  uint16_t* sMeta = reinterpret_cast<uint16_t*>(sArea + TY * TX);
+  if (!tile_awake(prev, cur, nby, nbx)) return;
+
+  const int t = threadIdx.x;
+  const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
+  const int r0 = ti * TY, c = tj * TX + t;
+  load_halo<TY, TX>(sA, A, r0, tj * TX, H, W);
+  for (int li = 0; li < TY; ++li) {
+    int m = 0;
+    float ar = 0.0f;
+    if (c < W && r0 + li < H) {
+      const long i = (long)(r0 + li) * W + c;
+      const int p = __ldg(packed + i);
+      m = kReal | (p & 0xff) | ((p >> 8) & kRowOut ? kFeed : 0);
+      ar = __ldg(area + i);
+    }
+    sMeta[li * TX + t] = (uint16_t)m;
+    sArea[li * TX + t] = ar;
+  }
+  __syncthreads();
+
+  uint64_t touched = 0;
+  int passes = 0;
+  for (;;) {
+    const bool down = (passes & 1) == 0;
+    bool mine = false;
+    for (int s = 0; s < TY; ++s) {
+      const int li = down ? s : TY - 1 - s;
+      const int m = sMeta[li * TX + t];
+      const int ctr = (li + 1) * SW + t + 1;
+      for (int reps = 0;;) {
+        bool feed = false;
+        if (m & kReal) {
+          float acc = sArea[li * TX + t];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (((p >> (8 + k)) & 1) && v[neighbour(r, c, k, W)]) {
-          vis[i] = 1;
-          changed = true;
+          for (int k = 0; k < 8; ++k)
+            if ((m >> k) & 1)
+              acc = __fadd_rn(acc, sA[ctr + dyk(k) * SW + dxk(k)]);
+          if (__float_as_int(acc) != __float_as_int(sA[ctr])) {
+            sA[ctr] = acc;
+            mine = true;
+            touched |= 1ull << li;
+            feed = m & kFeed;
+          }
         }
+        if (!SYNC || !__syncthreads_or(feed) || ++reps > TX) break;
       }
+      if (!SYNC) __syncwarp();
+    }
+    ++passes;
+    if (!__syncthreads_or(mine) || passes > TY * TX) break;
+  }
+
+  bool wrote = false;
+  for (int li = 0; li < TY; ++li) {
+    if (!((touched >> li) & 1)) continue;
+    const long i = (long)(r0 + li) * W + c;
+    const float v = sA[(li + 1) * SW + t + 1];
+    if (__float_as_int(v) != __float_as_int(__ldcg(A + i))) {
+      __stcg(A + i, v);
+      wrote = true;
     }
   }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) *flag = 1;
+  finish(cur, stats, slot, __syncthreads_or(wrote), passes);
 }
+
+template <int TY, int TX, bool SYNC>
+__global__ void __launch_bounds__(TX)
+    vis_tile_kernel(const int* __restrict__ packed, uint8_t* vis,
+                    const int* __restrict__ prev, int* cur, int* stats,
+                    int slot, int H, int W, int nby, int nbx) {
+  static_assert(TY <= 64, "a thread's touched rows are one 64-bit mask");
+  constexpr int SW = TX + 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  volatile uint8_t* sV = smem;
+  uint16_t* sMeta =
+      reinterpret_cast<uint16_t*>(smem + ((TY + 2) * SW + 15) / 16 * 16);
+  if (!tile_awake(prev, cur, nby, nbx)) return;
+
+  const int t = threadIdx.x;
+  const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
+  const int r0 = ti * TY, c = tj * TX + t;
+  load_halo<TY, TX>(sV, vis, r0, tj * TX, H, W);
+  for (int li = 0; li < TY; ++li) {
+    int m = 0;
+    if (c < W && r0 + li < H) {
+      const int p = __ldg(packed + (long)(r0 + li) * W + c);
+      m = kReal | ((p >> 8) & 0xff) | (p & kRowOut ? kFeed : 0);
+    }
+    sMeta[li * TX + t] = (uint16_t)m;
+  }
+  __syncthreads();
+
+  uint64_t touched = 0;
+  int passes = 0;
+  for (;;) {
+    const bool down = (passes & 1) == 0;
+    bool mine = false;
+    for (int s = 0; s < TY; ++s) {
+      const int li = down ? s : TY - 1 - s;
+      const int m = sMeta[li * TX + t];
+      const int ctr = (li + 1) * SW + t + 1;
+      for (int reps = 0;;) {
+        bool feed = false;
+        if ((m & kReal) && (m & 0xff) && !sV[ctr]) {
+          bool v = false;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if ((m >> k) & 1) v = v || sV[ctr + dyk(k) * SW + dxk(k)];
+          if (v) {
+            sV[ctr] = 1;
+            mine = true;
+            touched |= 1ull << li;
+            feed = m & kFeed;
+          }
+        }
+        if (!SYNC || !__syncthreads_or(feed) || ++reps > TX) break;
+      }
+      if (!SYNC) __syncwarp();
+    }
+    ++passes;
+    if (!__syncthreads_or(mine) || passes > TY * TX) break;
+  }
+
+  // a touched cell went from 0 to 1, and only this block writes it
+  for (int li = 0; li < TY; ++li)
+    if ((touched >> li) & 1) vis[(long)(r0 + li) * W + c] = 1;
+  finish(cur, stats, slot, __syncthreads_or(touched != 0), passes);
+}
+
+// n rounds, the first of them the solve's round `first`: round t reads the
+// tile flags flags[(t % 2) * nt ..] and writes flags[((t + 1) % 2) * nt ..].
+template <typename Kernel, typename... Args>
+int tile_rounds(Kernel kernel, size_t smem, int ty, int tx, int* flags,
+                int* stats, int H, int W, int first, int n,
+                cudaStream_t st, Args... args) {
+  const int nby = (H + ty - 1) / ty, nbx = (W + tx - 1) / tx;
+  const int nt = nby * nbx;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(stats + kStatsHead, 0, sizeof(int) * n, st);
+  if (err != cudaSuccess) return (int)err;
+  for (int j = 0; j < n; ++j) {
+    const int t = first + j;
+    kernel<<<nt, tx, smem, st>>>(args..., flags + (t & 1) * nt,
+                                 flags + ((t + 1) & 1) * nt, stats, j, H, W,
+                                 nby, nbx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tile shapes built: (rows, columns = threads a block, rows in step).
+#define DEMIURGE_FLOW_TILES(X) \
+  X(32, 128, true)             \
+  X(64, 128, true)             \
+  X(16, 128, true)             \
+  X(32, 64, true)              \
+  X(32, 128, false)
 
 // ---------------------------------------------------------------------------
 // K10: the band-local fixpoints of the two-level solve.
@@ -124,13 +376,21 @@ __global__ void flow_vis_sweep_kernel(const int* __restrict__ packed,
 //     vis[p] = seed[p] | OR_i (out_i & vis[neighbour_i])
 // The TPU kernel runs one band per grid step, rolling whole (band, W)
 // slabs in VMEM until a band-local flag says done.  Here bands need no
-// block structure at all: one thread per pixel, in place, with K7's
-// rounds of flagged sweeps and the same certificate (a sweep that wrote
-// nothing); each fixpoint is unique, since D8 flow is acyclic both ways,
-// so A, E and vis equal the plain twin's (kernels/flow2.py) bit for bit.
+// block structure at all: one launch is one sweep, one thread per pixel,
+// IN PLACE, and the host launches rounds of sweeps, each with its own
+// flag, reading the flags once a round (kernels/flow.py
+// solve_rounds_cuda).  CUDA blocks run in no order, so a thread may read
+// a neighbour's value from before or after that neighbour's update in the
+// same sweep.  That is safe: every value read is one the cell held at
+// some time in the sweep (4-byte stores do not tear; loads go through L2,
+// __ldcg); a sweep writes a cell only when its bits change and raises its
+// flag when it writes, so a sweep with its flag down saw the current state
+// everywhere and certifies the fixpoint.  Each fixpoint is unique, since
+// D8 flow is acyclic both ways, so A, E and vis equal the plain twin's
+// (kernels/flow2.py) bit for bit.
 // Bound on this card: device-memory bytes, as K7 (20 bytes a pixel to
-// read and write once; the sweeps stay in L2 at 2048x1024).  Skipping
-// converged bands, as the TPU kernel's per-band loop does, is later work.
+// read and write once; the sweeps stay in L2 at 2048x1024).  K7's tiles
+// (above) are the design to carry over: later work.
 
 constexpr int kNegOut = (1 << 5) | (1 << 6) | (1 << 7);  // out bits, dy = -1
 constexpr int kPosOut = (1 << 0) | (1 << 1) | (1 << 2);  // out bits, dy = +1
@@ -203,34 +463,39 @@ __global__ void flow_local_vis_sweep_kernel(const int* __restrict__ packed,
 
 extern "C" {
 
-// n in-place sweeps of the A relaxation; sweep j sets flags[j] = 1 if it
-// changed a cell (the caller zeroes flags[0..n)).
-int demiurge_flow_area_sweeps(const int* packed, const float* area,
-                              float* A, int* flags, int H, int W, int n,
-                              void* stream) {
-  const dim3 block(kBlockX);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, H);
-  for (int j = 0; j < n; ++j) {
-    flow_area_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        packed, area, A, flags + j, H, W);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+// K7: n rounds of the tiled A relaxation (tiles ty x tx, rows in step
+// when sync), the first being the solve's round `first`.  flags: 2 x nt
+// tile flags (all set before round 0); stats as above (stats[2..2+n)
+// zeroed here).  An unbuilt shape returns cudaErrorInvalidValue.
+int demiurge_flow_area_tiles(const int* packed, const float* area, float* A,
+                             int* flags, int* stats, int H, int W, int ty,
+                             int tx, int sync, int first, int n,
+                             void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define X(TY, TX, SYNC)                                                     \
+  if (ty == TY && tx == TX && (sync != 0) == SYNC)                          \
+    return tile_rounds(area_tile_kernel<TY, TX, SYNC>, area_smem<TY, TX>(), \
+                       TY, TX, flags, stats, H, W, first, n, st, packed,    \
+                       area, A);
+  DEMIURGE_FLOW_TILES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
-// n in-place sweeps of the vis relaxation (vis: one byte a pixel, 0 or 1).
-int demiurge_flow_vis_sweeps(const int* packed, uint8_t* vis, int* flags,
-                             int H, int W, int n, void* stream) {
-  const dim3 block(kBlockX);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, H);
-  for (int j = 0; j < n; ++j) {
-    flow_vis_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        packed, vis, flags + j, H, W);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+// K8: n rounds of the tiled vis relaxation (vis: one byte a pixel, from
+// the mouths); arguments as K7's.
+int demiurge_flow_vis_tiles(const int* packed, uint8_t* vis, int* flags,
+                            int* stats, int H, int W, int ty, int tx,
+                            int sync, int first, int n, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+#define X(TY, TX, SYNC)                                                    \
+  if (ty == TY && tx == TX && (sync != 0) == SYNC)                         \
+    return tile_rounds(vis_tile_kernel<TY, TX, SYNC>, vis_smem<TY, TX>(),  \
+                       TY, TX, flags, stats, H, W, first, n, st, packed,   \
+                       vis);
+  DEMIURGE_FLOW_TILES(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
 }
 
 // n in-place sweeps of the band-local A relaxation, and of the exit ids

@@ -24,9 +24,15 @@ equals ``ops.flow.flow_solve_stencil``'s.
 
 ``flow_solve_area`` / ``vis_solve`` launch the CUDA kernels
 (``csrc/flow.cu``) for CUDA tensors and run the plain twins (Jacobi sweeps,
-checked every 64) for CPU tensors.  ``LAUNCHES_A`` / ``LAUNCHES_VIS`` count
-kernel launches (one per sweep); ``LAST_SOLVE`` holds the last CUDA
-solve's sweeps and host reads.
+checked every 64) for CPU tensors.  On the card a solve runs in rounds:
+one launch is one round over every tile of ``TILE`` (rows, columns),
+in which a tile whose 3x3 tile neighbourhood wrote in the last round
+loads itself into shared memory, relaxes there to its local fixpoint and
+writes back what changed; a round in which no tile wrote certifies the
+fixpoint (the argument is in the source).  ``LAUNCHES_A`` /
+``LAUNCHES_VIS`` count kernel launches (one per round); ``LAST_SOLVE``
+holds the last CUDA solve's rounds, launches, host reads, tile visits and
+the most inner sweeps a visit took.
 """
 
 from __future__ import annotations
@@ -41,8 +47,16 @@ LAUNCHES_A = 0
 LAUNCHES_VIS = 0
 LAST_SOLVE: dict = {}
 
-FIRST_ROUND = 8     # sweeps in the first round of a CUDA solve
-MAX_ROUND = 512     # rounds double up to this many sweeps
+FIRST_ROUND = 8     # sweeps in the first round of solve_rounds_cuda
+MAX_ROUND = 512     # its rounds double up to this many sweeps
+
+#: K7/K8's tile: rows, columns (one thread a column), rows in step
+TILE = (32, 128, True)
+#: every tile that csrc/flow.cu builds (DEMIURGE_FLOW_TILES)
+TILES = ((32, 128, True), (64, 128, True), (16, 128, True), (32, 64, True),
+         (32, 128, False))
+FIRST_BATCH = 8     # rounds in the first batch of a tiled solve
+MAX_BATCH = 64      # batches double up to this many rounds
 
 
 def pack_masks(code, mouth, grid: Grid) -> torch.Tensor:
@@ -136,9 +150,41 @@ def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
     raise RuntimeError(f"{entry}: no fixpoint after {sweeps} sweeps")
 
 
-def flow_solve_area_cuda(packed, area, grid: Grid, a0=None) -> torch.Tensor:
+def _solve_tiles_cuda(entry: str, args, device, grid: Grid, tile,
+                      max_rounds: int) -> dict:
+    """Batches of tiled rounds until a round writes nothing.  A batch
+    launches n rounds (``FIRST_BATCH``, doubling up to ``MAX_BATCH``)
+    through the C entry point ``entry(*args(flags, stats, first, n))``;
+    one host read of the batch's round flags and the visit counts ends
+    it.  The rounds after the certifying one find every tile quiet."""
+    from . import build
+
+    ty, tx, sync = tile
+    H, W = grid.shape
+    nt = -(-H // ty) * -(-W // tx)
+    flags = torch.ones(2 * nt, dtype=torch.int32, device=device)
+    stats = torch.zeros(2 + MAX_BATCH, dtype=torch.int32, device=device)
+    fn = getattr(build.library(), entry)
+    n, done, reads = FIRST_BATCH, 0, 0
+    while done < max_rounds:
+        build.check(fn(*args(flags.data_ptr(), stats.data_ptr(), ty, tx,
+                             int(sync), done, n)), entry)
+        visits, passes, *wrote = stats[:2 + n].tolist()  # the one read
+        reads += 1
+        if 0 in wrote:
+            return {"rounds": done + wrote.index(0) + 1,
+                    "launched": done + n, "host_reads": reads,
+                    "tiles_run": visits, "max_inner_sweeps": passes,
+                    "tile": f"{ty}x{tx}{'' if sync else ' free rows'}"}
+        done += n
+        n = min(2 * n, MAX_BATCH)
+    raise RuntimeError(f"{entry}: no fixpoint after {done} rounds")
+
+
+def flow_solve_area_cuda(packed, area, grid: Grid, a0=None,
+                         tile=TILE) -> torch.Tensor:
     """The A relaxation on the card, in place on a copy of ``a0`` (default:
-    the area)."""
+    the area), in tiles of ``tile`` (one of ``TILES``)."""
     global LAUNCHES_A
     check_kernel_inputs(("packed",), (packed,), shape=grid.shape,
                         dtype=torch.int32)
@@ -149,18 +195,19 @@ def flow_solve_area_cuda(packed, area, grid: Grid, a0=None) -> torch.Tensor:
     A = start.clone()
     H, W = grid.shape
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    stats = solve_rounds_cuda(
-        "demiurge_flow_area_sweeps",
-        lambda flags, n: (packed.data_ptr(), area.data_ptr(), A.data_ptr(),
-                          flags, H, W, n, stream),
-        A.device, _max_sweeps(grid))
+    stats = _solve_tiles_cuda(
+        "demiurge_flow_area_tiles",
+        lambda *batch: (packed.data_ptr(), area.data_ptr(), A.data_ptr(),
+                        *batch[:2], H, W, *batch[2:], stream),
+        A.device, grid, tile, _max_sweeps(grid))
     LAUNCHES_A += stats["launched"]
     LAST_SOLVE["A"] = stats
     return A
 
 
-def vis_solve_cuda(packed, grid: Grid) -> torch.Tensor:
-    """The vis relaxation on the card, in place from the mouths."""
+def vis_solve_cuda(packed, grid: Grid, tile=TILE) -> torch.Tensor:
+    """The vis relaxation on the card, in place from the mouths, in tiles
+    of ``tile``."""
     global LAUNCHES_VIS
     check_kernel_inputs(("packed",), (packed,), shape=grid.shape,
                         dtype=torch.int32)
@@ -169,11 +216,11 @@ def vis_solve_cuda(packed, grid: Grid) -> torch.Tensor:
     vis = ((packed >> 16) & 1).to(torch.uint8)
     H, W = grid.shape
     stream = torch.cuda.current_stream(vis.device).cuda_stream
-    stats = solve_rounds_cuda(
-        "demiurge_flow_vis_sweeps",
-        lambda flags, n: (packed.data_ptr(), vis.data_ptr(), flags, H, W, n,
-                          stream),
-        vis.device, _max_sweeps(grid))
+    stats = _solve_tiles_cuda(
+        "demiurge_flow_vis_tiles",
+        lambda *batch: (packed.data_ptr(), vis.data_ptr(), *batch[:2], H, W,
+                        *batch[2:], stream),
+        vis.device, grid, tile, _max_sweeps(grid))
     LAUNCHES_VIS += stats["launched"]
     LAST_SOLVE["vis"] = stats
     return vis.bool()

@@ -208,35 +208,71 @@ def test_directions_kernel_against_plain_twin(dev):
     assert int((got != want).sum()) <= hb.numel() // 10000
 
 
-@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
-def test_flow_kernels_equal_plain_twins(dev, warm):
-    """A bit for bit and vis exactly, cold and from a warm start (the
-    fixpoint of a slightly different terrain)."""
+@pytest.mark.parametrize("case", ["cold", "warm", "serpentine", "ragged"])
+def test_flow_kernels_equal_plain_twins(dev, case):
+    """K7's A bit for bit and K8's vis exactly against the plain twins, in
+    every tile shape csrc/flow.cu builds: cold and from a warm start (the
+    fixpoint of a slightly different terrain) at 256x128; the serpentine
+    (one river of 24 columns x 150 rows over the dateline of a 1000x200
+    grid, which no tile shape divides); a 2000x1000 terrain, warm."""
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.ops import flow
+    from demiurge_tpu_torch.tools import serpentine
 
-    grid, h = _terrain(256, 128, dev)
-    sel = torch.ones_like(h)
-    area = flow.cell_area_lower_edge(grid, dev)
+    W, H = {"ragged": (2000, 1000), "serpentine": (1000, 200)}.get(
+        case, (256, 128))
+    if case == "serpentine":
+        grid = Grid(W, H)
+        packed, area = serpentine(grid, dev, W - 10, 24, 150)
+        a0 = None
+    else:
+        grid, h = _terrain(W, H, dev)
+        sel = torch.ones_like(h)
+        area = flow.cell_area_lower_edge(grid, dev)
 
-    def packed_of(height):
-        hb = flow.blur(height, grid, 0.5)
-        code = flow.flow_directions(hb, sel, grid)
-        _, mouth, _ = flow.incoming_mask(code, grid)
-        return kf.pack_masks(code, mouth, grid)
+        def packed_of(height):
+            hb = flow.blur(height, grid, 0.5)
+            code = flow.flow_directions(hb, sel, grid)
+            _, mouth, _ = flow.incoming_mask(code, grid)
+            return kf.pack_masks(code, mouth, grid)
 
-    a0 = None
-    if warm:
-        a0 = kf.flow_solve_area_plain(packed_of(h * 1.01 + 0.01), area, grid)
-    packed = packed_of(h)
+        a0 = None
+        if case != "cold":
+            a0 = kf.flow_solve_area_plain(packed_of(h * 1.01 + 0.01), area,
+                                          grid)
+        packed = packed_of(h)
+    want_A = kf.flow_solve_area_plain(packed, area, grid, a0)
+    want_vis = kf.vis_solve_plain(packed, grid)
+    for tile in kf.TILES:
+        before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
+        A = kf.flow_solve_area_cuda(packed, area, grid, a0, tile=tile)
+        sa = dict(kf.LAST_SOLVE["A"])
+        vis = kf.vis_solve_cuda(packed, grid, tile=tile)
+        sv = dict(kf.LAST_SOLVE["vis"])
+        torch.cuda.synchronize()
+        assert torch.equal(A, want_A), tile
+        assert torch.equal(vis, want_vis), tile
+        assert kf.LAUNCHES_A - before[0] == sa["launched"]
+        assert kf.LAUNCHES_VIS - before[1] == sv["launched"]
+        for st in (sa, sv):
+            assert 1 <= st["rounds"] <= st["launched"]
+            assert 1 <= st["host_reads"] <= st["launched"]
+            assert st["tiles_run"] >= 1 and st["max_inner_sweeps"] >= 1
+    assert bool(want_vis.any()) and float(want_A.max()) > float(area.max())
+
+
+def test_flow_kernels_raise_on_a_refused_launch(dev):
+    """A tile shape that csrc/flow.cu does not build is refused by the C
+    entry point, and the wrapper raises; nothing is counted."""
+    from demiurge_tpu_torch.kernels import flow as kf
+
+    grid, _, _, area, packed = _flow_inputs(256, 128, dev)
     before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
-    A = kf.flow_solve_area_cuda(packed, area, grid, a0)
-    vis = kf.vis_solve_cuda(packed, grid)
-    torch.cuda.synchronize()
-    assert kf.LAUNCHES_A > before[0] and kf.LAUNCHES_VIS > before[1]
-    assert torch.equal(A, kf.flow_solve_area_plain(packed, area, grid, a0))
-    assert torch.equal(vis, kf.vis_solve_plain(packed, grid))
-    assert bool(vis.any()) and float(A.max()) > float(area.max())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kf.flow_solve_area_cuda(packed, area, grid, tile=(48, 128, True))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kf.vis_solve_cuda(packed, grid, tile=(32, 96, True))
+    assert (kf.LAUNCHES_A, kf.LAUNCHES_VIS) == before
 
 
 def test_coupled_step_on_the_card_matches_the_cpu(dev):
