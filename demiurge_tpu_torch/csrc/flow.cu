@@ -26,11 +26,13 @@
 // sweeps on it per visit and skips bands whose flags were quiet.  Here the
 // unit is a 2-D tile of TY x TX cells, one block of TX threads, thread t
 // owning column t of the tile:
-//   1. Wake.  Thread 0 reads the 9 tile flags of the tile's 3x3
-//      neighbourhood (x wraps, y clips) from the last round's array; if
-//      none is set the block writes its own flag 0 and returns: one load
-//      a block, not one a thread (PR 2's per-thread early return cost 7
-//      ms).
+//   1. Wake.  Each tile leaves, for the next round, 8 edge bits: which of
+//      its top and bottom rows, left and right columns and 4 corners it
+//      wrote (the last real row and column on a ragged edge tile).  Thread
+//      0 reads the bits of the 8 neighbour tiles that face this tile's
+//      halo (x wraps, y clips); if none is set the block writes its own
+//      bits 0 and returns: one load a block, not one a thread (PR 2's
+//      per-thread early return cost 7 ms).  Round 0 runs every tile.
 //   2. Load.  The tile and a one-cell halo of A (f32; vis: one byte) go to
 //      shared memory; x wraps over the dateline inside the halo; rows
 //      beyond the grid load as 0 (no mask bit reads them).  Each cell's 8
@@ -39,51 +41,50 @@
 //      its row" bit (an edge of dy = 0 leaves it), and the area, sit
 //      beside them.  The halo stays as loaded for the whole visit.
 //   3. Relax in shared memory to the tile's local fixpoint.  A pass walks
-//      the rows in order, down on even passes and up on odd ones; a row is
-//      one step of every thread, ended by __syncthreads_or, and repeated
-//      while a cell that feeds its own row changed.  So a pass carries a
-//      change along any stretch of a path that runs with it or sideways,
-//      and a path needs about one pass per reversal of its direction in y.
-//      A pass that changes nothing ends the visit (__syncthreads_or): it
-//      read the current tile everywhere, so every cell of the tile
-//      satisfies its equation against the halo as loaded.  (The row
-//      repeats and the passes are capped at the longest path a row or a
-//      tile can hold, so a launch ends even on masks with a cycle; the
-//      host then finds no certifying round.)  With SYNC false
-//      the rows run free (only __syncwarp between them): cheaper passes,
-//      more of them.
-//   4. Write back the cells whose bits changed (__stcg), raise the tile's
-//      flag in the next round's array if any did, and count the visit
-//      (atomicAdd) and its passes (atomicMax).
-// One launch is one round over every tile; the flags ping-pong between two
-// arrays.  The host launches rounds in batches and reads the batch's
+//      the dirty rows in order, down on even passes and up on odd ones; a
+//      row is one step of every thread, ended by __syncthreads_or, and
+//      repeated while a cell that feeds its own row changed.  So a pass
+//      carries a change along any stretch of a path that runs with it or
+//      sideways, and a path needs about one pass per reversal of its
+//      direction in y.  Every row is dirty in the first pass; after a
+//      pass, the rows next to a row that changed (and it) are.  A row that
+//      is not dirty satisfies its equations: neither it nor the rows it
+//      reads changed since it last did.  So a pass that changes nothing
+//      ends the visit with every cell of the tile satisfied against the
+//      halo as loaded.  (The row repeats and the passes are capped at the
+//      longest path a row or a tile can hold, so a launch ends even on
+//      masks with a cycle; the host then finds no certifying round.)  With
+//      SYNC false the rows run free (only __syncwarp between them):
+//      cheaper passes, more of them.
+//   4. Write back the cells whose bits changed (__stcg), leave the edge
+//      bits, and count the visit (atomicAdd), its passes (atomicMax) and
+//      whether it wrote (the round's flag).
+// One launch is one round over every tile; the edge bits ping-pong between
+// two arrays.  The host launches rounds in batches and reads the batch's
 // round flags once (kernels/flow.py _solve_tiles_cuda); the rounds after
 // the certifying one launch blocks that return after step 1.
 //
 // Why the stale halo is sound (K11a's argument, csrc/flow_deadends.cu,
-// for whole tiles).  A tile's cells are written by that tile's block only.
-// Claim: at the end of round t, every tile not woken for round t+1 (no
-// tile of its 3x3 neighbourhood wrote in round t) satisfies its equations.
-// Its neighbourhood wrote nothing in round t, so its cells and its halo
-// did not change during the round.  If it ran in round t, it relaxed
-// against a halo that held to the end of the round and wrote nothing, so
-// its cells are its local fixpoint against the current halo.  If it did
-// not run, it was not woken for round t, so it satisfied its equations at
-// the end of round t-1 (induction; round 0 runs every tile), and nothing
-// it reads has changed since.  So a round in which no tile wrote leaves
-// every cell satisfied: the global fixpoint.  A tile whose neighbour did
-// write is woken by that write and relaxes again against the new halo.
-// Reads of other tiles' cells go through L2 (__ldcg), and 4-byte stores do
-// not tear.
+// for whole tiles and halo cells).  A tile's cells are written by that
+// tile's block only.  Claim: at the end of round t, every tile not woken
+// for round t+1 (no cell of its halo was written in round t) satisfies its
+// equations.  If it ran in round t, it relaxed against a halo that held to
+// the end of the round, and its cells are its local fixpoint against it.
+// If it did not run, it was not woken for round t, so it satisfied its
+// equations at the end of round t-1 (induction; round 0 runs every tile),
+// and neither its cells nor its halo changed since.  So a round in which no
+// tile wrote leaves every cell satisfied: the global fixpoint.  A tile
+// whose halo was written is woken by that write and relaxes again against
+// the new halo.  Reads of other tiles' cells go through L2 (__ldcg), and
+// 4-byte stores do not tear.
 //
 // Bound on this card: device-memory bytes: read the masks, the area and
 // the start and write A once (16 bytes a pixel, 0.0100 ms at 2048x1024),
 // and the masks and vis (5 bytes a pixel, 0.0031 ms), at 3.35 TB/s; one
 // add per flow edge is far below the f32 rate.  One-sweep-a-launch kernels
 // touched every pixel in L2 on every sweep (~20 us each, 504 a solve); the
-// tiles keep the sweeps in shared memory, skip the tiles whose
-// neighbourhood is quiet, and need about as many rounds as the longest
-// path crosses tile edges.
+// tiles keep the sweeps in shared memory, skip clean rows and quiet tiles,
+// and need about as many rounds as the longest path crosses tile edges.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,6 +119,11 @@ constexpr int kFeed = 1 << 8;  // a change of this cell feeds its own row
 constexpr int kReal = 1 << 9;  // a cell of the grid (edge tiles are ragged)
 constexpr int kRowOut = (1 << 3) | (1 << 4);  // the dy = 0 neighbours
 
+// a tile's edge bits: what it wrote of its border
+constexpr int kTop = 1, kBottom = 2, kLeft = 4, kRight = 8;
+constexpr int kTopLeft = 16, kTopRight = 32, kBottomLeft = 64,
+              kBottomRight = 128;
+
 // stats: [0] tile visits, [1] most passes of a visit, [2 + j] round j of
 // the batch wrote
 constexpr int kStatsHead = 2;
@@ -127,21 +133,24 @@ __device__ __forceinline__ uint8_t ld_cg(const uint8_t* p) {
   return __ldcg(p);
 }
 
-// Step 1: whether a tile of the block's 3x3 neighbourhood wrote last
-// round; a quiet block clears its own flag for this round.
+// Step 1: whether a neighbour tile wrote a cell of this tile's halo last
+// round; a quiet block clears its own bits for this round.  Also zeroes
+// the block's edge bits *out.
 __device__ bool tile_awake(const int* __restrict__ prev, int* cur, int nby,
-                           int nbx) {
+                           int nbx, int* out) {
   __shared__ int awake;
   if (threadIdx.x == 0) {
     const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
-    int a = 0;
-    for (int di = -1; di <= 1; ++di) {
+    auto bits = [&](int di, int dj) {  // y clips, x wraps
       const int ii = ti + di;
-      if (ii < 0 || ii >= nby) continue;  // y clips
-      for (int dj = -1; dj <= 1; ++dj)
-        a |= prev[ii * nbx + (tj + dj + nbx) % nbx];  // x wraps
-    }
+      return ii < 0 || ii >= nby ? 0 : prev[ii * nbx + (tj + dj + nbx) % nbx];
+    };
+    const int a = (bits(-1, 0) & kBottom) | (bits(1, 0) & kTop) |
+                  (bits(0, -1) & kRight) | (bits(0, 1) & kLeft) |
+                  (bits(-1, -1) & kBottomRight) | (bits(-1, 1) & kBottomLeft) |
+                  (bits(1, -1) & kTopRight) | (bits(1, 1) & kTopLeft);
     awake = a;
+    *out = 0;
     if (!a) cur[blockIdx.x] = 0;
   }
   __syncthreads();
@@ -163,14 +172,75 @@ __device__ void load_halo(volatile T* s, const T* g, int r0, int c0, int H,
   }
 }
 
-// Step 4's bookkeeping, by thread 0.
-__device__ __forceinline__ void finish(int* cur, int* stats, int slot,
-                                       bool wrote, int passes) {
+// Step 3: passes over the dirty rows until one changes nothing.
+// cell(li) updates this thread's cell of row li and returns 0 (no change),
+// 1 (changed) or 3 (changed, and it feeds its own row).  Returns the rows
+// where this thread's cell changed; *passes gets the passes taken.
+template <int TY, int TX, bool SYNC, typename Cell>
+__device__ uint64_t relax(Cell cell, int* passes) {
+  static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
+  // the pass's changed rows, a ring of 3: pass p ORs into slot p % 3 and,
+  // after the barrier that ends it, thread 0 clears slot (p + 2) % 3,
+  // which every thread has read and none writes before the next barrier
+  __shared__ unsigned vote[3][2];
+  if (threadIdx.x < 6) vote[threadIdx.x / 2][threadIdx.x % 2] = 0;
+  __syncthreads();
+  const uint64_t all = TY == 64 ? ~0ull : (1ull << TY) - 1;
+  uint64_t dirty = all, touched = 0;
+  for (int p = 0;; ++p) {
+    const bool down = (p & 1) == 0;
+    uint64_t mine = 0;
+    for (int s = 0; s < TY; ++s) {
+      const int li = down ? s : TY - 1 - s;
+      if (!((dirty >> li) & 1)) continue;  // uniform over the block
+      for (int reps = 0;;) {
+        const int r = cell(li);
+        if (r) mine |= 1ull << li;
+        if (!SYNC || !__syncthreads_or(r & 2) || ++reps > TX) break;
+      }
+      if (!SYNC) __syncwarp();
+    }
+    const unsigned lo = __reduce_or_sync(~0u, (unsigned)mine);
+    const unsigned hi = __reduce_or_sync(~0u, (unsigned)(mine >> 32));
+    unsigned* v = vote[p % 3];
+    if ((threadIdx.x & 31) == 0 && (lo | hi)) {
+      atomicOr(v, lo);
+      atomicOr(v + 1, hi);
+    }
+    __syncthreads();
+    const uint64_t rows = v[0] | (uint64_t)v[1] << 32;
+    if (threadIdx.x == 0) vote[(p + 2) % 3][0] = vote[(p + 2) % 3][1] = 0;
+    touched |= mine;
+    if (!rows || p + 1 > TY * TX) {
+      *passes = p + 1;
+      return touched;
+    }
+    dirty = (rows | rows << 1 | rows >> 1) & all;
+  }
+}
+
+// Step 4's bookkeeping: the edge bits of the rows `wrote` of this thread's
+// column c, OR-ed over the block into *out; thread 0 then publishes them.
+template <int TY, int TX>
+__device__ void finish(uint64_t wrote, int c, int r0, int c0, int H, int W,
+                       int* out, int* cur, int* stats, int slot,
+                       int passes) {
+  if (wrote) {
+    const bool top = wrote & 1;
+    const bool bottom = (wrote >> (min(TY, H - r0) - 1)) & 1;
+    int bits = (top ? kTop : 0) | (bottom ? kBottom : 0);
+    if (c == c0)
+      bits |= kLeft | (top ? kTopLeft : 0) | (bottom ? kBottomLeft : 0);
+    if (c == min(c0 + TX, W) - 1)
+      bits |= kRight | (top ? kTopRight : 0) | (bottom ? kBottomRight : 0);
+    atomicOr(out, bits | (1 << 8));
+  }
+  __syncthreads();
   if (threadIdx.x != 0) return;
-  cur[blockIdx.x] = wrote;
+  cur[blockIdx.x] = *out & 0xff;
   atomicAdd(stats, 1);
   atomicMax(stats + 1, passes);
-  if (wrote) atomicOr(stats + kStatsHead + slot, 1);
+  if (*out) atomicOr(stats + kStatsHead + slot, 1);
 }
 
 template <int TY, int TX>
@@ -190,18 +260,18 @@ __global__ void __launch_bounds__(TX)
                      const float* __restrict__ area, float* A,
                      const int* __restrict__ prev, int* cur, int* stats,
                      int slot, int H, int W, int nby, int nbx) {
-  static_assert(TY <= 64, "a thread's touched rows are one 64-bit mask");
   constexpr int SW = TX + 2;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int out;
   volatile float* sA = reinterpret_cast<float*>(smem);
   float* sArea = reinterpret_cast<float*>(smem) + (TY + 2) * SW;
   uint16_t* sMeta = reinterpret_cast<uint16_t*>(sArea + TY * TX);
-  if (!tile_awake(prev, cur, nby, nbx)) return;
+  if (!tile_awake(prev, cur, nby, nbx, &out)) return;
 
   const int t = threadIdx.x;
   const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
-  const int r0 = ti * TY, c = tj * TX + t;
-  load_halo<TY, TX>(sA, A, r0, tj * TX, H, W);
+  const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
+  load_halo<TY, TX>(sA, A, r0, c0, H, W);
   for (int li = 0; li < TY; ++li) {
     int m = 0;
     float ar = 0.0f;
@@ -214,51 +284,36 @@ __global__ void __launch_bounds__(TX)
     sMeta[li * TX + t] = (uint16_t)m;
     sArea[li * TX + t] = ar;
   }
-  __syncthreads();
+  // (relax's barrier orders these stores before the first pass)
 
-  uint64_t touched = 0;
-  int passes = 0;
-  for (;;) {
-    const bool down = (passes & 1) == 0;
-    bool mine = false;
-    for (int s = 0; s < TY; ++s) {
-      const int li = down ? s : TY - 1 - s;
-      const int m = sMeta[li * TX + t];
-      const int ctr = (li + 1) * SW + t + 1;
-      for (int reps = 0;;) {
-        bool feed = false;
-        if (m & kReal) {
-          float acc = sArea[li * TX + t];
+  int passes;
+  const uint64_t touched = relax<TY, TX, SYNC>(
+      [&](int li) {
+        const int m = sMeta[li * TX + t];
+        if (!(m & kReal)) return 0;
+        const int ctr = (li + 1) * SW + t + 1;
+        float acc = sArea[li * TX + t];
 #pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if ((m >> k) & 1)
-              acc = __fadd_rn(acc, sA[ctr + dyk(k) * SW + dxk(k)]);
-          if (__float_as_int(acc) != __float_as_int(sA[ctr])) {
-            sA[ctr] = acc;
-            mine = true;
-            touched |= 1ull << li;
-            feed = m & kFeed;
-          }
-        }
-        if (!SYNC || !__syncthreads_or(feed) || ++reps > TX) break;
-      }
-      if (!SYNC) __syncwarp();
-    }
-    ++passes;
-    if (!__syncthreads_or(mine) || passes > TY * TX) break;
-  }
+        for (int k = 0; k < 8; ++k)
+          if ((m >> k) & 1)
+            acc = __fadd_rn(acc, sA[ctr + dyk(k) * SW + dxk(k)]);
+        if (__float_as_int(acc) == __float_as_int(sA[ctr])) return 0;
+        sA[ctr] = acc;
+        return m & kFeed ? 3 : 1;
+      },
+      &passes);
 
-  bool wrote = false;
+  uint64_t wrote = 0;
   for (int li = 0; li < TY; ++li) {
     if (!((touched >> li) & 1)) continue;
     const long i = (long)(r0 + li) * W + c;
     const float v = sA[(li + 1) * SW + t + 1];
     if (__float_as_int(v) != __float_as_int(__ldcg(A + i))) {
       __stcg(A + i, v);
-      wrote = true;
+      wrote |= 1ull << li;
     }
   }
-  finish(cur, stats, slot, __syncthreads_or(wrote), passes);
+  finish<TY, TX>(wrote, c, r0, c0, H, W, &out, cur, stats, slot, passes);
 }
 
 template <int TY, int TX, bool SYNC>
@@ -266,18 +321,18 @@ __global__ void __launch_bounds__(TX)
     vis_tile_kernel(const int* __restrict__ packed, uint8_t* vis,
                     const int* __restrict__ prev, int* cur, int* stats,
                     int slot, int H, int W, int nby, int nbx) {
-  static_assert(TY <= 64, "a thread's touched rows are one 64-bit mask");
   constexpr int SW = TX + 2;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int out;
   volatile uint8_t* sV = smem;
   uint16_t* sMeta =
       reinterpret_cast<uint16_t*>(smem + ((TY + 2) * SW + 15) / 16 * 16);
-  if (!tile_awake(prev, cur, nby, nbx)) return;
+  if (!tile_awake(prev, cur, nby, nbx, &out)) return;
 
   const int t = threadIdx.x;
   const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
-  const int r0 = ti * TY, c = tj * TX + t;
-  load_halo<TY, TX>(sV, vis, r0, tj * TX, H, W);
+  const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
+  load_halo<TY, TX>(sV, vis, r0, c0, H, W);
   for (int li = 0; li < TY; ++li) {
     int m = 0;
     if (c < W && r0 + li < H) {
@@ -286,47 +341,32 @@ __global__ void __launch_bounds__(TX)
     }
     sMeta[li * TX + t] = (uint16_t)m;
   }
-  __syncthreads();
 
-  uint64_t touched = 0;
-  int passes = 0;
-  for (;;) {
-    const bool down = (passes & 1) == 0;
-    bool mine = false;
-    for (int s = 0; s < TY; ++s) {
-      const int li = down ? s : TY - 1 - s;
-      const int m = sMeta[li * TX + t];
-      const int ctr = (li + 1) * SW + t + 1;
-      for (int reps = 0;;) {
-        bool feed = false;
-        if ((m & kReal) && (m & 0xff) && !sV[ctr]) {
-          bool v = false;
+  int passes;
+  const uint64_t touched = relax<TY, TX, SYNC>(
+      [&](int li) {
+        const int m = sMeta[li * TX + t];
+        const int ctr = (li + 1) * SW + t + 1;
+        if (!(m & kReal) || !(m & 0xff) || sV[ctr]) return 0;
+        bool v = false;
 #pragma unroll
-          for (int k = 0; k < 8; ++k)
-            if ((m >> k) & 1) v = v || sV[ctr + dyk(k) * SW + dxk(k)];
-          if (v) {
-            sV[ctr] = 1;
-            mine = true;
-            touched |= 1ull << li;
-            feed = m & kFeed;
-          }
-        }
-        if (!SYNC || !__syncthreads_or(feed) || ++reps > TX) break;
-      }
-      if (!SYNC) __syncwarp();
-    }
-    ++passes;
-    if (!__syncthreads_or(mine) || passes > TY * TX) break;
-  }
+        for (int k = 0; k < 8; ++k)
+          if ((m >> k) & 1) v = v || sV[ctr + dyk(k) * SW + dxk(k)];
+        if (!v) return 0;
+        sV[ctr] = 1;
+        return m & kFeed ? 3 : 1;
+      },
+      &passes);
 
   // a touched cell went from 0 to 1, and only this block writes it
   for (int li = 0; li < TY; ++li)
     if ((touched >> li) & 1) vis[(long)(r0 + li) * W + c] = 1;
-  finish(cur, stats, slot, __syncthreads_or(touched != 0), passes);
+  finish<TY, TX>(touched, c, r0, c0, H, W, &out, cur, stats, slot, passes);
 }
 
 // n rounds, the first of them the solve's round `first`: round t reads the
-// tile flags flags[(t % 2) * nt ..] and writes flags[((t + 1) % 2) * nt ..].
+// tiles' edge bits flags[(t % 2) * nt ..] and writes flags[((t + 1) % 2) *
+// nt ..].
 template <typename Kernel, typename... Args>
 int tile_rounds(Kernel kernel, size_t smem, int ty, int tx, int* flags,
                 int* stats, int H, int W, int first, int n,
@@ -465,8 +505,9 @@ extern "C" {
 
 // K7: n rounds of the tiled A relaxation (tiles ty x tx, rows in step
 // when sync), the first being the solve's round `first`.  flags: 2 x nt
-// tile flags (all set before round 0); stats as above (stats[2..2+n)
-// zeroed here).  An unbuilt shape returns cudaErrorInvalidValue.
+// tiles' edge bits (all set before round 0); stats as above
+// (stats[2..2+n) zeroed here).  An unbuilt shape returns
+// cudaErrorInvalidValue.
 int demiurge_flow_area_tiles(const int* packed, const float* area, float* A,
                              int* flags, int* stats, int H, int W, int ty,
                              int tx, int sync, int first, int n,

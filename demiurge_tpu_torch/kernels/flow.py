@@ -25,14 +25,14 @@ equals ``ops.flow.flow_solve_stencil``'s.
 ``flow_solve_area`` / ``vis_solve`` launch the CUDA kernels
 (``csrc/flow.cu``) for CUDA tensors and run the plain twins (Jacobi sweeps,
 checked every 64) for CPU tensors.  On the card a solve runs in rounds:
-one launch is one round over every tile of ``TILE`` (rows, columns),
-in which a tile whose 3x3 tile neighbourhood wrote in the last round
-loads itself into shared memory, relaxes there to its local fixpoint and
-writes back what changed; a round in which no tile wrote certifies the
-fixpoint (the argument is in the source).  ``LAUNCHES_A`` /
-``LAUNCHES_VIS`` count kernel launches (one per round); ``LAST_SOLVE``
-holds the last CUDA solve's rounds, launches, host reads, tile visits and
-the most inner sweeps a visit took.
+one launch is one round over every tile of ``TILE`` (rows, columns), in
+which a tile whose halo a neighbour tile wrote in the last round (every
+tile, in the first) loads itself into shared memory, relaxes there to its
+local fixpoint and writes back what changed; a round in which no tile
+wrote certifies the fixpoint (the argument is in the source).
+``LAUNCHES_A`` / ``LAUNCHES_VIS`` count kernel launches (one per round);
+``LAST_SOLVE`` holds the last CUDA solve's rounds, launches, host reads,
+tile visits and the most inner sweeps a visit took.
 """
 
 from __future__ import annotations
@@ -162,7 +162,8 @@ def _solve_tiles_cuda(entry: str, args, device, grid: Grid, tile,
     ty, tx, sync = tile
     H, W = grid.shape
     nt = -(-H // ty) * -(-W // tx)
-    flags = torch.ones(2 * nt, dtype=torch.int32, device=device)
+    # every edge bit set: round 0 wakes every tile
+    flags = torch.full((2 * nt,), -1, dtype=torch.int32, device=device)
     stats = torch.zeros(2 + MAX_BATCH, dtype=torch.int32, device=device)
     fn = getattr(build.library(), entry)
     n, done, reads = FIRST_BATCH, 0, 0

@@ -3,19 +3,21 @@
 The CUDA kernels cannot run here, so their schedule is transliterated and
 held to the plain twins' fixpoint (``flow_solve_area_plain``'s A bit for
 bit, ``vis_solve_plain``'s vis exactly): it is what checks the argument in
-csrc/flow.cu.  A round visits the tiles woken by the 3x3 rule (x wraps, y
-clips; round 1 visits all), in a random order.  A visit loads its tile and
-a one-cell halo, relaxes them to the tile's local fixpoint with the halo
-held (passes over the rows, down then up, a row repeated while a cell
-that feeds its own row changed, until a pass changes nothing), writes
-back the cells that changed and raises the tile's flag if any did.  Two
+csrc/flow.cu.  A round visits, in a random order, the tiles whose halo a
+neighbour tile wrote in the last round (x wraps, y clips; round 1 visits
+all): each tile leaves edge bits, which of its border rows, columns and
+corners it wrote.  A visit loads its tile and a one-cell halo, relaxes
+them to the tile's local fixpoint with the halo held (passes over the
+dirty rows, down then up, a row repeated while a cell that feeds its own
+row changed, until a pass changes nothing; after a pass the rows next to
+a changed row are dirty) and writes back the cells that changed.  Two
 variants bound what concurrent blocks can see:
 
 - "concurrent": every visit of a round reads the round-start state;
 - "in place": a visit reads the state the visits before it left.
 
 A round in which no tile wrote ends the solve.  A wrong rule that wakes a
-tile on its own flag only must stop short of the fixpoint.  The grids are
+tile on its own writes only must stop short of the fixpoint.  The grids are
 ragged (the tile divides neither W nor H).
 """
 
@@ -25,7 +27,6 @@ import torch
 
 from demiurge_tpu_torch.core.grid import Grid
 from demiurge_tpu_torch.kernels import flow as kf
-from demiurge_tpu_torch.kernels import flow_deadends as kd
 from demiurge_tpu_torch.tools import serpentine
 
 torch.set_num_threads(2)
@@ -57,11 +58,12 @@ def _relax(local, bits, feed, real, area):
     """A visit's relaxation of the halo'd tile ``local`` in place; ``area``
     is None for vis.  Returns the passes it took."""
     ty, tx = bits.shape
+    dirty = np.ones(ty, bool)
     passes = 0
     while True:
-        changed = False
+        changed = np.zeros(ty, bool)
         rows = range(ty) if passes % 2 == 0 else range(ty - 1, -1, -1)
-        for li in rows:
+        for li in (li for li in rows if dirty[li]):
             while True:
                 cur = local[li + 1, 1:tx + 1]
                 if area is None:
@@ -78,17 +80,51 @@ def _relax(local, bits, feed, real, area):
                         new = np.where(on, new + nb, new).astype(np.float32)
                     ch = real[li] & (new.view(np.int32) != cur.view(np.int32))
                 local[li + 1, 1:tx + 1] = np.where(ch, new, cur)
-                changed |= bool(ch.any())
+                changed[li] |= bool(ch.any())
                 if not (ch & feed[li]).any():
                     break
         passes += 1
-        if not changed:
+        if not changed.any():
             return passes
+        # the rows next to a changed row, and it, are dirty
+        dirty = changed.copy()
+        dirty[1:] |= changed[:-1]
+        dirty[:-1] |= changed[1:]
 
 
-def _tile_rounds(packed, start, area, tile, variant, order_seed, reach=1):
+# a tile's edge bits, as csrc/flow.cu leaves them: the cells it wrote of
+# its top, bottom rows, left, right columns, and of its 4 corners (the
+# last real row and column of a ragged tile)
+TOP, BOTTOM, LEFT, RIGHT, TL, TR, BL, BR = (1 << i for i in range(8))
+ALL_EDGES = 255
+
+
+def _edge_bits(moved, h, w):
+    top, bottom = moved[0].any(), moved[h - 1].any()
+    left, right = moved[:, 0].any(), moved[:, w - 1].any()
+    return (TOP * top | BOTTOM * bottom | LEFT * left | RIGHT * right
+            | TL * moved[0, 0] | TR * moved[0, w - 1]
+            | BL * moved[h - 1, 0] | BR * moved[h - 1, w - 1])
+
+
+def _woken(edges):
+    """(nby, nbx) bool: the tiles whose halo a neighbour tile wrote (x
+    wraps, y clips)."""
+    e = np.pad(edges, ((1, 1), (0, 0)))
+
+    def at(di, dj):  # the bits of the tile at (i + di, j + dj)
+        return np.roll(e[1 + di:e.shape[0] - 1 + di], -dj, 1)
+
+    return ((at(-1, 0) & BOTTOM) | (at(1, 0) & TOP) | (at(0, -1) & RIGHT)
+            | (at(0, 1) & LEFT) | (at(-1, -1) & BR) | (at(-1, 1) & BL)
+            | (at(1, -1) & TR) | (at(1, 1) & TL)) != 0
+
+
+def _tile_rounds(packed, start, area, tile, variant, order_seed,
+                 own_only=False):
     """The tiled solve of A (``area`` given) or vis (``area`` None) from
-    ``start``.  Returns (field, stats)."""
+    ``start``.  ``own_only``: the wrong rule, a tile woken by its own
+    writes only.  Returns (field, stats)."""
     p = packed.numpy()
     H, W = p.shape
     ty, tx = tile
@@ -102,13 +138,15 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed, reach=1):
     pad_r = np.arange(-1, nby * ty + 1)
     pad_c = np.arange(-1, nbx * tx + 1) % W
     X = start.copy()
-    flags = np.ones((nby, nbx), bool)
+    edges = np.full((nby, nbx), ALL_EDGES)
+    wrote = np.ones((nby, nbx), bool)
     rng = np.random.default_rng(order_seed)
     visits, most = 0, 0
     for rnd in range(1, H * W + 2):
-        awake = kd.tile_activity(flags) if reach else flags
+        awake = wrote if own_only else _woken(edges)
         src = X.copy() if variant == "concurrent" else X
         wrote = np.zeros((nby, nbx), bool)
+        edges = np.zeros((nby, nbx), int)
         for t in rng.permutation(nby * nbx):
             i, j = divmod(int(t), nbx)
             if not awake[i, j]:
@@ -139,15 +177,39 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed, reach=1):
                 X[rr[:, None].repeat(tx, 1)[moved],
                   cc[None, :].repeat(ty, 0)[moved]] = after[moved]
                 wrote[i, j] = True
+                edges[i, j] = _edge_bits(moved, min(ty, H - i * ty),
+                                         min(tx, W - j * tx))
         if not wrote.any():
             return X, {"rounds": rnd, "tiles_run": visits,
                        "max_inner_sweeps": most, "tiles": nby * nbx}
-        flags = wrote
     raise AssertionError("no fixpoint")
+
+
+def _diagonal(grid, x0, n):
+    """(packed, area) of one river of n cells that runs diagonally, (1, 1)
+    a step, from row 1 and column x0 (x periodic), into an ocean cell;
+    every other cell a land sink.  On square tiles it crosses from tile to
+    tile at their corners."""
+    from demiurge_tpu_torch.core.topology import DIR_CODE
+    from demiurge_tpu_torch.ops import flow as tf
+
+    code = torch.full(grid.shape, 5, dtype=torch.int32)
+    for k in range(1, n + 1):
+        code[k, (x0 + k - 1) % grid.width] = DIR_CODE[(1, 1)]
+    code[n + 1, (x0 + n) % grid.width] = 0
+    _, mouth, _ = tf.incoming_mask(code, grid)
+    return kf.pack_masks(code, mouth, grid), \
+        tf.cell_area_lower_edge(grid, "cpu")
 
 
 def _case(name):
     """(grid, packed, area, A start, model tile) of each case."""
+    if name == "diagonal":
+        # 26 cells from (1, 37) over the dateline of a 42-wide grid, through
+        # ragged tiles of 4 x 4: corners before the dateline, edges after
+        grid = Grid(42, 30)
+        packed, area = _diagonal(grid, 37, 26)
+        return grid, packed, area, area, (4, 4)
     if name == "serpentine":
         # one river of 10 columns x 18 rows from x = 55 over the dateline
         # of a 60-wide grid, through 6 x 8 ragged tiles of 4 x 8
@@ -164,7 +226,8 @@ def _case(name):
 
 
 @pytest.mark.parametrize("variant", ["concurrent", "in place"])
-@pytest.mark.parametrize("name", ["port", "serpentine", "warm"])
+@pytest.mark.parametrize("name", ["port", "serpentine", "warm",
+                                  "diagonal"])
 def test_tile_schedule_reaches_the_plain_fixpoint(name, variant):
     """A bit for bit and vis exactly, in both variants and two visit
     orders; vis starts at the mouths in every case."""
@@ -191,8 +254,8 @@ def test_tile_schedule_reaches_the_plain_fixpoint(name, variant):
 def test_tile_schedule_with_a_wrong_wake_rule_stops_short(variant):
     """Warm-started from the serpentine's fixpoint with no area in its
     first column, every tile but that column's starts consistent and goes
-    quiet before the correction reaches it: the 3x3 rule wakes it when
-    the correction does, a rule that wakes a tile on its own flag only
+    quiet before the correction reaches it: the halo rule wakes it when
+    the correction does, a rule that wakes a tile on its own writes only
     leaves it stale."""
     grid, packed, area, _, tile = _case("serpentine")
     want = kf.flow_solve_area_plain(packed, area, grid).numpy()
@@ -204,7 +267,7 @@ def test_tile_schedule_with_a_wrong_wake_rule_stops_short(variant):
                             order_seed)
         np.testing.assert_array_equal(A, want)
         A_own, _ = _tile_rounds(packed, a0, area.numpy(), tile, variant,
-                                order_seed, reach=0)
+                                order_seed, own_only=True)
         assert not np.array_equal(A_own, want)
 
 
