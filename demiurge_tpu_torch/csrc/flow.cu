@@ -40,22 +40,26 @@
 //      tiles are ragged where TX does not divide W or TY H) and a "feeds
 //      its row" bit (an edge of dy = 0 leaves it), and the area, sit
 //      beside them.  The halo stays as loaded for the whole visit.
-//   3. Relax in shared memory to the tile's local fixpoint.  A pass walks
-//      the dirty rows in order, down on even passes and up on odd ones; a
-//      row is one step of every thread, ended by __syncthreads_or, and
-//      repeated while a cell that feeds its own row changed.  So a pass
-//      carries a change along any stretch of a path that runs with it or
-//      sideways, and a path needs about one pass per reversal of its
-//      direction in y.  Every row is dirty in the first pass; after a
-//      pass, the rows next to a row that changed (and it) are.  A row that
-//      is not dirty satisfies its equations: neither it nor the rows it
-//      reads changed since it last did.  So a pass that changes nothing
-//      ends the visit with every cell of the tile satisfied against the
-//      halo as loaded.  (The row repeats and the passes are capped at the
-//      longest path a row or a tile can hold, so a launch ends even on
-//      masks with a cycle; the host then finds no certifying round.)  With
-//      SYNC false the rows run free (only __syncwarp between them):
-//      cheaper passes, more of them.
+//   3. Solve the tile's local fixpoint in shared memory.  K8 (one out
+//      edge a cell) jumps pointers along the paths (vis_tile_kernel).  K7
+//      sums in scan order, so it relaxes: a pass walks the dirty rows in
+//      order, down on even passes and up on odd ones.  A
+//      row is one step of every thread, repeated while a cell that feeds
+//      its own row changed, which leaves the row satisfied; a change makes
+//      the rows above and below it dirty, so the next row of a down pass
+//      sees it at once.  So a pass carries a change along any stretch of a
+//      path that runs with it or sideways, and a path needs about one pass
+//      per reversal of its direction in y.  Every row starts dirty; a row
+//      that is not dirty satisfies its equations (neither it nor a row it
+//      reads changed since it last did), so when no row is dirty every
+//      cell of the tile is satisfied against the halo as loaded.  The
+//      rows are in step over the block (a block-wide vote ends each row
+//      step), or, with WARPS, each warp walks its own 32-column strip with
+//      warp votes and marks the rows of the neighbour strip that its edge
+//      columns changed; the block then synchronises once a pass.  (The row
+//      repeats and the passes are capped at the longest path a row or a
+//      tile can hold, so a launch ends even on masks with a cycle; the
+//      host then finds no certifying round.)
 //   4. Write back the cells whose bits changed (__stcg), leave the edge
 //      bits, and count the visit (atomicAdd), its passes (atomicMax) and
 //      whether it wrote (the round's flag).
@@ -172,50 +176,83 @@ __device__ void load_halo(volatile T* s, const T* g, int r0, int c0, int H,
   }
 }
 
-// Step 3: passes over the dirty rows until one changes nothing.
-// cell(li) updates this thread's cell of row li and returns 0 (no change),
-// 1 (changed) or 3 (changed, and it feeds its own row).  Returns the rows
-// where this thread's cell changed; *passes gets the passes taken.
-template <int TY, int TX, bool SYNC, typename Cell>
+// Step 3: passes over the dirty rows until no row is dirty.  cell(li)
+// updates this thread's cell of row li and returns 0 (no change), 1
+// (changed) or 3 (changed, and it feeds its own row).  A row is computed,
+// and repeated while a change fed its own row, which leaves it satisfied;
+// a change makes the rows above and below dirty (in a down pass the row
+// below is next).  A row that is not dirty satisfies its equations, so no
+// dirty row left means the tile's local fixpoint.  Returns the rows where
+// this thread's cell changed; *passes gets the passes taken.
+//
+// WARPS false: the rows of the whole block are in step, the row's vote is
+// block-wide (a ring of 3 shared words: vote g ORs into slot g % 3 and,
+// after its barrier, thread 0 clears slot (g + 2) % 3, which every thread
+// has read and none writes before the next barrier) and dirty is
+// block-uniform.  WARPS true: each warp walks its own 32-column strip
+// with warp votes and a warp-uniform dirty mask, free of the other warps;
+// a change in a strip's edge column marks the neighbour strip's rows in a
+// shared mask that the neighbour pulls at its next pass; the block
+// synchronises once a pass.
+template <int TY, int TX, bool WARPS, typename Cell>
 __device__ uint64_t relax(Cell cell, int* passes) {
   static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
-  // the pass's changed rows, a ring of 3: pass p ORs into slot p % 3 and,
-  // after the barrier that ends it, thread 0 clears slot (p + 2) % 3,
-  // which every thread has read and none writes before the next barrier
-  __shared__ unsigned vote[3][2];
-  if (threadIdx.x < 6) vote[threadIdx.x / 2][threadIdx.x % 2] = 0;
+  static_assert(TX % 32 == 0, "whole warps");
+  constexpr int NW = TX / 32;
+  __shared__ int ring[3];
+  __shared__ unsigned long long marks[NW];
+  if (threadIdx.x < 3) ring[threadIdx.x] = 0;
+  if (threadIdx.x < NW) marks[threadIdx.x] = 0;
   __syncthreads();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const uint64_t all = TY == 64 ? ~0ull : (1ull << TY) - 1;
+  auto around = [&](int li) {  // rows li - 1, li, li + 1 of the tile
+    return (li > 0 ? 1ull << (li - 1) : 0) | 1ull << li |
+           (li + 1 < TY ? 1ull << (li + 1) : 0);
+  };
   uint64_t dirty = all, touched = 0;
+  int g = 0;
   for (int p = 0;; ++p) {
     const bool down = (p & 1) == 0;
-    uint64_t mine = 0;
     for (int s = 0; s < TY; ++s) {
       const int li = down ? s : TY - 1 - s;
-      if (!((dirty >> li) & 1)) continue;  // uniform over the block
-      for (int reps = 0;;) {
+      if (!((dirty >> li) & 1)) continue;  // uniform over the block / warp
+      dirty &= ~(1ull << li);
+      for (int reps = 0;; ++reps) {
         const int r = cell(li);
-        if (r) mine |= 1ull << li;
-        if (!SYNC || !__syncthreads_or(r & 2) || ++reps > TX) break;
+        if (r) touched |= 1ull << li;
+        int v;
+        if (WARPS) {
+          const unsigned ch = __ballot_sync(~0u, r & 1);
+          v = (ch ? 1 : 0) | (__any_sync(~0u, r & 2) ? 2 : 0);
+          if (lane == 0 && (ch & 1u) && w > 0)
+            atomicOr(&marks[w - 1], (unsigned long long)around(li));
+          if (lane == 0 && (ch >> 31) && w < NW - 1)
+            atomicOr(&marks[w + 1], (unsigned long long)around(li));
+        } else {
+          if (r) atomicOr(&ring[g % 3], r);
+          __syncthreads();
+          v = ring[g % 3];
+          if (threadIdx.x == 0) ring[(g + 2) % 3] = 0;
+          ++g;
+        }
+        if (v & 1) dirty |= around(li) & ~(1ull << li);
+        if (!(v & 2)) break;
+        if (reps == TX) {  // capped: the row stays dirty
+          dirty |= 1ull << li;
+          break;
+        }
       }
-      if (!SYNC) __syncwarp();
     }
-    const unsigned lo = __reduce_or_sync(~0u, (unsigned)mine);
-    const unsigned hi = __reduce_or_sync(~0u, (unsigned)(mine >> 32));
-    unsigned* v = vote[p % 3];
-    if ((threadIdx.x & 31) == 0 && (lo | hi)) {
-      atomicOr(v, lo);
-      atomicOr(v + 1, hi);
+    if (WARPS) {
+      __syncthreads();  // every strip's marks of this pass are in
+      if (lane == 0) dirty |= atomicExch(&marks[w], 0ull);
+      dirty = __shfl_sync(~0u, dirty, 0);
     }
-    __syncthreads();
-    const uint64_t rows = v[0] | (uint64_t)v[1] << 32;
-    if (threadIdx.x == 0) vote[(p + 2) % 3][0] = vote[(p + 2) % 3][1] = 0;
-    touched |= mine;
-    if (!rows || p + 1 > TY * TX) {
+    if (!__syncthreads_or(dirty != 0) || p + 1 >= TY * TX) {
       *passes = p + 1;
       return touched;
     }
-    dirty = (rows | rows << 1 | rows >> 1) & all;
   }
 }
 
@@ -251,10 +288,11 @@ constexpr size_t area_smem() {
 
 template <int TY, int TX>
 constexpr size_t vis_smem() {
-  return ((TY + 2) * (TX + 2) + 15) / 16 * 16 + sizeof(uint16_t) * TY * TX;
+  return ((TY + 2) * (TX + 2) + 15) / 16 * 16 +
+         sizeof(int16_t) * (TY + 2) * (TX + 2);
 }
 
-template <int TY, int TX, bool SYNC>
+template <int TY, int TX, bool WARPS>
 __global__ void __launch_bounds__(TX)
     area_tile_kernel(const int* __restrict__ packed,
                      const float* __restrict__ area, float* A,
@@ -287,7 +325,7 @@ __global__ void __launch_bounds__(TX)
   // (relax's barrier orders these stores before the first pass)
 
   int passes;
-  const uint64_t touched = relax<TY, TX, SYNC>(
+  const uint64_t touched = relax<TY, TX, WARPS>(
       [&](int li) {
         const int m = sMeta[li * TX + t];
         if (!(m & kReal)) return 0;
@@ -316,47 +354,63 @@ __global__ void __launch_bounds__(TX)
   finish<TY, TX>(wrote, c, r0, c0, H, W, &out, cur, stats, slot, passes);
 }
 
-template <int TY, int TX, bool SYNC>
+// K8's step 3: each cell of the halo'd tile points at a cell further down
+// its path (at first its target; a sink, a halo cell or a cell beyond the
+// grid at itself), and the pointers jump (next = next of next) until a
+// cell reaches a 1 or points at an end.  In place: a pointer read at any
+// time points further down the same path, and a cell only turns to 1 from
+// a 1 on its path.  A pass that changes nothing leaves every cell either
+// 1 or pointing at an end that holds 0: the tile's local fixpoint, in
+// about log2 of its longest path passes.
+template <int TY, int TX>
 __global__ void __launch_bounds__(TX)
     vis_tile_kernel(const int* __restrict__ packed, uint8_t* vis,
                     const int* __restrict__ prev, int* cur, int* stats,
                     int slot, int H, int W, int nby, int nbx) {
-  constexpr int SW = TX + 2;
+  constexpr int SW = TX + 2, SN = (TY + 2) * SW;
+  static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
+  static_assert(SN <= 32767, "a halo'd tile's cells are int16 indices");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int out;
   volatile uint8_t* sV = smem;
-  uint16_t* sMeta =
-      reinterpret_cast<uint16_t*>(smem + ((TY + 2) * SW + 15) / 16 * 16);
+  volatile int16_t* sNext =
+      reinterpret_cast<int16_t*>(smem + (SN + 15) / 16 * 16);
   if (!tile_awake(prev, cur, nby, nbx, &out)) return;
 
   const int t = threadIdx.x;
   const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
   const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
   load_halo<TY, TX>(sV, vis, r0, c0, H, W);
+  for (int k = t; k < SN; k += TX) sNext[k] = (int16_t)k;
+  __syncthreads();
   for (int li = 0; li < TY; ++li) {
-    int m = 0;
-    if (c < W && r0 + li < H) {
-      const int p = __ldg(packed + (long)(r0 + li) * W + c);
-      m = kReal | ((p >> 8) & 0xff) | (p & kRowOut ? kFeed : 0);
-    }
-    sMeta[li * TX + t] = (uint16_t)m;
+    if (c >= W || r0 + li >= H) continue;
+    const int o = (__ldg(packed + (long)(r0 + li) * W + c) >> 8) & 0xff;
+    if (!o) continue;
+    const int k = __ffs(o) - 1, q = (li + 1) * SW + t + 1;
+    sNext[q] = (int16_t)(q + dyk(k) * SW + dxk(k));
   }
+  __syncthreads();
 
-  int passes;
-  const uint64_t touched = relax<TY, TX, SYNC>(
-      [&](int li) {
-        const int m = sMeta[li * TX + t];
-        const int ctr = (li + 1) * SW + t + 1;
-        if (!(m & kReal) || !(m & 0xff) || sV[ctr]) return 0;
-        bool v = false;
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if ((m >> k) & 1) v = v || sV[ctr + dyk(k) * SW + dxk(k)];
-        if (!v) return 0;
-        sV[ctr] = 1;
-        return m & kFeed ? 3 : 1;
-      },
-      &passes);
+  uint64_t touched = 0;
+  int passes = 0;
+  for (bool changed = true; changed && passes <= SN; ++passes) {
+    changed = false;
+    for (int li = 0; li < TY; ++li) {
+      const int q = (li + 1) * SW + t + 1;
+      const int n = sNext[q];
+      if (n == q || sV[q]) continue;
+      if (sV[n]) {
+        sV[q] = 1;
+        touched |= 1ull << li;
+        changed = true;
+      } else if (sNext[n] != n) {
+        sNext[q] = sNext[n];
+        changed = true;
+      }
+    }
+    changed = __syncthreads_or(changed);
+  }
 
   // a touched cell went from 0 to 1, and only this block writes it
   for (int li = 0; li < TY; ++li)
@@ -391,13 +445,16 @@ int tile_rounds(Kernel kernel, size_t smem, int ty, int tx, int* flags,
   return (int)cudaGetLastError();
 }
 
-// The tile shapes built: (rows, columns = threads a block, rows in step).
+// The tile shapes built: (rows, columns = threads a block, warp strips).
 #define DEMIURGE_FLOW_TILES(X) \
-  X(32, 128, true)             \
-  X(64, 128, true)             \
   X(16, 128, true)             \
-  X(32, 64, true)              \
-  X(32, 128, false)
+  X(8, 128, true)              \
+  X(32, 128, true)             \
+  X(16, 256, true)             \
+  X(16, 128, false)            \
+  X(32, 128, false)            \
+  X(64, 128, false)            \
+  X(32, 64, false)
 
 // ---------------------------------------------------------------------------
 // K10: the band-local fixpoints of the two-level solve.
@@ -503,19 +560,19 @@ __global__ void flow_local_vis_sweep_kernel(const int* __restrict__ packed,
 
 extern "C" {
 
-// K7: n rounds of the tiled A relaxation (tiles ty x tx, rows in step
-// when sync), the first being the solve's round `first`.  flags: 2 x nt
+// K7: n rounds of the tiled A relaxation (tiles ty x tx, in warp strips
+// when warps), the first being the solve's round `first`.  flags: 2 x nt
 // tiles' edge bits (all set before round 0); stats as above
 // (stats[2..2+n) zeroed here).  An unbuilt shape returns
 // cudaErrorInvalidValue.
 int demiurge_flow_area_tiles(const int* packed, const float* area, float* A,
                              int* flags, int* stats, int H, int W, int ty,
-                             int tx, int sync, int first, int n,
+                             int tx, int warps, int first, int n,
                              void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-#define X(TY, TX, SYNC)                                                     \
-  if (ty == TY && tx == TX && (sync != 0) == SYNC)                          \
-    return tile_rounds(area_tile_kernel<TY, TX, SYNC>, area_smem<TY, TX>(), \
+#define X(TY, TX, WARPS)                                                    \
+  if (ty == TY && tx == TX && (warps != 0) == WARPS)                        \
+    return tile_rounds(area_tile_kernel<TY, TX, WARPS>, area_smem<TY, TX>(), \
                        TY, TX, flags, stats, H, W, first, n, st, packed,    \
                        area, A);
   DEMIURGE_FLOW_TILES(X)
@@ -527,11 +584,11 @@ int demiurge_flow_area_tiles(const int* packed, const float* area, float* A,
 // the mouths); arguments as K7's.
 int demiurge_flow_vis_tiles(const int* packed, uint8_t* vis, int* flags,
                             int* stats, int H, int W, int ty, int tx,
-                            int sync, int first, int n, void* stream) {
+                            int warps, int first, int n, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-#define X(TY, TX, SYNC)                                                    \
-  if (ty == TY && tx == TX && (sync != 0) == SYNC)                         \
-    return tile_rounds(vis_tile_kernel<TY, TX, SYNC>, vis_smem<TY, TX>(),  \
+#define X(TY, TX, WARPS)                                                   \
+  if (ty == TY && tx == TX && (warps != 0) == WARPS)                       \
+    return tile_rounds(vis_tile_kernel<TY, TX>, vis_smem<TY, TX>(),        \
                        TY, TX, flags, stats, H, W, first, n, st, packed,   \
                        vis);
   DEMIURGE_FLOW_TILES(X)

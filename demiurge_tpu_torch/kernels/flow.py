@@ -50,13 +50,15 @@ LAST_SOLVE: dict = {}
 FIRST_ROUND = 8     # sweeps in the first round of solve_rounds_cuda
 MAX_ROUND = 512     # its rounds double up to this many sweeps
 
-#: K7/K8's tile: rows, columns (one thread a column), rows in step
-TILE = (32, 128, True)
+#: K7/K8's tile: rows, columns (one thread a column), and whether each
+#: warp of K7 walks its own 32-column strip (else the block's rows are in
+#: step; K8 jumps pointers either way)
+TILE = (16, 128, True)
 #: every tile that csrc/flow.cu builds (DEMIURGE_FLOW_TILES)
-TILES = ((32, 128, True), (64, 128, True), (16, 128, True), (32, 64, True),
-         (32, 128, False))
-FIRST_BATCH = 8     # rounds in the first batch of a tiled solve
-MAX_BATCH = 64      # batches double up to this many rounds
+TILES = ((16, 128, True), (8, 128, True), (32, 128, True), (16, 256, True),
+         (16, 128, False), (32, 128, False), (64, 128, False),
+         (32, 64, False))
+BATCH = 16          # rounds a batch of a tiled solve: one host read each
 
 
 def pack_masks(code, mouth, grid: Grid) -> torch.Tensor:
@@ -152,33 +154,31 @@ def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
 
 def _solve_tiles_cuda(entry: str, args, device, grid: Grid, tile,
                       max_rounds: int) -> dict:
-    """Batches of tiled rounds until a round writes nothing.  A batch
-    launches n rounds (``FIRST_BATCH``, doubling up to ``MAX_BATCH``)
-    through the C entry point ``entry(*args(flags, stats, first, n))``;
-    one host read of the batch's round flags and the visit counts ends
-    it.  The rounds after the certifying one find every tile quiet."""
+    """Batches of ``BATCH`` tiled rounds until a round writes nothing,
+    through the C entry point ``entry(*args(flags, stats, ty, tx, warps,
+    first, n))``; one host read of the batch's round flags and the visit
+    counts ends a batch.  The rounds after the certifying one find every
+    tile quiet."""
     from . import build
 
-    ty, tx, sync = tile
+    ty, tx, warps = tile
     H, W = grid.shape
     nt = -(-H // ty) * -(-W // tx)
     # every edge bit set: round 0 wakes every tile
     flags = torch.full((2 * nt,), -1, dtype=torch.int32, device=device)
-    stats = torch.zeros(2 + MAX_BATCH, dtype=torch.int32, device=device)
+    stats = torch.zeros(2 + BATCH, dtype=torch.int32, device=device)
     fn = getattr(build.library(), entry)
-    n, done, reads = FIRST_BATCH, 0, 0
+    done, reads = 0, 0
     while done < max_rounds:
         build.check(fn(*args(flags.data_ptr(), stats.data_ptr(), ty, tx,
-                             int(sync), done, n)), entry)
-        visits, passes, *wrote = stats[:2 + n].tolist()  # the one read
+                             int(warps), done, BATCH)), entry)
+        visits, passes, *wrote = stats.tolist()  # the batch's one read
         reads += 1
         if 0 in wrote:
             return {"rounds": done + wrote.index(0) + 1,
-                    "launched": done + n, "host_reads": reads,
-                    "tiles_run": visits, "max_inner_sweeps": passes,
-                    "tile": f"{ty}x{tx}{'' if sync else ' free rows'}"}
-        done += n
-        n = min(2 * n, MAX_BATCH)
+                    "launched": done + BATCH, "host_reads": reads,
+                    "tiles_run": visits, "max_inner_sweeps": passes}
+        done += BATCH
     raise RuntimeError(f"{entry}: no fixpoint after {done} rounds")
 
 
@@ -202,7 +202,8 @@ def flow_solve_area_cuda(packed, area, grid: Grid, a0=None,
                         *batch[:2], H, W, *batch[2:], stream),
         A.device, grid, tile, _max_sweeps(grid))
     LAUNCHES_A += stats["launched"]
-    LAST_SOLVE["A"] = stats
+    LAST_SOLVE["A"] = {**stats, "tile": f"{tile[0]}x{tile[1]}"
+                       f"{' warp strips' if tile[2] else ''}"}
     return A
 
 
@@ -223,7 +224,7 @@ def vis_solve_cuda(packed, grid: Grid, tile=TILE) -> torch.Tensor:
                         *batch[2:], stream),
         vis.device, grid, tile, _max_sweeps(grid))
     LAUNCHES_VIS += stats["launched"]
-    LAST_SOLVE["vis"] = stats
+    LAST_SOLVE["vis"] = {**stats, "tile": f"{tile[0]}x{tile[1]}"}
     return vis.bool()
 
 

@@ -107,8 +107,8 @@ def solvers(packed, area, grid: Grid):
     shapes = kf.TILES if use_cuda_kernels(packed, area) else ()
     return [
         ("K7+K8 (production)", None, production, None, True),
-        *[(f"K7+K8 tiles {t[0]}x{t[1]}{'' if t[2] else ' free rows'}", None,
-           tiles(t), None, True) for t in shapes if t != kf.TILE],
+        *[(f"K7+K8 tiles {t[0]}x{t[1]}{' warp strips' if t[2] else ''}",
+           None, tiles(t), None, True) for t in shapes if t != kf.TILE],
         ("K11a 2-D tiles k=16", "flow_solve_2d", call(kd.flow_solve_2d),
          call(kd.flow_solve_2d_plain), True),
         (f"K11b fused both k=16 band={kd.pick_band(H)}", "flow_solve_fused",

@@ -159,9 +159,9 @@ def test_flow_solve_exact_cold_and_warm(case):
 
 
 def _in_place_sweeps(packed, area, a0, order_seed):
-    """The CUDA kernel's schedule, transliterated: sweeps in place, the
-    rows (as blocks) in a random order each sweep, until a sweep changes
-    nothing."""
+    """The one-sweep-a-launch schedule of the band-local kernels (K10,
+    csrc/flow.cu), transliterated: sweeps in place, the rows (as blocks)
+    in a random order each sweep, until a sweep changes nothing."""
     p = packed.numpy()
     A = a0.numpy().copy()
     area = area.numpy()
@@ -188,7 +188,8 @@ def _in_place_sweeps(packed, area, a0, order_seed):
 @pytest.mark.parametrize("order_seed", [0, 1])
 def test_in_place_schedule_reaches_the_same_fixpoint(order_seed):
     """Any block order with in-place reads certifies the same A, bit for
-    bit (the argument in csrc/flow.cu)."""
+    bit (the argument in csrc/flow.cu's K10 section; the tiled K7's
+    schedule is tests/test_torch_flow_tiles.py's)."""
     _, tg, _, _, _, code = _case(64, 32, seed=2)
     _, mouth, _ = tf.incoming_mask(code, tg)
     area = tf.cell_area_lower_edge(tg, CPU)

@@ -6,11 +6,12 @@ bit, ``vis_solve_plain``'s vis exactly): it is what checks the argument in
 csrc/flow.cu.  A round visits, in a random order, the tiles whose halo a
 neighbour tile wrote in the last round (x wraps, y clips; round 1 visits
 all): each tile leaves edge bits, which of its border rows, columns and
-corners it wrote.  A visit loads its tile and a one-cell halo, relaxes
-them to the tile's local fixpoint with the halo held (passes over the
-dirty rows, down then up, a row repeated while a cell that feeds its own
-row changed, until a pass changes nothing; after a pass the rows next to
-a changed row are dirty) and writes back the cells that changed.  Two
+corners it wrote.  A visit loads its tile and a one-cell halo, solves the
+tile's local fixpoint with the halo held and writes back the cells that
+changed.  K7 relaxes: passes over the dirty rows, down then up, a row
+repeated while a cell that feeds its own row changed, a change making the
+rows above and below dirty, until no row is dirty.  K8 jumps pointers down
+the paths until none moves.  Two
 variants bound what concurrent blocks can see:
 
 - "concurrent": every visit of a round reads the round-start state;
@@ -33,7 +34,7 @@ torch.set_num_threads(2)
 
 SCAN = ((1, 1), (0, 1), (-1, 1), (1, 0), (-1, 0), (1, -1), (0, -1),
         (-1, -1))
-ROW_FEED = (1 << 3) | (1 << 4)  # the dy = 0 neighbours
+ROW_FEED = (1 << 3) | (1 << 4)  # out bits to the dy = 0 neighbours
 
 
 def _port_case(W, H, seed=2):
@@ -54,42 +55,60 @@ def _port_case(W, H, seed=2):
         tf.cell_area_lower_edge(grid, "cpu")
 
 
+def _jump(local, bits, real):
+    """K8's visit: every cell of the halo'd tile ``local`` points down its
+    path (ends at themselves), and the pointers jump, all at once, until
+    none changes; a cell turns to 1 when it points at a 1.  Returns the
+    passes it took."""
+    ty, tx = bits.shape
+    flat = local.reshape(-1)
+    q = (np.arange(1, ty + 1)[:, None] * (tx + 2)
+         + np.arange(1, tx + 1)[None, :])
+    nxt = np.arange(flat.size)
+    for k, (dx, dy) in enumerate(SCAN):
+        on = real & ((bits >> k) & 1 == 1)
+        nxt[q[on]] = q[on] + dy * (tx + 2) + dx
+    passes = 0
+    while True:
+        passes += 1
+        n = nxt[q]
+        live = (n != q) & ~flat[q]
+        gain = live & flat[n]
+        hop = live & ~flat[n] & (nxt[n] != n)
+        flat[q[gain]] = True
+        nxt[q[hop]] = nxt[n[hop]]
+        if not (gain.any() or hop.any()):
+            return passes
+
+
 def _relax(local, bits, feed, real, area):
-    """A visit's relaxation of the halo'd tile ``local`` in place; ``area``
-    is None for vis.  Returns the passes it took."""
+    """K7's visit: the relaxation of the halo'd tile ``local`` in place,
+    the block's rows in step.  Returns the passes it took."""
     ty, tx = bits.shape
     dirty = np.ones(ty, bool)
     passes = 0
-    while True:
-        changed = np.zeros(ty, bool)
+    while dirty.any():
         rows = range(ty) if passes % 2 == 0 else range(ty - 1, -1, -1)
-        for li in (li for li in rows if dirty[li]):
+        for li in rows:
+            if not dirty[li]:
+                continue
+            dirty[li] = False
             while True:
                 cur = local[li + 1, 1:tx + 1]
-                if area is None:
-                    new = cur.copy()
-                    for k, (dx, dy) in enumerate(SCAN):
-                        on = (bits[li] >> k) & 1 == 1
-                        new |= on & local[li + 1 + dy, 1 + dx:1 + dx + tx]
-                    ch = real[li] & (new != cur)
-                else:
-                    new = area[li].copy()
-                    for k, (dx, dy) in enumerate(SCAN):
-                        on = (bits[li] >> k) & 1 == 1
-                        nb = local[li + 1 + dy, 1 + dx:1 + dx + tx]
-                        new = np.where(on, new + nb, new).astype(np.float32)
-                    ch = real[li] & (new.view(np.int32) != cur.view(np.int32))
+                new = area[li].copy()
+                for k, (dx, dy) in enumerate(SCAN):
+                    on = (bits[li] >> k) & 1 == 1
+                    nb = local[li + 1 + dy, 1 + dx:1 + dx + tx]
+                    new = np.where(on, new + nb, new).astype(np.float32)
+                ch = real[li] & (new.view(np.int32) != cur.view(np.int32))
                 local[li + 1, 1:tx + 1] = np.where(ch, new, cur)
-                changed[li] |= bool(ch.any())
+                if ch.any():  # the rows above and below read this one
+                    dirty[max(li - 1, 0):li + 2] = True
+                    dirty[li] = False
                 if not (ch & feed[li]).any():
                     break
         passes += 1
-        if not changed.any():
-            return passes
-        # the rows next to a changed row, and it, are dirty
-        dirty = changed.copy()
-        dirty[1:] |= changed[:-1]
-        dirty[:-1] |= changed[1:]
+    return passes
 
 
 # a tile's edge bits, as csrc/flow.cu leaves them: the cells it wrote of
@@ -130,7 +149,7 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
     ty, tx = tile
     nby, nbx = -(-H // ty), -(-W // tx)
     if area is None:
-        bits, feed_bits = (p >> 8) & 0xFF, p & ROW_FEED
+        bits = (p >> 8) & 0xFF
     else:
         bits, feed_bits = p & 0xFF, (p >> 8) & ROW_FEED
     # the tiles' (rows, columns) of the grid, padded to whole tiles, with
@@ -164,9 +183,12 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
                 return np.where(real, a[inner], 0)
 
             before = local[1:-1, 1:-1].copy()
-            most = max(most, _relax(
-                local, cells(bits), cells(feed_bits) != 0, real,
-                None if area is None else cells(area).astype(np.float32)))
+            if area is None:
+                most = max(most, _jump(local, cells(bits), real))
+            else:
+                most = max(most, _relax(local, cells(bits),
+                                        cells(feed_bits) != 0, real,
+                                        cells(area).astype(np.float32)))
             visits += 1
             after = local[1:-1, 1:-1]
             if area is None:
