@@ -42,24 +42,23 @@
 //      beside them.  The halo stays as loaded for the whole visit.
 //   3. Solve the tile's local fixpoint in shared memory.  K8 (one out
 //      edge a cell) jumps pointers along the paths (vis_tile_kernel).  K7
-//      sums in scan order, so it relaxes: a pass walks the dirty rows in
-//      order, down on even passes and up on odd ones.  A
-//      row is one step of every thread, repeated while a cell that feeds
-//      its own row changed, which leaves the row satisfied; a change makes
-//      the rows above and below it dirty, so the next row of a down pass
-//      sees it at once.  So a pass carries a change along any stretch of a
-//      path that runs with it or sideways, and a path needs about one pass
-//      per reversal of its direction in y.  Every row starts dirty; a row
-//      that is not dirty satisfies its equations (neither it nor a row it
-//      reads changed since it last did), so when no row is dirty every
-//      cell of the tile is satisfied against the halo as loaded.  The
-//      rows are in step over the block (a block-wide vote ends each row
-//      step), or, with WARPS, each warp walks its own 32-column strip with
-//      warp votes and marks the rows of the neighbour strip that its edge
-//      columns changed; the block then synchronises once a pass.  (The row
-//      repeats and the passes are capped at the longest path a row or a
-//      tile can hold, so a launch ends even on masks with a cycle; the
-//      host then finds no certifying round.)
+//      sums in scan order, so it relaxes (relax): each warp walks its own
+//      32-column strip in passes over the strip's dirty rows, down on even
+//      passes and up on odd ones.  A row is one step of the warp, repeated
+//      while a cell that feeds its own row changed, which leaves the row
+//      satisfied; a change makes the rows above and below dirty, so the
+//      next row of a down pass sees it at once, and marks the rows of the
+//      neighbour strip when it is in an edge column.  So a pass carries a
+//      change along any stretch of a path that runs with it or sideways,
+//      and a path needs about one pass per reversal of its direction in y.
+//      Every row starts dirty; a row that is not dirty satisfies its
+//      equations (neither it nor a cell it reads changed since it last
+//      did), so when no row is dirty every cell of the tile is satisfied
+//      against the halo as loaded.  The warps run free of each other; the
+//      block meets once a pass.  (The row repeats and the passes are
+//      capped at the longest path a row or a tile can hold, so a launch
+//      ends even on masks with a cycle; the host then finds no certifying
+//      round.)
 //   4. Write back the cells whose bits changed (__stcg), leave the edge
 //      bits, and count the visit (atomicAdd), its passes (atomicMax) and
 //      whether it wrote (the round's flag).
@@ -176,79 +175,58 @@ __device__ void load_halo(volatile T* s, const T* g, int r0, int c0, int H,
   }
 }
 
-// Step 3: passes over the dirty rows until no row is dirty.  cell(li)
-// updates this thread's cell of row li and returns 0 (no change), 1
-// (changed) or 3 (changed, and it feeds its own row).  A row is computed,
-// and repeated while a change fed its own row, which leaves it satisfied;
-// a change makes the rows above and below dirty (in a down pass the row
-// below is next).  A row that is not dirty satisfies its equations, so no
-// dirty row left means the tile's local fixpoint.  Returns the rows where
-// this thread's cell changed; *passes gets the passes taken.
-//
-// WARPS false: the rows of the whole block are in step, the row's vote is
-// block-wide (a ring of 3 shared words: vote g ORs into slot g % 3 and,
-// after its barrier, thread 0 clears slot (g + 2) % 3, which every thread
-// has read and none writes before the next barrier) and dirty is
-// block-uniform.  WARPS true: each warp walks its own 32-column strip
-// with warp votes and a warp-uniform dirty mask, free of the other warps;
-// a change in a strip's edge column marks the neighbour strip's rows in a
-// shared mask that the neighbour pulls at its next pass; the block
-// synchronises once a pass.
-template <int TY, int TX, bool WARPS, typename Cell>
+// K7's step 3: passes over the dirty rows until no row is dirty.
+// cell(li) updates this thread's cell of row li and returns 0 (no change),
+// 1 (changed) or 3 (changed, and it feeds its own row).  Each warp walks
+// its own strip of 32 columns with a warp-uniform dirty mask: a row is
+// computed, and repeated while a change fed its own row, which leaves the
+// row satisfied in the strip; a change makes the rows above and below
+// dirty (in a down pass the row below is next).  A change in a strip's
+// edge column marks the neighbour strip's rows around it in a shared mask,
+// which the neighbour pulls at the end of the pass (the block's one
+// barrier a pass).  A row that is not dirty satisfies its equations, so no
+// dirty row in any strip means the tile's local fixpoint.  Returns the
+// rows where this thread's cell changed; *passes gets the passes taken.
+template <int TY, int TX, typename Cell>
 __device__ uint64_t relax(Cell cell, int* passes) {
   static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
   static_assert(TX % 32 == 0, "whole warps");
   constexpr int NW = TX / 32;
-  __shared__ int ring[3];
   __shared__ unsigned long long marks[NW];
-  if (threadIdx.x < 3) ring[threadIdx.x] = 0;
   if (threadIdx.x < NW) marks[threadIdx.x] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const uint64_t all = TY == 64 ? ~0ull : (1ull << TY) - 1;
-  auto around = [&](int li) {  // rows li - 1, li, li + 1 of the tile
+  auto around = [](int li) {  // rows li - 1, li, li + 1 of the tile
     return (li > 0 ? 1ull << (li - 1) : 0) | 1ull << li |
            (li + 1 < TY ? 1ull << (li + 1) : 0);
   };
   uint64_t dirty = all, touched = 0;
-  int g = 0;
   for (int p = 0;; ++p) {
     const bool down = (p & 1) == 0;
     for (int s = 0; s < TY; ++s) {
       const int li = down ? s : TY - 1 - s;
-      if (!((dirty >> li) & 1)) continue;  // uniform over the block / warp
+      if (!((dirty >> li) & 1)) continue;  // uniform over the warp
       dirty &= ~(1ull << li);
       for (int reps = 0;; ++reps) {
         const int r = cell(li);
         if (r) touched |= 1ull << li;
-        int v;
-        if (WARPS) {
-          const unsigned ch = __ballot_sync(~0u, r & 1);
-          v = (ch ? 1 : 0) | (__any_sync(~0u, r & 2) ? 2 : 0);
-          if (lane == 0 && (ch & 1u) && w > 0)
-            atomicOr(&marks[w - 1], (unsigned long long)around(li));
-          if (lane == 0 && (ch >> 31) && w < NW - 1)
-            atomicOr(&marks[w + 1], (unsigned long long)around(li));
-        } else {
-          if (r) atomicOr(&ring[g % 3], r);
-          __syncthreads();
-          v = ring[g % 3];
-          if (threadIdx.x == 0) ring[(g + 2) % 3] = 0;
-          ++g;
-        }
-        if (v & 1) dirty |= around(li) & ~(1ull << li);
-        if (!(v & 2)) break;
+        const unsigned changed = __ballot_sync(~0u, r & 1);
+        if (changed) dirty |= around(li) & ~(1ull << li);
+        if (lane == 0 && (changed & 1u) && w > 0)
+          atomicOr(&marks[w - 1], (unsigned long long)around(li));
+        if (lane == 0 && (changed >> 31) && w < NW - 1)
+          atomicOr(&marks[w + 1], (unsigned long long)around(li));
+        if (!__any_sync(~0u, r & 2)) break;
         if (reps == TX) {  // capped: the row stays dirty
           dirty |= 1ull << li;
           break;
         }
       }
     }
-    if (WARPS) {
-      __syncthreads();  // every strip's marks of this pass are in
-      if (lane == 0) dirty |= atomicExch(&marks[w], 0ull);
-      dirty = __shfl_sync(~0u, dirty, 0);
-    }
+    __syncthreads();  // every strip's marks of this pass are in
+    if (lane == 0) dirty |= atomicExch(&marks[w], 0ull);
+    dirty = __shfl_sync(~0u, dirty, 0);
     if (!__syncthreads_or(dirty != 0) || p + 1 >= TY * TX) {
       *passes = p + 1;
       return touched;
@@ -292,7 +270,7 @@ constexpr size_t vis_smem() {
          sizeof(int16_t) * (TY + 2) * (TX + 2);
 }
 
-template <int TY, int TX, bool WARPS>
+template <int TY, int TX>
 __global__ void __launch_bounds__(TX)
     area_tile_kernel(const int* __restrict__ packed,
                      const float* __restrict__ area, float* A,
@@ -325,7 +303,7 @@ __global__ void __launch_bounds__(TX)
   // (relax's barrier orders these stores before the first pass)
 
   int passes;
-  const uint64_t touched = relax<TY, TX, WARPS>(
+  const uint64_t touched = relax<TY, TX>(
       [&](int li) {
         const int m = sMeta[li * TX + t];
         if (!(m & kReal)) return 0;
@@ -445,16 +423,9 @@ int tile_rounds(Kernel kernel, size_t smem, int ty, int tx, int* flags,
   return (int)cudaGetLastError();
 }
 
-// The tile shapes built: (rows, columns = threads a block, warp strips).
-#define DEMIURGE_FLOW_TILES(X) \
-  X(16, 128, true)             \
-  X(8, 128, true)              \
-  X(32, 128, true)             \
-  X(16, 256, true)             \
-  X(16, 128, false)            \
-  X(32, 128, false)            \
-  X(64, 128, false)            \
-  X(32, 64, false)
+// K7's and K8's tile: rows, columns = threads a block (PERF.md has the
+// shapes raced)
+constexpr int kTileRows = 16, kTileCols = 128;
 
 // ---------------------------------------------------------------------------
 // K10: the band-local fixpoints of the two-level solve.
@@ -560,40 +531,28 @@ __global__ void flow_local_vis_sweep_kernel(const int* __restrict__ packed,
 
 extern "C" {
 
-// K7: n rounds of the tiled A relaxation (tiles ty x tx, in warp strips
-// when warps), the first being the solve's round `first`.  flags: 2 x nt
-// tiles' edge bits (all set before round 0); stats as above
-// (stats[2..2+n) zeroed here).  An unbuilt shape returns
-// cudaErrorInvalidValue.
+// K7: n rounds of the tiled A relaxation, the first being the solve's
+// round `first`.  flags: 2 x nt tiles' edge bits (all set before round 0);
+// stats as above (stats[2..2+n) zeroed here).  (ty, tx) must be the built
+// tile, else cudaErrorInvalidValue.
 int demiurge_flow_area_tiles(const int* packed, const float* area, float* A,
                              int* flags, int* stats, int H, int W, int ty,
-                             int tx, int warps, int first, int n,
-                             void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-#define X(TY, TX, WARPS)                                                    \
-  if (ty == TY && tx == TX && (warps != 0) == WARPS)                        \
-    return tile_rounds(area_tile_kernel<TY, TX, WARPS>, area_smem<TY, TX>(), \
-                       TY, TX, flags, stats, H, W, first, n, st, packed,    \
-                       area, A);
-  DEMIURGE_FLOW_TILES(X)
-#undef X
-  return (int)cudaErrorInvalidValue;
+                             int tx, int first, int n, void* stream) {
+  if (ty != kTileRows || tx != kTileCols) return (int)cudaErrorInvalidValue;
+  return tile_rounds(area_tile_kernel<kTileRows, kTileCols>,
+                     area_smem<kTileRows, kTileCols>(), ty, tx, flags, stats,
+                     H, W, first, n, (cudaStream_t)stream, packed, area, A);
 }
 
 // K8: n rounds of the tiled vis relaxation (vis: one byte a pixel, from
 // the mouths); arguments as K7's.
 int demiurge_flow_vis_tiles(const int* packed, uint8_t* vis, int* flags,
                             int* stats, int H, int W, int ty, int tx,
-                            int warps, int first, int n, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-#define X(TY, TX, WARPS)                                                   \
-  if (ty == TY && tx == TX && (warps != 0) == WARPS)                       \
-    return tile_rounds(vis_tile_kernel<TY, TX>, vis_smem<TY, TX>(),        \
-                       TY, TX, flags, stats, H, W, first, n, st, packed,   \
-                       vis);
-  DEMIURGE_FLOW_TILES(X)
-#undef X
-  return (int)cudaErrorInvalidValue;
+                            int first, int n, void* stream) {
+  if (ty != kTileRows || tx != kTileCols) return (int)cudaErrorInvalidValue;
+  return tile_rounds(vis_tile_kernel<kTileRows, kTileCols>,
+                     vis_smem<kTileRows, kTileCols>(), ty, tx, flags, stats,
+                     H, W, first, n, (cudaStream_t)stream, packed, vis);
 }
 
 // n in-place sweeps of the band-local A relaxation, and of the exit ids

@@ -53,10 +53,10 @@ SIGNATURES = {
     "demiurge_blur": [_P] * 8 + [_I] * 6 + [_P],
     # hb sel q dx8 code, H W, dy8, stream
     "demiurge_flow_directions": [_P] * 5 + [_I] * 2 + [_F, _P],
-    # packed area A flags stats, H W ty tx warps first n, stream
-    "demiurge_flow_area_tiles": [_P] * 5 + [_I] * 7 + [_P],
-    # packed vis flags stats, H W ty tx warps first n, stream
-    "demiurge_flow_vis_tiles": [_P] * 4 + [_I] * 7 + [_P],
+    # packed area A flags stats, H W ty tx first n, stream
+    "demiurge_flow_area_tiles": [_P] * 5 + [_I] * 6 + [_P],
+    # packed vis flags stats, H W ty tx first n, stream
+    "demiurge_flow_vis_tiles": [_P] * 4 + [_I] * 6 + [_P],
     # packed area A E(nullable) flags, H W band n, stream
     "demiurge_flow_local_sweeps": [_P] * 5 + [_I] * 4 + [_P],
     # packed vis flags, H W band n, stream

@@ -50,14 +50,7 @@ LAST_SOLVE: dict = {}
 FIRST_ROUND = 8     # sweeps in the first round of solve_rounds_cuda
 MAX_ROUND = 512     # its rounds double up to this many sweeps
 
-#: K7/K8's tile: rows, columns (one thread a column), and whether each
-#: warp of K7 walks its own 32-column strip (else the block's rows are in
-#: step; K8 jumps pointers either way)
-TILE = (16, 128, True)
-#: every tile that csrc/flow.cu builds (DEMIURGE_FLOW_TILES)
-TILES = ((16, 128, True), (8, 128, True), (32, 128, True), (16, 256, True),
-         (16, 128, False), (32, 128, False), (64, 128, False),
-         (32, 64, False))
+TILE = (16, 128)    # K7/K8's tile, rows x columns: csrc/flow.cu's build
 BATCH = 16          # rounds a batch of a tiled solve: one host read each
 
 
@@ -152,16 +145,16 @@ def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
     raise RuntimeError(f"{entry}: no fixpoint after {sweeps} sweeps")
 
 
-def _solve_tiles_cuda(entry: str, args, device, grid: Grid, tile,
+def _solve_tiles_cuda(entry: str, args, device, grid: Grid,
                       max_rounds: int) -> dict:
     """Batches of ``BATCH`` tiled rounds until a round writes nothing,
-    through the C entry point ``entry(*args(flags, stats, ty, tx, warps,
-    first, n))``; one host read of the batch's round flags and the visit
-    counts ends a batch.  The rounds after the certifying one find every
-    tile quiet."""
+    through the C entry point ``entry(*args(flags, stats, ty, tx, first,
+    n))``; one host read of the batch's round flags and the visit counts
+    ends a batch.  The rounds after the certifying one find every tile
+    quiet."""
     from . import build
 
-    ty, tx, warps = tile
+    ty, tx = TILE
     H, W = grid.shape
     nt = -(-H // ty) * -(-W // tx)
     # every edge bit set: round 0 wakes every tile
@@ -171,21 +164,21 @@ def _solve_tiles_cuda(entry: str, args, device, grid: Grid, tile,
     done, reads = 0, 0
     while done < max_rounds:
         build.check(fn(*args(flags.data_ptr(), stats.data_ptr(), ty, tx,
-                             int(warps), done, BATCH)), entry)
+                             done, BATCH)), entry)
         visits, passes, *wrote = stats.tolist()  # the batch's one read
         reads += 1
         if 0 in wrote:
             return {"rounds": done + wrote.index(0) + 1,
                     "launched": done + BATCH, "host_reads": reads,
-                    "tiles_run": visits, "max_inner_sweeps": passes}
+                    "tiles_run": visits, "max_inner_sweeps": passes,
+                    "tile": f"{ty}x{tx}"}
         done += BATCH
     raise RuntimeError(f"{entry}: no fixpoint after {done} rounds")
 
 
-def flow_solve_area_cuda(packed, area, grid: Grid, a0=None,
-                         tile=TILE) -> torch.Tensor:
+def flow_solve_area_cuda(packed, area, grid: Grid, a0=None) -> torch.Tensor:
     """The A relaxation on the card, in place on a copy of ``a0`` (default:
-    the area), in tiles of ``tile`` (one of ``TILES``)."""
+    the area)."""
     global LAUNCHES_A
     check_kernel_inputs(("packed",), (packed,), shape=grid.shape,
                         dtype=torch.int32)
@@ -200,16 +193,14 @@ def flow_solve_area_cuda(packed, area, grid: Grid, a0=None,
         "demiurge_flow_area_tiles",
         lambda *batch: (packed.data_ptr(), area.data_ptr(), A.data_ptr(),
                         *batch[:2], H, W, *batch[2:], stream),
-        A.device, grid, tile, _max_sweeps(grid))
+        A.device, grid, _max_sweeps(grid))
     LAUNCHES_A += stats["launched"]
-    LAST_SOLVE["A"] = {**stats, "tile": f"{tile[0]}x{tile[1]}"
-                       f"{' warp strips' if tile[2] else ''}"}
+    LAST_SOLVE["A"] = stats
     return A
 
 
-def vis_solve_cuda(packed, grid: Grid, tile=TILE) -> torch.Tensor:
-    """The vis relaxation on the card, in place from the mouths, in tiles
-    of ``tile``."""
+def vis_solve_cuda(packed, grid: Grid) -> torch.Tensor:
+    """The vis relaxation on the card, in place from the mouths."""
     global LAUNCHES_VIS
     check_kernel_inputs(("packed",), (packed,), shape=grid.shape,
                         dtype=torch.int32)
@@ -222,9 +213,9 @@ def vis_solve_cuda(packed, grid: Grid, tile=TILE) -> torch.Tensor:
         "demiurge_flow_vis_tiles",
         lambda *batch: (packed.data_ptr(), vis.data_ptr(), *batch[:2], H, W,
                         *batch[2:], stream),
-        vis.device, grid, tile, _max_sweeps(grid))
+        vis.device, grid, _max_sweeps(grid))
     LAUNCHES_VIS += stats["launched"]
-    LAST_SOLVE["vis"] = {**stats, "tile": f"{tile[0]}x{tile[1]}"}
+    LAST_SOLVE["vis"] = stats
     return vis.bool()
 
 

@@ -6,10 +6,9 @@ Defaults 2048 1024, on ``cuda``.  Evolves the reference tool's terrain
 (fBm, 6 octaves, seed 7) by 10 ``coupled_step``s at ``CoupledConfig()``
 (longer rivers than the initial noise), makes the flow masks of the result
 and solves the (A, vis) fixpoint with: the production pair (K7's A and
-K8's vis), on the card the same pair in each other tile shape that
-``csrc/flow.cu`` builds (``kernels/flow.TILES``), the 2-D tiles (K11a), the one-launch
-fused solve in mode "both" and split into "A" then "vis" (K11b), the
-delta wave (K11c) and the banded rounds (K11d).  Each is checked on its first call, then timed
+K8's vis), the 2-D tiles (K11a), the one-launch fused solve in mode
+"both" and split into "A" then "vis" (K11b), the delta wave (K11c) and
+the banded rounds (K11d).  Each is checked on its first call, then timed
 over ``REPS`` more, with CUDA events on the card (the host clock on the
 CPU), and prints ``ok`` only when its A equals K7's bit for bit (the
 wave's, which adds in another order, within rtol 1e-5, atol 1e-7) and its
@@ -95,20 +94,8 @@ def solvers(packed, area, grid: Grid):
         return kf.flow_solve_area(packed, area, grid), \
             kf.vis_solve(packed, grid), dict(kf.LAST_SOLVE)
 
-    def tiles(tile):
-        def solve():
-            A = kf.flow_solve_area_cuda(packed, area, grid, tile=tile)
-            return A, kf.vis_solve_cuda(packed, grid, tile=tile), \
-                dict(kf.LAST_SOLVE)
-        return solve
-
-    # the other tile shapes race on the card only: on the CPU each is the
-    # production pair's plain twin
-    shapes = kf.TILES if use_cuda_kernels(packed, area) else ()
     return [
         ("K7+K8 (production)", None, production, None, True),
-        *[(f"K7+K8 tiles {t[0]}x{t[1]}{' warp strips' if t[2] else ''}",
-           None, tiles(t), None, True) for t in shapes if t != kf.TILE],
         ("K11a 2-D tiles k=16", "flow_solve_2d", call(kd.flow_solve_2d),
          call(kd.flow_solve_2d_plain), True),
         (f"K11b fused both k=16 band={kd.pick_band(H)}", "flow_solve_fused",

@@ -210,11 +210,11 @@ def test_directions_kernel_against_plain_twin(dev):
 
 @pytest.mark.parametrize("case", ["cold", "warm", "serpentine", "ragged"])
 def test_flow_kernels_equal_plain_twins(dev, case):
-    """K7's A bit for bit and K8's vis exactly against the plain twins, in
-    every tile shape csrc/flow.cu builds: cold and from a warm start (the
-    fixpoint of a slightly different terrain) at 256x128; the serpentine
-    (one river of 24 columns x 150 rows over the dateline of a 1000x200
-    grid, which no tile shape divides); a 2000x1000 terrain, warm."""
+    """K7's A bit for bit and K8's vis exactly against the plain twins:
+    cold and from a warm start (the fixpoint of a slightly different
+    terrain) at 256x128; the serpentine (one river of 24 columns x 150
+    rows over the dateline of a 1000x200 grid, which the tiles do not
+    divide); a 2000x1000 terrain, warm."""
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.ops import flow
     from demiurge_tpu_torch.tools import serpentine
@@ -243,35 +243,34 @@ def test_flow_kernels_equal_plain_twins(dev, case):
         packed = packed_of(h)
     want_A = kf.flow_solve_area_plain(packed, area, grid, a0)
     want_vis = kf.vis_solve_plain(packed, grid)
-    for tile in kf.TILES:
-        before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
-        A = kf.flow_solve_area_cuda(packed, area, grid, a0, tile=tile)
-        sa = dict(kf.LAST_SOLVE["A"])
-        vis = kf.vis_solve_cuda(packed, grid, tile=tile)
-        sv = dict(kf.LAST_SOLVE["vis"])
-        torch.cuda.synchronize()
-        assert torch.equal(A, want_A), tile
-        assert torch.equal(vis, want_vis), tile
-        assert kf.LAUNCHES_A - before[0] == sa["launched"]
-        assert kf.LAUNCHES_VIS - before[1] == sv["launched"]
-        for st in (sa, sv):
-            assert 1 <= st["rounds"] <= st["launched"]
-            assert 1 <= st["host_reads"] <= st["launched"]
-            assert st["tiles_run"] >= 1 and st["max_inner_sweeps"] >= 1
+    before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
+    A = kf.flow_solve_area_cuda(packed, area, grid, a0)
+    sa = dict(kf.LAST_SOLVE["A"])
+    vis = kf.vis_solve_cuda(packed, grid)
+    sv = dict(kf.LAST_SOLVE["vis"])
+    torch.cuda.synchronize()
+    assert torch.equal(A, want_A) and torch.equal(vis, want_vis)
+    assert kf.LAUNCHES_A - before[0] == sa["launched"]
+    assert kf.LAUNCHES_VIS - before[1] == sv["launched"]
+    for st in (sa, sv):
+        assert 1 <= st["rounds"] <= st["launched"]
+        assert 1 <= st["host_reads"] <= st["launched"]
+        assert st["tiles_run"] >= 1 and st["max_inner_sweeps"] >= 1
     assert bool(want_vis.any()) and float(want_A.max()) > float(area.max())
 
 
-def test_flow_kernels_raise_on_a_refused_launch(dev):
-    """A tile shape that csrc/flow.cu does not build is refused by the C
-    entry point, and the wrapper raises; nothing is counted."""
+def test_flow_kernels_raise_on_a_refused_launch(dev, monkeypatch):
+    """A tile that csrc/flow.cu was not built for is refused by its entry
+    points, and the wrappers raise; nothing is counted."""
     from demiurge_tpu_torch.kernels import flow as kf
 
     grid, _, _, area, packed = _flow_inputs(256, 128, dev)
     before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
+    monkeypatch.setattr(kf, "TILE", (48, 128))
     with pytest.raises(RuntimeError, match="CUDA error"):
-        kf.flow_solve_area_cuda(packed, area, grid, tile=(48, 128, True))
+        kf.flow_solve_area_cuda(packed, area, grid)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        kf.vis_solve_cuda(packed, grid, tile=(32, 96, True))
+        kf.vis_solve_cuda(packed, grid)
     assert (kf.LAUNCHES_A, kf.LAUNCHES_VIS) == before
 
 

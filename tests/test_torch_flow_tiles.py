@@ -8,10 +8,11 @@ neighbour tile wrote in the last round (x wraps, y clips; round 1 visits
 all): each tile leaves edge bits, which of its border rows, columns and
 corners it wrote.  A visit loads its tile and a one-cell halo, solves the
 tile's local fixpoint with the halo held and writes back the cells that
-changed.  K7 relaxes: passes over the dirty rows, down then up, a row
-repeated while a cell that feeds its own row changed, a change making the
-rows above and below dirty, until no row is dirty.  K8 jumps pointers down
-the paths until none moves.  Two
+changed.  K7 relaxes in strips of columns (the kernel's warps): passes
+over a strip's dirty rows, down then up, a row repeated while a cell that
+feeds its own row changed, a change making the rows above and below dirty
+and, in an edge column, marking the rows of the strip beside, until no
+row is dirty.  K8 jumps pointers down the paths until none moves.  Two
 variants bound what concurrent blocks can see:
 
 - "concurrent": every visit of a round reads the round-start state;
@@ -81,33 +82,49 @@ def _jump(local, bits, real):
             return passes
 
 
-def _relax(local, bits, feed, real, area):
+def _relax(local, bits, feed, real, area, strip, rng):
     """K7's visit: the relaxation of the halo'd tile ``local`` in place,
-    the block's rows in step.  Returns the passes it took."""
+    in strips of ``strip`` columns (the kernel's warps), each with its own
+    dirty rows; the strips of a pass run one after another in a random
+    order (the kernel runs them at once).  Returns the passes it took."""
     ty, tx = bits.shape
-    dirty = np.ones(ty, bool)
+    ns = tx // strip
+    dirty = np.ones((ns, ty), bool)
+    marks = np.zeros((ns, ty), bool)
     passes = 0
     while dirty.any():
         rows = range(ty) if passes % 2 == 0 else range(ty - 1, -1, -1)
-        for li in rows:
-            if not dirty[li]:
-                continue
-            dirty[li] = False
-            while True:
-                cur = local[li + 1, 1:tx + 1]
-                new = area[li].copy()
-                for k, (dx, dy) in enumerate(SCAN):
-                    on = (bits[li] >> k) & 1 == 1
-                    nb = local[li + 1 + dy, 1 + dx:1 + dx + tx]
-                    new = np.where(on, new + nb, new).astype(np.float32)
-                ch = real[li] & (new.view(np.int32) != cur.view(np.int32))
-                local[li + 1, 1:tx + 1] = np.where(ch, new, cur)
-                if ch.any():  # the rows above and below read this one
-                    dirty[max(li - 1, 0):li + 2] = True
-                    dirty[li] = False
-                if not (ch & feed[li]).any():
-                    break
+        for w in rng.permutation(ns):
+            cols = slice(w * strip, (w + 1) * strip)
+            for li in rows:
+                if not dirty[w, li]:
+                    continue
+                dirty[w, li] = False
+                near = slice(max(li - 1, 0), li + 2)
+                while True:
+                    cur = local[li + 1, 1 + cols.start:1 + cols.stop]
+                    new = area[li, cols].copy()
+                    for k, (dx, dy) in enumerate(SCAN):
+                        on = (bits[li, cols] >> k) & 1 == 1
+                        nb = local[li + 1 + dy, 1 + dx + cols.start:
+                                   1 + dx + cols.stop]
+                        new = np.where(on, new + nb, new).astype(np.float32)
+                    ch = real[li, cols] & (new.view(np.int32)
+                                           != cur.view(np.int32))
+                    local[li + 1, 1 + cols.start:1 + cols.stop] = \
+                        np.where(ch, new, cur)
+                    if ch.any():  # the rows above and below read this one
+                        dirty[w, near] = True
+                        dirty[w, li] = False
+                    if ch[0] and w > 0:  # the strips beside read the edges
+                        marks[w - 1, near] = True
+                    if ch[-1] and w < ns - 1:
+                        marks[w + 1, near] = True
+                    if not (ch & feed[li, cols]).any():
+                        break
         passes += 1
+        dirty |= marks
+        marks[:] = False
     return passes
 
 
@@ -146,7 +163,7 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
     writes only.  Returns (field, stats)."""
     p = packed.numpy()
     H, W = p.shape
-    ty, tx = tile
+    ty, tx, strip = tile
     nby, nbx = -(-H // ty), -(-W // tx)
     if area is None:
         bits = (p >> 8) & 0xFF
@@ -188,7 +205,8 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
             else:
                 most = max(most, _relax(local, cells(bits),
                                         cells(feed_bits) != 0, real,
-                                        cells(area).astype(np.float32)))
+                                        cells(area).astype(np.float32),
+                                        strip, rng))
             visits += 1
             after = local[1:-1, 1:-1]
             if area is None:
@@ -207,49 +225,57 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
     raise AssertionError("no fixpoint")
 
 
-def _diagonal(grid, x0, n):
-    """(packed, area) of one river of n cells that runs diagonally, (1, 1)
-    a step, from row 1 and column x0 (x periodic), into an ocean cell;
-    every other cell a land sink.  On square tiles it crosses from tile to
-    tile at their corners."""
+def _rivers(grid, rivers):
+    """(packed, area) of straight rivers, each (row, column, (dx, dy), n):
+    n cells from (row, column), one step (dx, dy) at a time (x periodic),
+    into an ocean cell; every other cell a land sink."""
     from demiurge_tpu_torch.core.topology import DIR_CODE
     from demiurge_tpu_torch.ops import flow as tf
 
     code = torch.full(grid.shape, 5, dtype=torch.int32)
-    for k in range(1, n + 1):
-        code[k, (x0 + k - 1) % grid.width] = DIR_CODE[(1, 1)]
-    code[n + 1, (x0 + n) % grid.width] = 0
+    for r, c, (dx, dy), n in rivers:
+        for k in range(n):
+            code[r + k * dy, (c + k * dx) % grid.width] = DIR_CODE[(dx, dy)]
+        code[r + n * dy, (c + n * dx) % grid.width] = 0
     _, mouth, _ = tf.incoming_mask(code, grid)
     return kf.pack_masks(code, mouth, grid), \
         tf.cell_area_lower_edge(grid, "cpu")
 
 
 def _case(name):
-    """(grid, packed, area, A start, model tile) of each case."""
+    """(grid, packed, area, A start, (tile rows, columns, strip columns))
+    of each case."""
     if name == "diagonal":
         # 26 cells from (1, 37) over the dateline of a 42-wide grid, through
         # ragged tiles of 4 x 4: corners before the dateline, edges after
         grid = Grid(42, 30)
-        packed, area = _diagonal(grid, 37, 26)
-        return grid, packed, area, area, (4, 4)
+        packed, area = _rivers(grid, [(1, 37, (1, 1), 26)])
+        return grid, packed, area, area, (4, 4, 2)
+    if name == "rows":
+        # one river east along row 5, one west along row 9, each across
+        # every strip of 2 columns of its row
+        grid = Grid(42, 14)
+        packed, area = _rivers(grid, [(5, 3, (1, 0), 38),
+                                      (9, 40, (-1, 0), 38)])
+        return grid, packed, area, area, (4, 8, 2)
     if name == "serpentine":
         # one river of 10 columns x 18 rows from x = 55 over the dateline
         # of a 60-wide grid, through 6 x 8 ragged tiles of 4 x 8
         grid = Grid(60, 22)
         packed, area = serpentine(grid, "cpu", 55, 10, 18)
-        return grid, packed, area, area, (4, 8)
+        return grid, packed, area, area, (4, 8, 4)
     grid, packed, area = _port_case(100, 44)
     if name == "port":
-        return grid, packed, area, area, (8, 16)
+        return grid, packed, area, area, (8, 16, 4)
     # warm: the fixpoint of another terrain, as a step after the first
     _, other, _ = _port_case(100, 44, seed=3)
     return grid, packed, area, kf.flow_solve_area_plain(other, area, grid), \
-        (8, 16)
+        (8, 16, 4)
 
 
 @pytest.mark.parametrize("variant", ["concurrent", "in place"])
 @pytest.mark.parametrize("name", ["port", "serpentine", "warm",
-                                  "diagonal"])
+                                  "diagonal", "rows"])
 def test_tile_schedule_reaches_the_plain_fixpoint(name, variant):
     """A bit for bit and vis exactly, in both variants and two visit
     orders; vis starts at the mouths in every case."""
