@@ -27,7 +27,7 @@
    pixels), the flow A fixpoint (K7) cold and warm (bit for bit) and
    vis (K8, exact), each with its rounds, host reads and tile visits, and
    both on a serpentine river (32 columns x 200 rows over the dateline)
-   and on a 2000x1000 grid that no tile shape divides;
+   and on a 2000x1000 grid that the tiles do not divide;
 6. the coupled path with every launch counter at 0: the ``coupled`` CLI at
    2048x1024 for 3 steps and at its default 8192x4096 for 1 step, and the
    ``climate`` CLI at its default 4096x2048 for 500 substeps; fails unless
@@ -63,8 +63,8 @@
    vis equal to K8, each timed beside K7+K8) and the packed Jacobi (K11e)
    at the coupled depths (200 pressure sweeps, 50 viscosity sweeps on u
    and v), bit for bit against its twin and within phase 3's bounds of K2
-   and K3, timed beside them; at 8192x4096, K11a-d against K7/K8 without
-   twins, one call each;
+   and K3, timed beside them; at 8192x4096, K7+K8 with their rounds and
+   tile visits, and K11a-d against them without twins, one call each;
 10. prints the kernels' JSON line, the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -92,7 +92,7 @@ W, H = 2048, 1024
 SEED = 7
 DEVICE = "cuda"
 BIG = (8192, 4096)      # the coupled CLI's default size
-RAGGED = (2000, 1000)   # a grid no tile shape of K7/K8 divides
+RAGGED = (2000, 1000)   # a grid K7/K8's 16x128 tiles do not divide
 HB = H - 24             # K4b's grid height: not a whole number of strips
 CLIMATE = (4096, 2048)  # the climate CLI's default size
 
@@ -238,7 +238,7 @@ def main() -> int:
         """A tiled K7/K8 solve's LAST_SOLVE entry, in words."""
         return (f"{st['rounds']} rounds to the certifying one, "
                 f"{st['launched']} launched, {st['host_reads']} host reads, "
-                f"{st['tiles_run']} tile visits ({st['tile']}), at most "
+                f"{st['tiles_run']} tile visits, at most "
                 f"{st['max_inner_sweeps']} inner sweeps a visit")
 
     def record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
@@ -498,8 +498,8 @@ def main() -> int:
            plane + N, edges,
            f"vis exact (K8; also serves K9): {solve_note(stats)}")
 
-    # K7 and K8 on a hand-built serpentine river, and on a grid that no
-    # tile shape divides, against their twins
+    # K7 and K8 on a hand-built serpentine river, and on a grid that the
+    # tiles do not divide, against their twins
     g_r = Grid(*RAGGED)
     hb_r = ob.blur(cli._terrain(g_r, SEED, dev), g_r, ccfg.flow_preblur)
     code_r = of.flow_directions(hb_r, torch.ones_like(hb_r), g_r)

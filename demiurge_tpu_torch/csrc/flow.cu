@@ -24,8 +24,8 @@
 //
 // Design.  The TPU kernel keeps a row band resident in VMEM, runs up to k
 // sweeps on it per visit and skips bands whose flags were quiet.  Here the
-// unit is a 2-D tile of TY x TX cells, one block of TX threads, thread t
-// owning column t of the tile:
+// unit is a 2-D tile of TY x TX cells (kTileRows x kTileCols, 16 x 128),
+// one block of TX threads, thread t owning column t of the tile:
 //   1. Wake.  Each tile leaves, for the next round, 8 edge bits: which of
 //      its top and bottom rows, left and right columns and 4 corners it
 //      wrote (the last real row and column on a ragged edge tile).  Thread
@@ -35,11 +35,12 @@
 //      per-thread early return cost 7 ms).  Round 0 runs every tile.
 //   2. Load.  The tile and a one-cell halo of A (f32; vis: one byte) go to
 //      shared memory; x wraps over the dateline inside the halo; rows
-//      beyond the grid load as 0 (no mask bit reads them).  Each cell's 8
-//      mask bits (incoming for A, outgoing for vis), a "real" bit (edge
-//      tiles are ragged where TX does not divide W or TY H) and a "feeds
-//      its row" bit (an edge of dy = 0 leaves it), and the area, sit
-//      beside them.  The halo stays as loaded for the whole visit.
+//      beyond the grid load as 0 (no mask bit reads them).  Beside them
+//      sit, for K7, each cell's 8 incoming bits, a "real" bit (edge tiles
+//      are ragged where TX does not divide W or TY H), a "feeds its row"
+//      bit (an edge of dy = 0 leaves it) and the area; for K8, each cell's
+//      pointer down its path.  The halo stays as loaded for the whole
+//      visit.
 //   3. Solve the tile's local fixpoint in shared memory.  K8 (one out
 //      edge a cell) jumps pointers along the paths (vis_tile_kernel).  K7
 //      sums in scan order, so it relaxes (relax): each warp walks its own
@@ -183,8 +184,8 @@ __device__ void load_halo(volatile T* s, const T* g, int r0, int c0, int H,
 // row satisfied in the strip; a change makes the rows above and below
 // dirty (in a down pass the row below is next).  A change in a strip's
 // edge column marks the neighbour strip's rows around it in a shared mask,
-// which the neighbour pulls at the end of the pass (the block's one
-// barrier a pass).  A row that is not dirty satisfies its equations, so no
+// which the neighbour pulls when the block meets at the end of the pass.
+// A row that is not dirty satisfies its equations, so no
 // dirty row in any strip means the tile's local fixpoint.  Returns the
 // rows where this thread's cell changed; *passes gets the passes taken.
 template <int TY, int TX, typename Cell>

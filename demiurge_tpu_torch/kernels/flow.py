@@ -170,8 +170,7 @@ def _solve_tiles_cuda(entry: str, args, device, grid: Grid,
         if 0 in wrote:
             return {"rounds": done + wrote.index(0) + 1,
                     "launched": done + BATCH, "host_reads": reads,
-                    "tiles_run": visits, "max_inner_sweeps": passes,
-                    "tile": f"{ty}x{tx}"}
+                    "tiles_run": visits, "max_inner_sweeps": passes}
         done += BATCH
     raise RuntimeError(f"{entry}: no fixpoint after {done} rounds")
 
