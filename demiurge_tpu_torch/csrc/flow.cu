@@ -31,8 +31,9 @@
 //      wrote (the last real row and column on a ragged edge tile).  Thread
 //      0 reads the bits of the 8 neighbour tiles that face this tile's
 //      halo (x wraps, y clips); if none is set the block writes its own
-//      bits 0 and returns: one load a block, not one a thread (PR 2's
-//      per-thread early return cost 7 ms).  Round 0 runs every tile.
+//      bits 0 and returns: one load a block, not one a thread (a
+//      per-thread early return on a flag stalled every block, PERF.md).
+//      Round 0 runs every tile.
 //   2. Load.  The tile and a one-cell halo of A (f32; vis: one byte) go to
 //      shared memory; x wraps over the dateline inside the halo; rows
 //      beyond the grid load as 0 (no mask bit reads them).  Beside them
