@@ -8,157 +8,296 @@
 //   - and with them the banded forms pressure_solve_pallas (:354, _kernel)
 //     and diffusion_solve_pallas (:480, _kernel2).  Those exist only
 //     because the resident form outgrew the TPU core's VMEM at large
-//     grids; this card has no such ceiling, so one kernel serves every
-//     grid size.
+//     grids; here one tiled kernel serves every grid size.
 //
-// One launch is one sweep, out of place (ping-pong buffers):
+// A sweep, out of place:
 //     f'[r,c] = cN*fN + cS*fS + cE*fE + cW*fW + cC*f (+ b)
-// with the neighbours indexed directly by the grid's wrap rules (the
-// port's core.topology.shift): x is a ring on a global grid and clamps on a
+// with the neighbours of the grid's wrap rules (the port's
+// core.topology.shift): x is a ring on a global grid and clamps on a
 // regional one; the row beyond a pole is the edge row itself at column
-// (c + pole_shift) mod W, times pole_sign (-1 for velocity: a vector
-// reverses when the walk crosses a pole); a non-pole edge clamps, and the
-// coefficients already fold that weight into cC.  The TPU kernel's pole
-// halos with swapped cN/cS, their refresh and the 8-row margins do not
-// exist here: Jacobi reads only the previous sweep, so the direct index
-// gives the same sweep.
+// (c + pole_shift) mod W, times pole_sign (-1 for velocity); a non-pole
+// edge clamps (the neighbour is the cell itself).  Each sum is taken left
+// to right with explicitly rounded multiplies and adds (no FMA
+// contraction), as the plain PyTorch twin (kernels/jacobi.py) takes it, so
+// the result equals the twin bit for bit.
 //
-// Bound on this card: device-memory bytes.  At 2048x1024 a plane is 8 MB;
-// a pressure sweep reads 6 coefficient planes and the field and writes the
-// field (about 64 MB), a diffusion sweep reads 5 planes and two fields and
-// writes two (about 72 MB) — more than the 50 MB L2, so each sweep streams
-// from HBM.  The design keeps the sweep simple and exactly ordered: each
-// thread reads its own five taps through the read-only path, and the sum
-// is evaluated left to right with explicitly rounded multiplies and adds
-// (no FMA contraction), so the result equals the plain PyTorch twin
-// (kernels/jacobi.py) bit for bit.  Temporal blocking or an L2-resident
-// persistent form would cut the bytes per sweep; they are later work.
+// Bound on this card.  At 2048x1024 a plane is 8 MB; the least work reads
+// the coefficient planes and the field once and writes the field once
+// (8 planes for pressure, 9 for viscosity: 0.020 and 0.022 ms at 3.35
+// TB/s), but 9 operations a cell a sweep over 200 (50 on two fields)
+// sweeps bound it by operations (0.056 and 0.028 ms at 67 TFLOP/s).  One
+// launch a sweep streamed every plane from device memory each sweep (64
+// MB a pressure sweep, 72 MB a viscosity sweep, more than the 50 MB L2):
+// 25.1 us a sweep, at the per-sweep memory floor.
+//
+// Design: temporal blocking in shared memory.  One launch runs k =
+// kSweeps sweeps.  A block owns an output tile of TH x TW cells and loads
+// the tile plus a halo of k cells on every side — the field(s) and every
+// coefficient plane of that extended region — into shared memory once; it
+// then sweeps the region k times between two shared buffers, sweep t
+// computing the region inset by t (the cells whose neighbours are still
+// right), and writes back its TH x TW cells.  So a solve reads each plane
+// ceil(iters / k) times, times the halo's overlap, instead of iters times.
+// The last launch of a solve runs the remainder s < k, computing the
+// region inset by k - s + t.
+//
+// The topology inside the extended region.  Row ly of a tile whose first
+// row is r0 stands for the unfolded grid row e = r0 - k + ly: rows past a
+// pole are the rows on the far side of it, pole after pole (row H + j is
+// row H-1-j, row 2H + j is row j, ...; likewise below 0).  After n pole
+// crossings a row is read at column c + n * pole_shift, its field and b
+// times pole_sign^n, and, n odd, with cN and cS swapped: in that frame the
+// extended north is the grid's south.  Those rows then evolve exactly as
+// the cells they stand for (the TPU kernel's pole halos, _pad_coeff): the
+// first two products of the sum change places, which is exact since
+// addition commutes, and a negation distributes exactly over
+// round-to-nearest (up to the sign of a zero, which compares equal).  An
+// extended cell's neighbour is the cell beside it, with two exceptions
+// kept in per-row and per-column steps: across a clamped edge the step is
+// 0 (the cell itself), so rows and columns past a clamped edge hold
+// arbitrary cells no valid cell reads; and on the way back across a pole
+// (toward the grid) the step lands delta = 2 * pole_shift - W columns over,
+// since two crossings move the column by 2 * pole_shift, which is W + 1 or
+// W - 1 for odd W.  A step moves at most one row and one column, and the
+// region a tile computes after t sweeps stays t cells inside the extended
+// rectangle, so the output tile is right after k sweeps whatever the
+// grid's size: the dateline wraps the halo onto the tile's own columns
+// when W < TW + 2k, and the rows reach across both poles when H < 2k.
+// tests/test_torch_jacobi_tiles.py runs this schedule in numpy against the
+// twins.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlockX = 32;
-constexpr int kBlockY = 8;
+// sweeps a launch and the output tiles (rows x columns); PERF.md has the
+// shapes raced
+constexpr int kSweeps = 8;
+constexpr int kPressureRows = 32, kPressureCols = 128;
+constexpr int kDiffusionRows = 16, kDiffusionCols = 128;
 
-template <int NF, bool HAS_B>
-__global__ void jacobi_sweep_kernel(
-    const float* __restrict__ cN, const float* __restrict__ cS,
-    const float* __restrict__ cE, const float* __restrict__ cW,
-    const float* __restrict__ cC, const float* __restrict__ b,
-    const float* __restrict__ in0, const float* __restrict__ in1,
-    float* __restrict__ out0, float* __restrict__ out1,
-    int H, int W, int wrap_x, int wrap_s, int wrap_n, int pole_shift,
-    float pole_sign) {
-  const int c = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y * kBlockY + threadIdx.y;
-  if (c >= W || r >= H) return;
+constexpr int kThreadsX = 32, kThreadsY = 16;
+constexpr int kThreads = kThreadsX * kThreadsY;
 
-  int ce = c + 1, cw = c - 1;
-  if (wrap_x) {
-    if (ce == W) ce = 0;
-    if (cw < 0) cw = W - 1;
-  } else {
-    if (ce == W) ce = W - 1;
-    if (cw < 0) cw = 0;
-  }
-  int rn = r + 1, cn = c;
-  float sn = 1.0f;
-  if (rn == H) {
-    rn = H - 1;
-    if (wrap_n) {
-      cn = (c + pole_shift) % W;
-      sn = pole_sign;
+template <int NF, bool HAS_B, int TH, int TW>
+constexpr size_t tile_smem() {
+  // 5 coefficient planes, b, and two buffers a field
+  return sizeof(float) * (5 + (HAS_B ? 1 : 0) + 2 * NF) * (TH + 2 * kSweeps) *
+         (TW + 2 * kSweeps);
+}
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+template <int NF, bool HAS_B, int TH, int TW>
+__global__ void __launch_bounds__(kThreads)
+    jacobi_tile_kernel(const float* __restrict__ cN,
+                       const float* __restrict__ cS,
+                       const float* __restrict__ cE,
+                       const float* __restrict__ cW,
+                       const float* __restrict__ cC,
+                       const float* __restrict__ b,
+                       const float* __restrict__ in0,
+                       const float* __restrict__ in1,
+                       float* __restrict__ out0, float* __restrict__ out1,
+                       int H, int W, int wrap_x, int wrap_s, int wrap_n,
+                       int pole_shift, float pole_sign, int sweeps) {
+  constexpr int K = kSweeps;
+  constexpr int EH = TH + 2 * K, EW = TW + 2 * K, EN = EH * EW;
+  extern __shared__ float smem[];
+  float* const tN = smem;
+  float* const tS = tN + EN;
+  float* const tE = tS + EN;
+  float* const tW = tE + EN;
+  float* const tC = tW + EN;
+  float* const tB = tC + EN;                      // HAS_B only
+  float* const fbuf = tB + (HAS_B ? EN : 0);      // field f, buffer q:
+                                                  // fbuf + (2 f + q) EN
+  __shared__ long s_base[EH];   // grid row * W
+  __shared__ int s_off[EH];     // column offset
+  __shared__ float s_sgn[EH];   // pole_sign^n
+  __shared__ int s_swap[EH];    // n odd: cN and cS swapped
+  __shared__ int s_nstep[EH], s_sstep[EH];
+
+  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
+  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
+  const int delta = 2 * pole_shift - W;
+
+  // the extended rows: grid row, frame and neighbour steps
+  for (int ly = tid; ly < EH; ly += kThreads) {
+    const int e = r0 - K + ly;
+    const int m = floordiv(e, H);
+    const int q = e - m * H;
+    const int n = m < 0 ? -m : m;   // pole crossings from the grid
+    const bool odd = n & 1;
+    s_base[ly] = (long)(odd ? H - 1 - q : q) * W;
+    s_off[ly] = (int)(((long)n * pole_shift) % W);
+    s_sgn[ly] = odd ? pole_sign : 1.0f;
+    s_swap[ly] = odd;
+    int ns = EW, ss = -EW;
+    if (q == H - 1) {               // a pole between e and e + 1
+      const int up = m + 1;
+      const bool wraps = (up & 1) ? wrap_n : wrap_s;
+      ns = wraps ? EW + (up <= 0 ? delta : 0) : 0;
     }
-  }
-  int rs = r - 1, cs = c;
-  float ss = 1.0f;
-  if (rs < 0) {
-    rs = 0;
-    if (wrap_s) {
-      cs = (c + pole_shift) % W;
-      ss = pole_sign;
+    if (q == 0) {                   // a pole between e - 1 and e
+      const bool wraps = (m & 1) ? wrap_n : wrap_s;
+      ss = wraps ? -EW + (m >= 1 ? delta : 0) : 0;
     }
+    s_nstep[ly] = ns;
+    s_sstep[ly] = ss;
   }
+  __syncthreads();
 
-  const long i = (long)r * W + c;
-  const long iN = (long)rn * W + cn;
-  const long iS = (long)rs * W + cs;
-  const long iE = (long)r * W + ce;
-  const long iW = (long)r * W + cw;
-  const float kN = __ldg(cN + i), kS = __ldg(cS + i), kE = __ldg(cE + i),
-              kW = __ldg(cW + i), kC = __ldg(cC + i);
+  // load the extended region: coefficients, b and the field(s)
+  for (int idx = tid; idx < EN; idx += kThreads) {
+    const int ly = idx / EW, lx = idx - ly * EW;
+    const int x = c0 - K + lx;
+    int col;
+    if (wrap_x) {
+      col = (x + s_off[ly]) % W;
+      if (col < 0) col += W;
+    } else {
+      col = x < 0 ? 0 : (x >= W ? W - 1 : x);
+    }
+    const long gi = s_base[ly] + col;
+    const bool sw = s_swap[ly];
+    const float sg = s_sgn[ly];
+    tN[idx] = __ldg((sw ? cS : cN) + gi);
+    tS[idx] = __ldg((sw ? cN : cS) + gi);
+    tE[idx] = __ldg(cE + gi);
+    tW[idx] = __ldg(cW + gi);
+    tC[idx] = __ldg(cC + gi);
+    if constexpr (HAS_B) tB[idx] = __fmul_rn(sg, __ldg(b + gi));
+    fbuf[idx] = __fmul_rn(sg, __ldg(in0 + gi));
+    if constexpr (NF == 2) fbuf[2 * EN + idx] = __fmul_rn(sg, __ldg(in1 + gi));
+  }
+  __syncthreads();
 
+  // the sweeps, between buffers 0 and 1 of each field
+  for (int t = 1; t <= sweeps; ++t) {
+    const int lo = K - sweeps + t;
+    const int from = ((t - 1) & 1) * EN, to = (t & 1) * EN;
+    for (int ly = lo + threadIdx.y; ly < EH - lo; ly += kThreadsY) {
+      const int ns = s_nstep[ly], ss = s_sstep[ly];
+      for (int lx = lo + threadIdx.x; lx < EW - lo; lx += kThreadsX) {
+        const int x = c0 - K + lx;
+        const int es = (wrap_x || x < W - 1) ? 1 : 0;
+        const int ws = (wrap_x || x > 0) ? -1 : 0;
+        const int i = ly * EW + lx;
+        const float kN = tN[i], kS = tS[i], kE = tE[i], kW = tW[i],
+                    kC = tC[i];
 #pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const float* __restrict__ in = f == 0 ? in0 : in1;
-    float* __restrict__ out = f == 0 ? out0 : out1;
-    const float fN = __fmul_rn(sn, __ldg(in + iN));
-    const float fS = __fmul_rn(ss, __ldg(in + iS));
-    float acc = __fadd_rn(__fmul_rn(kN, fN), __fmul_rn(kS, fS));
-    acc = __fadd_rn(acc, __fmul_rn(kE, __ldg(in + iE)));
-    acc = __fadd_rn(acc, __fmul_rn(kW, __ldg(in + iW)));
-    acc = __fadd_rn(acc, __fmul_rn(kC, __ldg(in + i)));
-    if constexpr (HAS_B) acc = __fadd_rn(acc, __ldg(b + i));
-    out[i] = acc;
+        for (int f = 0; f < NF; ++f) {
+          const float* a = fbuf + 2 * f * EN + from;
+          float acc = __fadd_rn(__fmul_rn(kN, a[i + ns]),
+                                __fmul_rn(kS, a[i + ss]));
+          acc = __fadd_rn(acc, __fmul_rn(kE, a[i + es]));
+          acc = __fadd_rn(acc, __fmul_rn(kW, a[i + ws]));
+          acc = __fadd_rn(acc, __fmul_rn(kC, a[i]));
+          if constexpr (HAS_B) acc = __fadd_rn(acc, tB[i]);
+          fbuf[2 * f * EN + to + i] = acc;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // write back the tile's own cells
+  const int res = (sweeps & 1) * EN;
+  for (int idx = tid; idx < TH * TW; idx += kThreads) {
+    const int ry = idx / TW, rx = idx - ry * TW;
+    const int r = r0 + ry, c = c0 + rx;
+    if (r >= H || c >= W) continue;
+    const int i = (ry + K) * EW + rx + K;
+    const long o = (long)r * W + c;
+    out0[o] = fbuf[res + i];
+    if constexpr (NF == 2) out1[o] = fbuf[2 * EN + res + i];
   }
 }
 
-template <int NF, bool HAS_B>
-cudaError_t run_sweeps(const float* cN, const float* cS, const float* cE,
-                       const float* cW, const float* cC, const float* b,
-                       const float* in0, const float* in1, float* ping0,
-                       float* pong0, float* ping1, float* pong1, int H, int W,
-                       int wrap_x, int wrap_s, int wrap_n, int pole_shift,
-                       float pole_sign, int iters, cudaStream_t stream) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, (H + kBlockY - 1) / kBlockY);
-  for (int it = 0; it < iters; ++it) {
-    // sweep `it` reads the input (it == 0) or the previous sweep's buffer
-    const float* src0 = it == 0 ? in0 : ((it - 1) & 1 ? pong0 : ping0);
-    const float* src1 = it == 0 ? in1 : ((it - 1) & 1 ? pong1 : ping1);
-    float* dst0 = it & 1 ? pong0 : ping0;
-    float* dst1 = it & 1 ? pong1 : ping1;
-    jacobi_sweep_kernel<NF, HAS_B><<<grid, block, 0, stream>>>(
-        cN, cS, cE, cW, cC, b, src0, src1, dst0, dst1, H, W, wrap_x, wrap_s,
-        wrap_n, pole_shift, pole_sign);
-    const cudaError_t err = cudaGetLastError();
+// ceil(iters / k) launches; launch j reads the input (j == 0) or the
+// previous launch's buffer and writes ping (j even) or pong (j odd).
+template <int NF, bool HAS_B, int TH, int TW>
+cudaError_t run_tiles(const float* cN, const float* cS, const float* cE,
+                      const float* cW, const float* cC, const float* b,
+                      const float* in0, const float* in1, float* ping0,
+                      float* pong0, float* ping1, float* pong1, int H, int W,
+                      int wrap_x, int wrap_s, int wrap_n, int pole_shift,
+                      float pole_sign, int iters, cudaStream_t stream) {
+  const auto kernel = jacobi_tile_kernel<NF, HAS_B, TH, TW>;
+  constexpr size_t smem = tile_smem<NF, HAS_B, TH, TW>();
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 block(kThreadsX, kThreadsY);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+  const int n = (iters + kSweeps - 1) / kSweeps;
+  for (int j = 0; j < n; ++j) {
+    const int sweeps = iters - j * kSweeps < kSweeps ? iters - j * kSweeps
+                                                     : kSweeps;
+    const float* src0 = j == 0 ? in0 : ((j - 1) & 1 ? pong0 : ping0);
+    const float* src1 = j == 0 ? in1 : ((j - 1) & 1 ? pong1 : ping1);
+    float* dst0 = j & 1 ? pong0 : ping0;
+    float* dst1 = j & 1 ? pong1 : ping1;
+    kernel<<<grid, block, smem, stream>>>(cN, cS, cE, cW, cC, b, src0, src1,
+                                          dst0, dst1, H, W, wrap_x, wrap_s,
+                                          wrap_n, pole_shift, pole_sign,
+                                          sweeps);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
+}
+
+// The built shape, and a pole shift whose two crossings land within a
+// column of the start (round(W / 2), as core.topology gives it).
+bool accepted(int th, int tw, int k, int TH, int TW, int W, int pole_shift) {
+  const int delta = 2 * pole_shift - W;
+  return th == TH && tw == TW && k == kSweeps && delta >= -1 && delta <= 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// `iters` sweeps of the pressure solve.  The result of sweep i lands in
-// ping (i even) or pong (i odd); the caller reads buffer (iters-1) % 2.
+// `iters` sweeps of the pressure solve in ceil(iters / k) launches.  The
+// result of launch j lands in ping (j even) or pong (j odd); the caller
+// reads buffer (launches - 1) % 2.  (th, tw, k) must be the built tile
+// and sweeps a launch, else cudaErrorInvalidValue.
 int demiurge_jacobi_pressure(const float* cN, const float* cS,
                              const float* cE, const float* cW,
                              const float* cC, const float* b,
                              const float* p0, float* ping, float* pong,
                              int H, int W, int wrap_x, int wrap_s, int wrap_n,
-                             int pole_shift, int iters, void* stream) {
-  return (int)run_sweeps<1, true>(cN, cS, cE, cW, cC, b, p0, nullptr, ping,
-                                  pong, nullptr, nullptr, H, W, wrap_x, wrap_s,
-                                  wrap_n, pole_shift, 1.0f, iters,
-                                  (cudaStream_t)stream);
+                             int pole_shift, int th, int tw, int k, int iters,
+                             void* stream) {
+  if (!accepted(th, tw, k, kPressureRows, kPressureCols, W, pole_shift))
+    return (int)cudaErrorInvalidValue;
+  return (int)run_tiles<1, true, kPressureRows, kPressureCols>(
+      cN, cS, cE, cW, cC, b, p0, nullptr, ping, pong, nullptr, nullptr, H, W,
+      wrap_x, wrap_s, wrap_n, pole_shift, 1.0f, iters, (cudaStream_t)stream);
 }
 
 // `iters` sweeps of the viscosity solve on (u, v) together, the velocity
-// changing sign across a pole.  Result buffers as above.
+// changing sign across a pole.  Result buffers and refusal as above.
 int demiurge_jacobi_diffusion(const float* cN, const float* cS,
                               const float* cE, const float* cW,
                               const float* cC, const float* u,
                               const float* v, float* u_ping, float* u_pong,
                               float* v_ping, float* v_pong, int H, int W,
                               int wrap_x, int wrap_s, int wrap_n,
-                              int pole_shift, int iters, void* stream) {
-  return (int)run_sweeps<2, false>(cN, cS, cE, cW, cC, nullptr, u, v, u_ping,
-                                   u_pong, v_ping, v_pong, H, W, wrap_x,
-                                   wrap_s, wrap_n, pole_shift, -1.0f, iters,
-                                   (cudaStream_t)stream);
+                              int pole_shift, int th, int tw, int k,
+                              int iters, void* stream) {
+  if (!accepted(th, tw, k, kDiffusionRows, kDiffusionCols, W, pole_shift))
+    return (int)cudaErrorInvalidValue;
+  return (int)run_tiles<2, false, kDiffusionRows, kDiffusionCols>(
+      cN, cS, cE, cW, cC, nullptr, u, v, u_ping, u_pong, v_ping, v_pong, H,
+      W, wrap_x, wrap_s, wrap_n, pole_shift, -1.0f, iters,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -36,11 +36,11 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every entry point returns cudaGetLastError()
 SIGNATURES = {
     # cN cS cE cW cC b p0 ping pong, H W wrap_x wrap_s wrap_n pole_shift
-    # iters, stream
-    "demiurge_jacobi_pressure": [_P] * 9 + [_I] * 7 + [_P],
+    # th tw k iters, stream
+    "demiurge_jacobi_pressure": [_P] * 9 + [_I] * 10 + [_P],
     # cN cS cE cW cC u v u_ping u_pong v_ping v_pong, H W wrap_x wrap_s
-    # wrap_n pole_shift iters, stream
-    "demiurge_jacobi_diffusion": [_P] * 11 + [_I] * 7 + [_P],
+    # wrap_n pole_shift th tw k iters, stream
+    "demiurge_jacobi_diffusion": [_P] * 11 + [_I] * 10 + [_P],
     # u v dx dy meta(host), nstrips strip_rows, ou ov, H W Ry Rf stride,
     # stream
     "demiurge_advect_sample": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 5

@@ -13,8 +13,11 @@ plain PyTorch twin (``*_plain``) when handed CPU tensors.  The kernel and
 its twin evaluate the same sum in the same order, so on one card they give
 the same numbers.
 
-``PRESSURE_LAUNCHES`` and ``DIFFUSION_LAUNCHES`` count kernel launches (one
-per sweep); the twins do not count.
+A launch runs ``SWEEPS_PER_LAUNCH`` sweeps (k) on shared-memory tiles of
+``PRESSURE_TILE`` / ``DIFFUSION_TILE`` output cells, each with a halo of k
+cells (csrc/jacobi.cu); a solve of ``iters`` sweeps is ``launches(iters)``
+launches, the last one running the remainder.  ``PRESSURE_LAUNCHES`` and
+``DIFFUSION_LAUNCHES`` count kernel launches; the twins do not count.
 """
 
 from __future__ import annotations
@@ -27,6 +30,17 @@ from ..core.topology import _pole_col_shift, shift
 
 PRESSURE_LAUNCHES = 0
 DIFFUSION_LAUNCHES = 0
+
+# csrc/jacobi.cu's build (PERF.md has the shapes raced); its entry points
+# refuse any other
+SWEEPS_PER_LAUNCH = 8       # k: sweeps a launch, the halo's depth
+PRESSURE_TILE = (32, 128)   # output cells of a block, rows x columns
+DIFFUSION_TILE = (16, 128)
+
+
+def launches(iters: int) -> int:
+    """Kernel launches of a solve of ``iters`` sweeps: ceil(iters / k)."""
+    return -(-iters // SWEEPS_PER_LAUNCH)
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +161,8 @@ def _topology_args(grid: Grid):
 
 def pressure_solve_cuda(cN, cS, cE, cW, cC, b, p0, grid: Grid,
                         iters: int) -> torch.Tensor:
-    """``iters`` pressure sweeps from ``p0`` on the card: one launch per
-    sweep on the current stream, no synchronisation."""
+    """``iters`` pressure sweeps from ``p0`` on the card: ``launches(iters)``
+    launches on the current stream, no synchronisation."""
     global PRESSURE_LAUNCHES
     tensors = (cN, cS, cE, cW, cC, b, p0)
     check_kernel_inputs(("cN", "cS", "cE", "cW", "cC", "b", "p0"), tensors,
@@ -164,15 +178,17 @@ def pressure_solve_cuda(cN, cS, cE, cW, cC, b, p0, grid: Grid,
     stream = torch.cuda.current_stream(p0.device).cuda_stream
     err = build.library().demiurge_jacobi_pressure(
         *(t.data_ptr() for t in tensors), ping.data_ptr(), pong.data_ptr(),
-        H, W, *_topology_args(grid), iters, stream)
+        H, W, *_topology_args(grid), *PRESSURE_TILE, SWEEPS_PER_LAUNCH,
+        iters, stream)
     build.check(err, "demiurge_jacobi_pressure")
-    PRESSURE_LAUNCHES += iters
-    return ping if (iters - 1) % 2 == 0 else pong
+    n = launches(iters)
+    PRESSURE_LAUNCHES += n
+    return ping if (n - 1) % 2 == 0 else pong
 
 
 def diffusion_solve_cuda(cN, cS, cE, cW, cC, u, v, grid: Grid, iters: int):
-    """``iters`` viscosity sweeps on (u, v) on the card: one launch per
-    sweep on the current stream, no synchronisation."""
+    """``iters`` viscosity sweeps on (u, v) on the card: ``launches(iters)``
+    launches on the current stream, no synchronisation."""
     global DIFFUSION_LAUNCHES
     tensors = (cN, cS, cE, cW, cC, u, v)
     check_kernel_inputs(("cN", "cS", "cE", "cW", "cC", "u", "v"), tensors,
@@ -188,10 +204,12 @@ def diffusion_solve_cuda(cN, cS, cE, cW, cC, u, v, grid: Grid, iters: int):
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = build.library().demiurge_jacobi_diffusion(
         *(t.data_ptr() for t in tensors), *(t.data_ptr() for t in bufs),
-        H, W, *_topology_args(grid), iters, stream)
+        H, W, *_topology_args(grid), *DIFFUSION_TILE, SWEEPS_PER_LAUNCH,
+        iters, stream)
     build.check(err, "demiurge_jacobi_diffusion")
-    DIFFUSION_LAUNCHES += iters
-    last = (iters - 1) % 2
+    n = launches(iters)
+    DIFFUSION_LAUNCHES += n
+    last = (n - 1) % 2
     return bufs[last], bufs[2 + last]
 
 

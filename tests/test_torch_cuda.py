@@ -6,9 +6,9 @@ is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Each kernel evaluates the same sum in the same order as its twin, so the
-tolerances are a few ulps of the field's max (in practice the results are
-equal).
+Each kernel evaluates the same sum in the same order as its twin, so most
+are held to it bit for bit; the tolerances elsewhere are a few ulps of
+the field's max or the reference's own bounds.
 """
 
 import math
@@ -53,32 +53,79 @@ def _rel_err(got, want):
                                               + 1e-30)
 
 
-@pytest.mark.parametrize("coords", [GLOBAL, REGIONAL],
-                         ids=["global", "regional"])
-def test_pressure_kernel_equals_plain_twin(dev, coords):
-    grid, h, u, v = _case(256, 128, coords, dev)
+# the tiled Jacobi kernels' grids (tests/test_torch_jacobi_tiles.py runs
+# their schedule on the CPU): a width below a tile and its halo, an odd
+# width, H < 2k, one pole only, and the coupled model's size
+JACOBI_GRIDS = {
+    "global": (256, 128, GLOBAL),
+    "regional": (256, 128, REGIONAL),
+    "96x48": (96, 48, GLOBAL),
+    "255x128": (255, 128, GLOBAL),
+    "64x12": (64, 12, GLOBAL),
+    "40x24-south-cap": (40, 24, (-PI / 2, 0.5, -PI, PI)),
+    "2048x1024": (2048, 1024, GLOBAL),
+}
+
+
+def _jacobi_iters(name, depth):
+    """The coupled model's depth at its size; elsewhere every remainder
+    case and a few launches more."""
+    k = kj.SWEEPS_PER_LAUNCH
+    if name == "2048x1024":
+        return (depth,)
+    return (0, 1, k - 1, k, k + 1, 41, depth, depth + 1)
+
+
+@pytest.mark.parametrize("name", list(JACOBI_GRIDS))
+def test_pressure_kernel_equals_plain_twin(dev, name):
+    """Bit for bit, in ceil(iters / k) launches."""
+    grid, h, u, v = _case(*JACOBI_GRIDS[name], dev)
     div = ocean.divergence(u, v, h, grid, ocean.OceanConfig())
     coeffs = kj.coefficients(div, h, grid)
     p0 = torch.zeros_like(div)
-    for iters in (0, 1, 2, 41):
+    for iters in _jacobi_iters(name, 200):
         before = kj.PRESSURE_LAUNCHES
         got = kj.pressure_solve_cuda(*coeffs, p0, grid, iters)
         want = kj.pressure_solve_plain(*coeffs, p0, grid, iters)
         torch.cuda.synchronize()
-        assert kj.PRESSURE_LAUNCHES - before == iters
-        assert _rel_err(got, want) <= 1e-6
+        assert kj.PRESSURE_LAUNCHES - before == math.ceil(
+            iters / kj.SWEEPS_PER_LAUNCH)
+        assert torch.equal(got, want), iters
 
 
-@pytest.mark.parametrize("coords", [GLOBAL, REGIONAL],
-                         ids=["global", "regional"])
-def test_diffusion_kernel_equals_plain_twin(dev, coords):
-    grid, h, u, v = _case(256, 128, coords, dev)
+@pytest.mark.parametrize("name", list(JACOBI_GRIDS))
+def test_diffusion_kernel_equals_plain_twin(dev, name):
+    """Bit for bit on (u, v), in ceil(iters / k) launches."""
+    grid, h, u, v = _case(*JACOBI_GRIDS[name], dev)
     coeffs = kj.diffusion_coefficients(h, grid)
-    for iters in (1, 50, 51):
+    for iters in _jacobi_iters(name, 50):
+        before = kj.DIFFUSION_LAUNCHES
         gu, gv = kj.diffusion_solve_cuda(*coeffs, u, v, grid, iters)
         wu, wv = kj.diffusion_solve_plain(*coeffs, u, v, grid, iters)
         torch.cuda.synchronize()
-        assert _rel_err(gu, wu) <= 1e-6 and _rel_err(gv, wv) <= 1e-6
+        assert kj.DIFFUSION_LAUNCHES - before == math.ceil(
+            iters / kj.SWEEPS_PER_LAUNCH)
+        assert torch.equal(gu, wu) and torch.equal(gv, wv), iters
+
+
+def test_jacobi_kernels_raise_on_a_refused_launch(dev, monkeypatch):
+    """Sweeps a launch or a tile that csrc/jacobi.cu was not built for are
+    refused by its entry points, and the wrappers raise; nothing is
+    counted."""
+    grid, h, u, v = _case(256, 128, GLOBAL, dev)
+    coeffs = kj.coefficients(u, h, grid)
+    dco = kj.diffusion_coefficients(h, grid)
+    before = (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES)
+    with monkeypatch.context() as m:
+        m.setattr(kj, "SWEEPS_PER_LAUNCH", kj.SWEEPS_PER_LAUNCH + 1)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kj.pressure_solve_cuda(*coeffs, u, grid, 20)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kj.diffusion_solve_cuda(*dco, u, v, grid, 20)
+    monkeypatch.setattr(kj, "PRESSURE_TILE", (48, 128))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kj.pressure_solve_cuda(*coeffs, u, grid, 20)
+    assert (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("form", ["tiered", "global"])
