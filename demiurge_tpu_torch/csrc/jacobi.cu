@@ -90,6 +90,14 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
+// one float from device memory to shared memory, asynchronously (Ampere's
+// cp.async): a block's loads all go in flight before it waits once
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
 template <int NF, bool HAS_B, int TH, int TW>
 __global__ void __launch_bounds__(kThreads)
     jacobi_tile_kernel(const float* __restrict__ cN,
@@ -163,17 +171,33 @@ __global__ void __launch_bounds__(kThreads)
     }
     const long gi = s_base[ly] + col;
     const bool sw = s_swap[ly];
-    const float sg = s_sgn[ly];
-    tN[idx] = __ldg((sw ? cS : cN) + gi);
-    tS[idx] = __ldg((sw ? cN : cS) + gi);
-    tE[idx] = __ldg(cE + gi);
-    tW[idx] = __ldg(cW + gi);
-    tC[idx] = __ldg(cC + gi);
-    if constexpr (HAS_B) tB[idx] = __fmul_rn(sg, __ldg(b + gi));
-    fbuf[idx] = __fmul_rn(sg, __ldg(in0 + gi));
-    if constexpr (NF == 2) fbuf[2 * EN + idx] = __fmul_rn(sg, __ldg(in1 + gi));
+    copy_async(tN + idx, (sw ? cS : cN) + gi);
+    copy_async(tS + idx, (sw ? cN : cS) + gi);
+    copy_async(tE + idx, cE + gi);
+    copy_async(tW + idx, cW + gi);
+    copy_async(tC + idx, cC + gi);
+    if constexpr (HAS_B) copy_async(tB + idx, b + gi);
+    copy_async(fbuf + idx, in0 + gi);
+    if constexpr (NF == 2) copy_async(fbuf + 2 * EN + idx, in1 + gi);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
+  // the rows past an odd number of poles hold the field (and b) times
+  // pole_sign
+  if (pole_sign != 1.0f) {
+    for (int ly = threadIdx.y; ly < EH; ly += kThreadsY) {
+      const float sg = s_sgn[ly];
+      if (sg == 1.0f) continue;
+      for (int lx = threadIdx.x; lx < EW; lx += kThreadsX) {
+        const int idx = ly * EW + lx;
+        if constexpr (HAS_B) tB[idx] = __fmul_rn(sg, tB[idx]);
+        fbuf[idx] = __fmul_rn(sg, fbuf[idx]);
+        if constexpr (NF == 2)
+          fbuf[2 * EN + idx] = __fmul_rn(sg, fbuf[2 * EN + idx]);
+      }
+    }
+    __syncthreads();
+  }
 
   // the sweeps, between buffers 0 and 1 of each field
   for (int t = 1; t <= sweeps; ++t) {
