@@ -81,8 +81,8 @@ constexpr int kThreads = kThreadsX * kThreadsY;
 
 template <int NF, bool HAS_B, int TH, int TW>
 constexpr size_t tile_smem() {
-  // 5 coefficient planes, b, and two buffers a field
-  return sizeof(float) * (5 + (HAS_B ? 1 : 0) + 2 * NF) * (TH + 2 * kSweeps) *
+  // b and two buffers a field; the coefficients live in registers
+  return sizeof(float) * ((HAS_B ? 1 : 0) + 2 * NF) * (TH + 2 * kSweeps) *
          (TW + 2 * kSweeps);
 }
 
@@ -98,8 +98,10 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                "l"(src));
 }
 
+// blocks of 256 threads or fewer are held to registers for two an SM, so
+// one block's loads overlap the other's sweeps
 template <int NF, bool HAS_B, int TH, int TW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
     jacobi_tile_kernel(const float* __restrict__ cN,
                        const float* __restrict__ cS,
                        const float* __restrict__ cE,
@@ -113,13 +115,13 @@ __global__ void __launch_bounds__(kThreads)
                        int pole_shift, float pole_sign, int sweeps) {
   constexpr int K = kSweeps;
   constexpr int EH = TH + 2 * K, EW = TW + 2 * K, EN = EH * EW;
+  // thread (tx, ty) owns the extended cells (ty + kThreadsY j, tx +
+  // kThreadsX i) for the whole launch and keeps their coefficients in
+  // registers
+  constexpr int JR = (EH + kThreadsY - 1) / kThreadsY;
+  constexpr int IC = (EW + kThreadsX - 1) / kThreadsX;
   extern __shared__ float smem[];
-  float* const tN = smem;
-  float* const tS = tN + EN;
-  float* const tE = tS + EN;
-  float* const tW = tE + EN;
-  float* const tC = tW + EN;
-  float* const tB = tC + EN;                      // HAS_B only
+  float* const tB = smem;                         // HAS_B only
   float* const fbuf = tB + (HAS_B ? EN : 0);      // field f, buffer q:
                                                   // fbuf + (2 f + q) EN
   __shared__ long s_base[EH];   // grid row * W
@@ -158,27 +160,36 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // load the extended region: coefficients, b and the field(s)
-  for (int idx = tid; idx < EN; idx += kThreads) {
-    const int ly = idx / EW, lx = idx - ly * EW;
-    const int x = c0 - K + lx;
-    int col;
-    if (wrap_x) {
-      col = (x + s_off[ly]) % W;
-      if (col < 0) col += W;
-    } else {
-      col = x < 0 ? 0 : (x >= W ? W - 1 : x);
+  // load the extended region: the coefficients into registers, b and the
+  // field(s) into shared memory
+  float kN[JR][IC], kS[JR][IC], kE[JR][IC], kW[JR][IC], kC[JR][IC];
+#pragma unroll
+  for (int j = 0; j < JR; ++j) {
+    const int ly = threadIdx.y + kThreadsY * j;
+#pragma unroll
+    for (int i = 0; i < IC; ++i) {
+      const int lx = threadIdx.x + kThreadsX * i;
+      if (ly >= EH || lx >= EW) continue;
+      const int x = c0 - K + lx;
+      int col;
+      if (wrap_x) {
+        col = (x + s_off[ly]) % W;
+        if (col < 0) col += W;
+      } else {
+        col = x < 0 ? 0 : (x >= W ? W - 1 : x);
+      }
+      const long gi = s_base[ly] + col;
+      const bool sw = s_swap[ly];
+      const int idx = ly * EW + lx;
+      if constexpr (HAS_B) copy_async(tB + idx, b + gi);
+      copy_async(fbuf + idx, in0 + gi);
+      if constexpr (NF == 2) copy_async(fbuf + 2 * EN + idx, in1 + gi);
+      kN[j][i] = __ldg((sw ? cS : cN) + gi);
+      kS[j][i] = __ldg((sw ? cN : cS) + gi);
+      kE[j][i] = __ldg(cE + gi);
+      kW[j][i] = __ldg(cW + gi);
+      kC[j][i] = __ldg(cC + gi);
     }
-    const long gi = s_base[ly] + col;
-    const bool sw = s_swap[ly];
-    copy_async(tN + idx, (sw ? cS : cN) + gi);
-    copy_async(tS + idx, (sw ? cN : cS) + gi);
-    copy_async(tE + idx, cE + gi);
-    copy_async(tW + idx, cW + gi);
-    copy_async(tC + idx, cC + gi);
-    if constexpr (HAS_B) copy_async(tB + idx, b + gi);
-    copy_async(fbuf + idx, in0 + gi);
-    if constexpr (NF == 2) copy_async(fbuf + 2 * EN + idx, in1 + gi);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -203,25 +214,29 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 1; t <= sweeps; ++t) {
     const int lo = K - sweeps + t;
     const int from = ((t - 1) & 1) * EN, to = (t & 1) * EN;
-    for (int ly = lo + threadIdx.y; ly < EH - lo; ly += kThreadsY) {
+#pragma unroll
+    for (int j = 0; j < JR; ++j) {
+      const int ly = threadIdx.y + kThreadsY * j;
+      if (ly < lo || ly >= EH - lo) continue;
       const int ns = s_nstep[ly], ss = s_sstep[ly];
-      for (int lx = lo + threadIdx.x; lx < EW - lo; lx += kThreadsX) {
+#pragma unroll
+      for (int i = 0; i < IC; ++i) {
+        const int lx = threadIdx.x + kThreadsX * i;
+        if (lx < lo || lx >= EW - lo) continue;
         const int x = c0 - K + lx;
         const int es = (wrap_x || x < W - 1) ? 1 : 0;
         const int ws = (wrap_x || x > 0) ? -1 : 0;
-        const int i = ly * EW + lx;
-        const float kN = tN[i], kS = tS[i], kE = tE[i], kW = tW[i],
-                    kC = tC[i];
+        const int c = ly * EW + lx;
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
           const float* a = fbuf + 2 * f * EN + from;
-          float acc = __fadd_rn(__fmul_rn(kN, a[i + ns]),
-                                __fmul_rn(kS, a[i + ss]));
-          acc = __fadd_rn(acc, __fmul_rn(kE, a[i + es]));
-          acc = __fadd_rn(acc, __fmul_rn(kW, a[i + ws]));
-          acc = __fadd_rn(acc, __fmul_rn(kC, a[i]));
-          if constexpr (HAS_B) acc = __fadd_rn(acc, tB[i]);
-          fbuf[2 * f * EN + to + i] = acc;
+          float acc = __fadd_rn(__fmul_rn(kN[j][i], a[c + ns]),
+                                __fmul_rn(kS[j][i], a[c + ss]));
+          acc = __fadd_rn(acc, __fmul_rn(kE[j][i], a[c + es]));
+          acc = __fadd_rn(acc, __fmul_rn(kW[j][i], a[c + ws]));
+          acc = __fadd_rn(acc, __fmul_rn(kC[j][i], a[c]));
+          if constexpr (HAS_B) acc = __fadd_rn(acc, tB[c]);
+          fbuf[2 * f * EN + to + c] = acc;
         }
       }
     }

@@ -1,12 +1,15 @@
 """Race tile shapes of the tiled Jacobi kernels K2 and K3 on the card.
 
     python -m demiurge_tpu_torch.tools.jacobi_race [W H] [--variants V,...]
-        [--reps 10] [--rounds 2]
+        [--source FILE] [--reps 10] [--rounds 2]
 
-A variant is ``PTHxPTW/DTHxDTW/k``: the pressure tile, the viscosity tile
-and the sweeps a launch.  For each, ``csrc/jacobi.cu`` is copied with its
-tile constants rewritten and built (one ``nvcc`` per variant, all started
-together) into a library of its own beside ``csrc/errors.cu``; then, on
+A variant is ``PTHxPTW/DTHxDTW/k[/ty]``: the pressure tile, the viscosity
+tile, the sweeps a launch and, optionally, the warps a block (default:
+the source's).  For each, the source (default: this checkout's
+``csrc/jacobi.cu``; ``--source`` takes another tree's, e.g. from ``git
+archive``, with the same entry points) is copied with those constants
+rewritten and built (one ``nvcc`` per variant, all started together) into
+a library of its own beside ``csrc/errors.cu``; then, on
 the ocean CLI's terrain (fBm, seed 7, default 2048x1024) and a (u, v)
 after one ocean step through the plain twins, each variant runs the
 coupled model's solves, 200 pressure sweeps and 50 viscosity sweeps on
@@ -42,14 +45,14 @@ DEFAULT = ("32x128/16x128/8,16x128/8x128/8,64x64/32x64/8,32x64/16x64/8,"
 
 
 def _parse(variant: str):
-    p, d, k = variant.split("/")
+    p, d, k, *ty = variant.split("/")
     pt = tuple(int(n) for n in p.split("x"))
     dt = tuple(int(n) for n in d.split("x"))
-    return pt, dt, int(k)
+    return pt, dt, int(k), (int(ty[0]) if ty else None)
 
 
-def _source(pt, dt, k) -> str:
-    src = (build.CSRC_DIR / "jacobi.cu").read_text()
+def _source(path, pt, dt, k, ty) -> str:
+    src = pathlib.Path(path).read_text()
     subs = [(r"constexpr int kSweeps = \d+;", f"constexpr int kSweeps = {k};"),
             (r"constexpr int kPressureRows = \d+, kPressureCols = \d+;",
              f"constexpr int kPressureRows = {pt[0]}, kPressureCols = "
@@ -57,22 +60,24 @@ def _source(pt, dt, k) -> str:
             (r"constexpr int kDiffusionRows = \d+, kDiffusionCols = \d+;",
              f"constexpr int kDiffusionRows = {dt[0]}, kDiffusionCols = "
              f"{dt[1]};")]
+    if ty is not None:
+        subs.append((r"constexpr int kThreadsX = 32, kThreadsY = \d+;",
+                     f"constexpr int kThreadsX = 32, kThreadsY = {ty};"))
     for pattern, repl in subs:
         src, n = re.subn(pattern, repl, src)
         if n != 1:
-            raise RuntimeError(f"csrc/jacobi.cu: no single match of "
-                               f"{pattern!r}")
+            raise RuntimeError(f"{path}: no single match of {pattern!r}")
     return src
 
 
-def build_variants(variants, workdir: pathlib.Path):
+def build_variants(path, variants, workdir: pathlib.Path):
     """One library a variant, compiled in parallel: [ctypes.CDLL]."""
     nvcc = build._nvcc()
     procs, libs = [], []
-    for j, (pt, dt, k) in enumerate(variants):
+    for j, variant in enumerate(variants):
         d = workdir / f"v{j}"
         d.mkdir()
-        (d / "jacobi.cu").write_text(_source(pt, dt, k))
+        (d / "jacobi.cu").write_text(_source(path, *variant))
         lib = d / "libjacobi.so"
         cmd = [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(lib),
                str(d / "jacobi.cu"), str(build.CSRC_DIR / "errors.cu")]
@@ -115,6 +120,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("size", nargs="*", type=int, metavar="W H")
     p.add_argument("--variants", default=DEFAULT)
+    p.add_argument("--source", default=str(build.CSRC_DIR / "jacobi.cu"))
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--rounds", type=int, default=2)
     args = p.parse_args(argv)
@@ -146,9 +152,9 @@ def main(argv=None) -> int:
     want_u, want_v = kj.diffusion_solve_plain(*dco, u, v, grid, 50)
 
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(variants, pathlib.Path(tmp))
+        libs = build_variants(args.source, variants, pathlib.Path(tmp))
         for rnd in range(args.rounds):
-            for (pt, dt, k), lib in zip(variants, libs):
+            for (pt, dt, k, ty), lib in zip(variants, libs):
                 with mock.patch.object(build, "library", lambda: lib), \
                         mock.patch.multiple(kj, PRESSURE_TILE=pt,
                                             DIFFUSION_TILE=dt,
@@ -165,8 +171,9 @@ def main(argv=None) -> int:
                     ms_d = cuda_ms(lambda: kj.diffusion_solve_cuda(
                         *dco, u, v, grid, 50), args.reps)
                 print(json.dumps({
-                    "round": rnd, "pressure_tile": pt, "diffusion_tile": dt,
-                    "k": k, "grid": f"{W}x{H}", "equal_to_twins": equal,
+                    "source": args.source, "round": rnd,
+                    "pressure_tile": pt, "diffusion_tile": dt, "k": k,
+                    "warps": ty, "grid": f"{W}x{H}", "equal_to_twins": equal,
                     "pressure_200_ms": ms_p, "viscosity_50_ms": ms_d,
                     "card": card}), flush=True)
                 if not equal:
