@@ -9,8 +9,10 @@
 3. the ocean kernels at 2048x1024 (the ocean CLI's terrain: fBm, 8 octaves,
    seed 7, and a (u, v) after one ocean step through the plain twins), each
    against its plain PyTorch twin on the card, timed with CUDA events:
-   pressure Jacobi (200 and 1000 sweeps, within 1e-4 of max|p|), viscosity
-   Jacobi (50 sweeps, within 2e-5 of max|u|), the tiered advect sampler
+   pressure Jacobi (200 and 1000 sweeps) and viscosity Jacobi (50 sweeps),
+   bit for bit, with their launches and K11e's time on the same solves,
+   and both once more at 8192x4096 (the same terrain recipe and a (u, v)
+   after one plain ocean step), bit for bit; the tiered advect sampler
    (atol 1e-5) and, at 2048x1000 (H not a whole number of 32-row strips),
    the same kernel with a one-row table (K4b, atol 1e-5);
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
@@ -40,7 +42,8 @@
    step) against the same 5 through the plain twins: u, v and T within
    1e-5 of max, the height beyond 1e-5 of max at no more than 1e-3 of the
    pixels; and a per-stage device profile of one step (CUDA events; the
-   rows sum to the step);
+   rows sum to the step; the ocean's coefficient builds apart from the
+   Jacobi sweeps);
 8. the sharded path on a 1x1 mesh, in this process, in a world-size-1
    NCCL group: the two-level flow kernels (K10a with exit ids, K10b with a
    zero and a nonzero seed) at 2048x1024 on the coupled path's masks
@@ -276,17 +279,26 @@ def main() -> int:
         scale = float(want.abs().max())
         err = max_err(got, want)
         assert scale > 0 and bool(torch.isfinite(got).all())
-        assert err <= 1e-4 * scale, (iters, err, scale)
-        print(f"  pressure {iters} sweeps: max|p| {scale:.4g}, "
-              f"err/max {err / scale:.3e}")
+        assert torch.equal(got, want), (iters, err, scale)
+        print(f"  pressure {iters} sweeps: max|p| {scale:.4g}, bit for bit "
+              f"in {kj.launches(iters)} launches")
         worst = max(worst, err)
+    k = kj.SWEEPS_PER_LAUNCH
+    # K11e, the packed form of the same solves (phase 9), as the yardstick
+    ob_3 = kp.pack_ob(terrain, grid, sea_bit=True)
+    tab_3 = kp.row_table(grid, "pressure", dev)
+    k11e_ms = cuda_ms(lambda: kp.resident_call_packed(
+        ob_3, tab_3, coeffs[5], [p0], grid, 200, True, False), 10)
     ms = cuda_ms(lambda: kj.pressure_solve_cuda(*coeffs, p0, grid, 200), 10)
     plain_ms = cuda_ms(
         lambda: kj.pressure_solve_plain(*coeffs, p0, grid, 200), 3)
     record("jacobi_pressure", "demiurge_tpu_torch/csrc/jacobi.cu",
            "demiurge_tpu/pallas_kernels/jacobi.py:407", worst, ms, plain_ms,
            8 * plane, 200 * 9 * N,
-           "200+1000 sweeps within 1e-4 of max|p|, time per 200-sweep solve")
+           f"200+1000 sweeps bit for bit; time per 200-sweep solve, "
+           f"{kj.launches(200)} launches of k={k} sweeps on "
+           f"{kj.PRESSURE_TILE[0]}x{kj.PRESSURE_TILE[1]} tiles; K11e "
+           f"{k11e_ms:.3f} ms")
 
     dco = kj.diffusion_coefficients(terrain, grid)
     gu, gv = kj.diffusion_solve_cuda(*dco, u, v, grid, 50)
@@ -294,14 +306,49 @@ def main() -> int:
     torch.cuda.synchronize()
     scale = float(wu.abs().max())
     err = max(max_err(gu, wu), max_err(gv, wv))
-    assert scale > 0 and err <= 2e-5 * scale, (err, scale)
+    assert scale > 0 and torch.equal(gu, wu) and torch.equal(gv, wv), \
+        (err, scale)
+    ob_3 = kp.pack_ob(terrain, grid, sea_bit=False)
+    tab_3 = kp.row_table(grid, "viscosity", dev)
+    k11e_ms = cuda_ms(lambda: kp.resident_call_packed(
+        ob_3, tab_3, None, [u, v], grid, 50, False, True), 10)
     ms = cuda_ms(lambda: kj.diffusion_solve_cuda(*dco, u, v, grid, 50), 10)
     plain_ms = cuda_ms(lambda: kj.diffusion_solve_plain(*dco, u, v, grid, 50),
                        3)
     record("jacobi_diffusion", "demiurge_tpu_torch/csrc/jacobi.cu",
            "demiurge_tpu/pallas_kernels/jacobi.py:429", err, ms, plain_ms,
            9 * plane, 50 * 2 * 9 * N,
-           "50 sweeps on (u, v) within 2e-5 of max|u|")
+           f"50 sweeps on (u, v) bit for bit, {kj.launches(50)} launches "
+           f"of k={k} on {kj.DIFFUSION_TILE[0]}x{kj.DIFFUSION_TILE[1]} "
+           f"tiles; K11e {k11e_ms:.3f} ms")
+    del ob_3, tab_3
+
+    # both solves once at the coupled CLI's default size
+    big_grid = Grid(*BIG)
+    t_big = cli._terrain(big_grid, SEED, dev)
+    u_big, v_big = ocean.init_ocean(big_grid, dev)
+    with plain_twins():
+        u_big, v_big, _, _ = ocean.ocean_step(u_big, v_big, t_big, big_grid,
+                                              cfg)
+    c_big = kj.coefficients(ocean.divergence(u_big, v_big, t_big, big_grid,
+                                             cfg), t_big, big_grid)
+    p_big = torch.zeros_like(u_big)
+    got = kj.pressure_solve_cuda(*c_big, p_big, big_grid, 200)
+    want = kj.pressure_solve_plain(*c_big, p_big, big_grid, 200)
+    torch.cuda.synchronize()
+    assert bool(want.abs().max() > 0) and torch.equal(got, want), \
+        max_err(got, want)
+    del c_big, got, want
+    d_big = kj.diffusion_coefficients(t_big, big_grid)
+    gu, gv = kj.diffusion_solve_cuda(*d_big, u_big, v_big, big_grid, 50)
+    wu, wv = kj.diffusion_solve_plain(*d_big, u_big, v_big, big_grid, 50)
+    torch.cuda.synchronize()
+    assert torch.equal(gu, wu) and torch.equal(gv, wv), \
+        max(max_err(gu, wu), max_err(gv, wv))
+    print(f"  at {BIG[0]}x{BIG[1]}: pressure 200 sweeps and viscosity 50 "
+          f"sweeps on (u, v) bit for bit against their twins")
+    del t_big, u_big, v_big, p_big, d_big, gu, gv, wu, wv
+    torch.cuda.empty_cache()
 
     s2, t2 = ocean._departure(u, v, grid, cfg)[:2]
     c, r = ocean._row_col(grid, dev)
@@ -631,12 +678,19 @@ def main() -> int:
         oc = ccfg.ocean
         uu, vv = ocean.advect(st.u, st.v, st.height, grid, oc)
         mark("ocean advect")
-        uu, vv = ocean.diffusion(uu, vv, st.height, grid, oc)
-        mark("ocean viscosity (50 sweeps)")
+        # ocean.diffusion and ocean.pressure_solve, their coefficient
+        # builds apart from the sweeps
+        dco = kj.diffusion_coefficients(st.height, grid)
+        mark("ocean viscosity coefficients")
+        uu, vv = kj.diffusion_solve(*dco, uu, vv, grid, oc.diffusion_iters)
+        mark(f"ocean viscosity ({oc.diffusion_iters} sweeps, K3)")
         dv = ocean.divergence(uu, vv, st.height, grid, oc)
         mark("ocean divergence")
-        pp = ocean.pressure_solve(dv, st.height, grid, oc)
-        mark("ocean pressure (200 sweeps)")
+        pco = kj.coefficients(dv, st.height, grid)
+        mark("ocean pressure coefficients")
+        pp = kj.pressure_solve(*pco, torch.zeros_like(dv), grid,
+                               oc.jacobi_iters)
+        mark(f"ocean pressure ({oc.jacobi_iters} sweeps, K2)")
         uu, vv = ocean.project(uu, vv, pp, st.height, grid, oc)
         mark("ocean projection")
         hbs = ob.blur(st.height, grid, ccfg.flow_preblur)

@@ -125,8 +125,6 @@ def main(argv=None) -> int:
     p.add_argument("--rounds", type=int, default=2)
     args = p.parse_args(argv)
     W, H = list(args.size) + [2048, 1024][len(args.size):]
-    if not torch.cuda.is_available():
-        raise SystemExit("jacobi_race: needs a CUDA device")
     variants = [_parse(v) for v in args.variants.split(",")]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -42,7 +42,8 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "dist/mesh.py", "dist/halo.py", "dist/flowdist.py",
           "dist/climate.py", "dist/advect.py", "kernels/flow_deadends.py",
           "kernels/jacobi_packed.py", "tools/__init__.py",
-          "tools/flow_rounds.py", "tools/flow_tune.py")
+          "tools/flow_rounds.py", "tools/flow_tune.py",
+          "tools/jacobi_race.py")
 
 
 def test_grep_tests_cover_the_ported_modules():
