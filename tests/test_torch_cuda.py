@@ -54,11 +54,12 @@ def _rel_err(got, want):
 
 
 # the tiled Jacobi kernels' grids (tests/test_torch_jacobi_tiles.py runs
-# their schedule on the CPU): a width below a tile and its halo, an odd
-# width, H < 2k, one pole only, and the coupled model's size
+# their schedule on the CPU): the golden size, a width below a tile and its
+# halo, an odd width, H < 2k, one pole only, and the coupled model's size
 JACOBI_GRIDS = {
     "global": (256, 128, GLOBAL),
     "regional": (256, 128, REGIONAL),
+    "128x64": (128, 64, GLOBAL),
     "96x48": (96, 48, GLOBAL),
     "255x128": (255, 128, GLOBAL),
     "64x12": (64, 12, GLOBAL),
