@@ -81,9 +81,10 @@ constexpr int kThreads = kThreadsX * kThreadsY;
 
 template <int NF, bool HAS_B, int TH, int TW>
 constexpr size_t tile_smem() {
-  // b and two buffers a field; the coefficients live in registers
-  return sizeof(float) * ((HAS_B ? 1 : 0) + 2 * NF) * (TH + 2 * kSweeps) *
-         (TW + 2 * kSweeps);
+  // b and two buffers a field, each with a spare float before and after
+  // it; the coefficients live in registers
+  return sizeof(float) * ((HAS_B ? 1 : 0) + 2 * NF) *
+         ((TH + 2 * kSweeps) * (TW + 2 * kSweeps) + 2);
 }
 
 __device__ __forceinline__ int floordiv(int a, int b) {
@@ -115,15 +116,16 @@ __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
                        int pole_shift, float pole_sign, int sweeps) {
   constexpr int K = kSweeps;
   constexpr int EH = TH + 2 * K, EW = TW + 2 * K, EN = EH * EW;
+  constexpr int EP = EN + 2;    // a buffer and its two spare floats
   // thread (tx, ty) owns the extended cells (ty + kThreadsY j, tx +
   // kThreadsX i) for the whole launch and keeps their coefficients in
   // registers
   constexpr int JR = (EH + kThreadsY - 1) / kThreadsY;
   constexpr int IC = (EW + kThreadsX - 1) / kThreadsX;
   extern __shared__ float smem[];
-  float* const tB = smem;                         // HAS_B only
-  float* const fbuf = tB + (HAS_B ? EN : 0);      // field f, buffer q:
-                                                  // fbuf + (2 f + q) EN
+  float* const tB = smem + 1;                     // HAS_B only
+  float* const fbuf = tB + (HAS_B ? EP : 0);      // field f, buffer q:
+                                                  // fbuf + (2 f + q) EP
   __shared__ long s_base[EH];   // grid row * W
   __shared__ int s_off[EH];     // column offset
   __shared__ float s_sgn[EH];   // pole_sign^n
@@ -183,7 +185,7 @@ __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
       const int idx = ly * EW + lx;
       if constexpr (HAS_B) copy_async(tB + idx, b + gi);
       copy_async(fbuf + idx, in0 + gi);
-      if constexpr (NF == 2) copy_async(fbuf + 2 * EN + idx, in1 + gi);
+      if constexpr (NF == 2) copy_async(fbuf + 2 * EP + idx, in1 + gi);
       kN[j][i] = __ldg((sw ? cS : cN) + gi);
       kS[j][i] = __ldg((sw ? cN : cS) + gi);
       kE[j][i] = __ldg(cE + gi);
@@ -204,39 +206,53 @@ __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
         if constexpr (HAS_B) tB[idx] = __fmul_rn(sg, tB[idx]);
         fbuf[idx] = __fmul_rn(sg, fbuf[idx]);
         if constexpr (NF == 2)
-          fbuf[2 * EN + idx] = __fmul_rn(sg, fbuf[2 * EN + idx]);
+          fbuf[2 * EP + idx] = __fmul_rn(sg, fbuf[2 * EP + idx]);
       }
     }
     __syncthreads();
   }
 
-  // the sweeps, between buffers 0 and 1 of each field
+  // the sweeps, between buffers 0 and 1 of each field.  Sweep t computes
+  // every column of the rows still right (inset by k - s + t): the row
+  // test is uniform across a warp, and the columns past the region are
+  // computed and never read, so a thread's cells of a row form one
+  // straight run of independent sums.  The edge columns' steps stay within
+  // the spare floats.
+  int ns[JR], ss[JR], es[IC], ws[IC];
+#pragma unroll
+  for (int j = 0; j < JR; ++j) {
+    const int ly = threadIdx.y + kThreadsY * j;
+    ns[j] = ly < EH ? s_nstep[ly] : 0;
+    ss[j] = ly < EH ? s_sstep[ly] : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < IC; ++i) {
+    const int x = c0 - K + threadIdx.x + kThreadsX * i;
+    es[i] = (wrap_x || x < W - 1) ? 1 : 0;
+    ws[i] = (wrap_x || x > 0) ? -1 : 0;
+  }
   for (int t = 1; t <= sweeps; ++t) {
     const int lo = K - sweeps + t;
-    const int from = ((t - 1) & 1) * EN, to = (t & 1) * EN;
+    const int from = ((t - 1) & 1) * EP, to = (t & 1) * EP;
 #pragma unroll
     for (int j = 0; j < JR; ++j) {
       const int ly = threadIdx.y + kThreadsY * j;
       if (ly < lo || ly >= EH - lo) continue;
-      const int ns = s_nstep[ly], ss = s_sstep[ly];
 #pragma unroll
       for (int i = 0; i < IC; ++i) {
         const int lx = threadIdx.x + kThreadsX * i;
-        if (lx < lo || lx >= EW - lo) continue;
-        const int x = c0 - K + lx;
-        const int es = (wrap_x || x < W - 1) ? 1 : 0;
-        const int ws = (wrap_x || x > 0) ? -1 : 0;
+        if (IC * kThreadsX > EW && lx >= EW) continue;
         const int c = ly * EW + lx;
 #pragma unroll
         for (int f = 0; f < NF; ++f) {
-          const float* a = fbuf + 2 * f * EN + from;
-          float acc = __fadd_rn(__fmul_rn(kN[j][i], a[c + ns]),
-                                __fmul_rn(kS[j][i], a[c + ss]));
-          acc = __fadd_rn(acc, __fmul_rn(kE[j][i], a[c + es]));
-          acc = __fadd_rn(acc, __fmul_rn(kW[j][i], a[c + ws]));
+          const float* a = fbuf + 2 * f * EP + from;
+          float acc = __fadd_rn(__fmul_rn(kN[j][i], a[c + ns[j]]),
+                                __fmul_rn(kS[j][i], a[c + ss[j]]));
+          acc = __fadd_rn(acc, __fmul_rn(kE[j][i], a[c + es[i]]));
+          acc = __fadd_rn(acc, __fmul_rn(kW[j][i], a[c + ws[i]]));
           acc = __fadd_rn(acc, __fmul_rn(kC[j][i], a[c]));
           if constexpr (HAS_B) acc = __fadd_rn(acc, tB[c]);
-          fbuf[2 * f * EN + to + c] = acc;
+          fbuf[2 * f * EP + to + c] = acc;
         }
       }
     }
@@ -244,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
   }
 
   // write back the tile's own cells
-  const int res = (sweeps & 1) * EN;
+  const int res = (sweeps & 1) * EP;
   for (int idx = tid; idx < TH * TW; idx += kThreads) {
     const int ry = idx / TW, rx = idx - ry * TW;
     const int r = r0 + ry, c = c0 + rx;
@@ -252,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
     const int i = (ry + K) * EW + rx + K;
     const long o = (long)r * W + c;
     out0[o] = fbuf[res + i];
-    if constexpr (NF == 2) out1[o] = fbuf[2 * EN + res + i];
+    if constexpr (NF == 2) out1[o] = fbuf[2 * EP + res + i];
   }
 }
 

@@ -7,8 +7,11 @@ argument in csrc/jacobi.cu.  A launch runs ``s <= k`` sweeps (k =
 ``SWEEPS_PER_LAUNCH``; the last launch of a solve runs the remainder) on
 every tile: a tile of TH x TW output cells loads an extended region of
 (TH + 2k) x (TW + 2k) cells, the field(s) and every coefficient plane, and
-sweeps it s times between two buffers, sweep t computing the region inset
-by k - s + t (one cell less each sweep); it writes back its TH x TW cells.
+sweeps it s times between two buffers, sweep t computing every column of
+the rows inset by k - s + t (one row less each sweep; cells that are no
+longer right are computed and never read); it writes back its TH x TW
+cells.  Each buffer has one spare float before and after it, which the
+edge columns' wrapped and pole steps may read.
 
 Inside the extended region a row stands for a row of the grid read in an
 unfolded frame: rows past a pole are the rows on the far side of it (row
@@ -18,8 +21,9 @@ extended cell's neighbour is the cell beside it, except across a clamped
 edge (it is the cell itself) and on the way back across a pole, where odd
 W puts it one column over (2 * pole_shift = W +- 1).  Rows and columns
 past a clamped edge, which the kernel fills with arbitrary cells of the
-grid, are NaN here, and so is the second buffer before its first sweep:
-a valid cell that read either would poison the result.  The wrong rules
+grid, are NaN here, and so are the spare floats and the second buffer
+before its first sweep: a valid cell that read any would poison the
+result.  The wrong rules
 (no column fix at odd W, no cN/cS swap) must disagree with the twins.
 """
 
@@ -148,34 +152,38 @@ def _visit(cN, cS, cE, cW, cC, bb, src, dst, H, W, wrap_x, wrap_s, wrap_n, s,
     tS = np.where(sw, load(cN), load(cS))
     tE, tW, tC = load(cE), load(cW), load(cC)
     tB = None if bb is None else load(bb, sgn)
-    buf = [[load(f, sgn), np.full(EH * EW, np.nan, f32)] for f in src]
+    # a buffer: one spare float, EH x EW cells, one spare float
+    spare = np.full(1, np.nan, f32)
+    buf = [[np.concatenate([spare, load(f, sgn), spare]),
+            np.full(EH * EW + 2, np.nan, f32)] for f in src]
     estep = np.where(wrap_x | (x < W - 1), 1, 0)
     wstep = np.where(wrap_x | (x > 0), -1, 0)
     for t in range(1, sweeps + 1):
         lo = k - sweeps + t
         ly = np.arange(lo, EH - lo)[:, None]
-        lx = np.arange(lo, EW - lo)[None, :]
+        lx = np.arange(EW)[None, :]
         i = (ly * EW + lx).reshape(-1)
         iN = (ly * EW + lx + nstep[ly]).reshape(-1)
         iS = (ly * EW + lx + sstep[ly]).reshape(-1)
         iE = (ly * EW + lx + estep[lx]).reshape(-1)
         iW = (ly * EW + lx + wstep[lx]).reshape(-1)
+        assert iN.max() <= EH * EW and iS.min() >= -1
         for fb in buf:
             a, z = fb[(t - 1) % 2], fb[t % 2]
-            acc = tN[i] * a[iN] + tS[i] * a[iS]
-            acc = acc + tE[i] * a[iE]
-            acc = acc + tW[i] * a[iW]
-            acc = acc + tC[i] * a[i]
+            acc = tN[i] * a[iN + 1] + tS[i] * a[iS + 1]
+            acc = acc + tE[i] * a[iE + 1]
+            acc = acc + tW[i] * a[iW + 1]
+            acc = acc + tC[i] * a[i + 1]
             if tB is not None:
                 acc = acc + tB[i]
-            z[i] = acc.astype(f32)
+            z[i + 1] = acc.astype(f32)
     ry = np.arange(TH)[:, None]
     rx = np.arange(TW)[None, :]
     keep = ((r0 + ry < H) & (c0 + rx < W))
     out = ((r0 + ry) * W + c0 + rx)[keep]
     loc = ((ry + k) * EW + rx + k)[keep]
     for fb, d in zip(buf, dst):
-        d[out] = fb[sweeps % 2][loc]
+        d[out] = fb[sweeps % 2][loc + 1]
 
 
 def _case(W, H, coords, seed=0):
