@@ -74,10 +74,12 @@ namespace {
 // shapes raced
 constexpr int kSweeps = 8;
 constexpr int kPressureRows = 32, kPressureCols = 128;
-constexpr int kDiffusionRows = 16, kDiffusionCols = 128;
+constexpr int kDiffusionRows = 32, kDiffusionCols = 64;
 
+// a block's threads, and the blocks an SM its registers are budgeted for
 constexpr int kThreadsX = 32, kThreadsY = 16;
 constexpr int kThreads = kThreadsX * kThreadsY;
+constexpr int kBlocksPerSM = 1;
 
 template <int NF, bool HAS_B, int TH, int TW>
 constexpr size_t tile_smem() {
@@ -99,10 +101,8 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                "l"(src));
 }
 
-// blocks of 256 threads or fewer are held to registers for two an SM, so
-// one block's loads overlap the other's sweeps
 template <int NF, bool HAS_B, int TH, int TW>
-__global__ void __launch_bounds__(kThreads, kThreads <= 256 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     jacobi_tile_kernel(const float* __restrict__ cN,
                        const float* __restrict__ cS,
                        const float* __restrict__ cE,

@@ -35,7 +35,7 @@ DIFFUSION_LAUNCHES = 0
 # refuse any other
 SWEEPS_PER_LAUNCH = 8       # k: sweeps a launch, the halo's depth
 PRESSURE_TILE = (32, 128)   # output cells of a block, rows x columns
-DIFFUSION_TILE = (16, 128)
+DIFFUSION_TILE = (32, 64)
 
 
 def launches(iters: int) -> int:

@@ -3,9 +3,9 @@
     python -m demiurge_tpu_torch.tools.jacobi_race [W H] [--variants V,...]
         [--source FILE] [--reps 10] [--rounds 2]
 
-A variant is ``PTHxPTW/DTHxDTW/k[/ty]``: the pressure tile, the viscosity
-tile, the sweeps a launch and, optionally, the warps a block (default:
-the source's).  For each, the source (default: this checkout's
+A variant is ``PTHxPTW/DTHxDTW/k[/warps[/blocks]]``: the pressure tile, the
+viscosity tile, the sweeps a launch and, optionally, the warps a block and
+the blocks an SM the registers are budgeted for (default: the source's).  For each, the source (default: this checkout's
 ``csrc/jacobi.cu``; ``--source`` takes another tree's, e.g. from ``git
 archive``, with the same entry points) is copied with those constants
 rewritten and built (one ``nvcc`` per variant, all started together) into
@@ -45,13 +45,14 @@ DEFAULT = ("32x128/16x128/8,16x128/8x128/8,64x64/32x64/8,32x64/16x64/8,"
 
 
 def _parse(variant: str):
-    p, d, k, *ty = variant.split("/")
+    p, d, k, *rest = variant.split("/")
     pt = tuple(int(n) for n in p.split("x"))
     dt = tuple(int(n) for n in d.split("x"))
-    return pt, dt, int(k), (int(ty[0]) if ty else None)
+    ty, nb = (list(map(int, rest)) + [None, None])[:2]
+    return pt, dt, int(k), ty, nb
 
 
-def _source(path, pt, dt, k, ty) -> str:
+def _source(path, pt, dt, k, ty, nb) -> str:
     src = pathlib.Path(path).read_text()
     subs = [(r"constexpr int kSweeps = \d+;", f"constexpr int kSweeps = {k};"),
             (r"constexpr int kPressureRows = \d+, kPressureCols = \d+;",
@@ -63,6 +64,9 @@ def _source(path, pt, dt, k, ty) -> str:
     if ty is not None:
         subs.append((r"constexpr int kThreadsX = 32, kThreadsY = \d+;",
                      f"constexpr int kThreadsX = 32, kThreadsY = {ty};"))
+    if nb is not None:
+        subs.append((r"constexpr int kBlocksPerSM = \d+;",
+                     f"constexpr int kBlocksPerSM = {nb};"))
     for pattern, repl in subs:
         src, n = re.subn(pattern, repl, src)
         if n != 1:
@@ -152,7 +156,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(args.source, variants, pathlib.Path(tmp))
         for rnd in range(args.rounds):
-            for (pt, dt, k, ty), lib in zip(variants, libs):
+            for (pt, dt, k, ty, nb), lib in zip(variants, libs):
                 with mock.patch.object(build, "library", lambda: lib), \
                         mock.patch.multiple(kj, PRESSURE_TILE=pt,
                                             DIFFUSION_TILE=dt,
@@ -171,7 +175,8 @@ def main(argv=None) -> int:
                 print(json.dumps({
                     "source": args.source, "round": rnd,
                     "pressure_tile": pt, "diffusion_tile": dt, "k": k,
-                    "warps": ty, "grid": f"{W}x{H}", "equal_to_twins": equal,
+                    "warps": ty, "blocks_per_sm": nb, "grid": f"{W}x{H}",
+                    "equal_to_twins": equal,
                     "pressure_200_ms": ms_p, "viscosity_50_ms": ms_d,
                     "card": card}), flush=True)
                 if not equal:
