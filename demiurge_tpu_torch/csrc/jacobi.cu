@@ -28,18 +28,24 @@
 // sweeps bound it by operations (0.056 and 0.028 ms at 67 TFLOP/s).  One
 // launch a sweep streamed every plane from device memory each sweep (64
 // MB a pressure sweep, 72 MB a viscosity sweep, more than the 50 MB L2):
-// 25.1 us a sweep, at the per-sweep memory floor.
+// 25.1 us a sweep, at the per-sweep memory floor, 5.1 ms for 200.
 //
-// Design: temporal blocking in shared memory.  One launch runs k =
-// kSweeps sweeps.  A block owns an output tile of TH x TW cells and loads
-// the tile plus a halo of k cells on every side — the field(s) and every
-// coefficient plane of that extended region — into shared memory once; it
-// then sweeps the region k times between two shared buffers, sweep t
-// computing the region inset by t (the cells whose neighbours are still
-// right), and writes back its TH x TW cells.  So a solve reads each plane
-// ceil(iters / k) times, times the halo's overlap, instead of iters times.
-// The last launch of a solve runs the remainder s < k, computing the
-// region inset by k - s + t.
+// Design: temporal blocking.  One launch runs k = kSweeps sweeps.  A block
+// owns an output tile of TH x TW cells and loads the tile plus a halo of k
+// cells on every side once: the field(s) and b into shared memory by
+// cp.async, the five coefficients into registers, each thread keeping
+// those of the extended cells it owns for the whole launch.  It then
+// sweeps the region k times between two shared buffers and writes back
+// its TH x TW cells, so a solve reads each plane ceil(iters / k) times,
+// times the halo's overlap (1.69 for a 32 x 128 tile at k = 8), instead
+// of iters times.  Sweep t computes every column of the rows still right,
+// those inset by t (k - s + t in the last launch of a solve, which runs
+// the remainder s < k): a row test is uniform across a warp, and the
+// columns past the region are computed and never read, so a thread's
+// cells of a row are one run of independent sums.  What is left: the
+// loads (99 MB a pressure launch, near the memory rate) and the sweeps
+// (latency-bound at 16 warps an SM) take turns on each SM, one block an
+// SM; PERF.md has the shapes, warps and k raced.
 //
 // The topology inside the extended region.  Row ly of a tile whose first
 // row is r0 stands for the unfolded grid row e = r0 - k + ly: rows past a
@@ -58,11 +64,12 @@
 // arbitrary cells no valid cell reads; and on the way back across a pole
 // (toward the grid) the step lands delta = 2 * pole_shift - W columns over,
 // since two crossings move the column by 2 * pole_shift, which is W + 1 or
-// W - 1 for odd W.  A step moves at most one row and one column, and the
-// region a tile computes after t sweeps stays t cells inside the extended
-// rectangle, so the output tile is right after k sweeps whatever the
-// grid's size: the dateline wraps the halo onto the tile's own columns
-// when W < TW + 2k, and the rows reach across both poles when H < 2k.
+// W - 1 for odd W.  A step moves at most one row and one column, so after
+// t sweeps every cell t cells inside the extended rectangle is right,
+// whatever the cells nearer its edge hold, and the output tile is right
+// after k sweeps whatever the grid's size: the dateline wraps the halo
+// onto the tile's own columns when W < TW + 2k, and the rows reach across
+// both poles when H < 2k.
 // tests/test_torch_jacobi_tiles.py runs this schedule in numpy against the
 // twins.
 
