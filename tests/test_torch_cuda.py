@@ -256,18 +256,22 @@ def test_directions_kernel_against_plain_twin(dev):
     assert int((got != want).sum()) <= hb.numel() // 10000
 
 
-@pytest.mark.parametrize("case", ["cold", "warm", "serpentine", "ragged"])
+@pytest.mark.parametrize("case", ["cold", "warm", "serpentine", "ragged",
+                                  "128x64", "96x48", "64x12"])
 def test_flow_kernels_equal_plain_twins(dev, case):
     """K7's A bit for bit and K8's vis exactly against the plain twins:
     cold and from a warm start (the fixpoint of a slightly different
     terrain) at 256x128; the serpentine (one river of 24 columns x 150
     rows over the dateline of a 1000x200 grid, which the tiles do not
-    divide); a 2000x1000 terrain, warm."""
+    divide); a 2000x1000 terrain, warm; and, warm, grids of one tile
+    column (the golden 128x64, and 96x48 below a tile's width), where a
+    tile's halo holds its own cells, and of one tile (64x12)."""
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.ops import flow
     from demiurge_tpu_torch.tools import serpentine
 
-    W, H = {"ragged": (2000, 1000), "serpentine": (1000, 200)}.get(
+    W, H = {"ragged": (2000, 1000), "serpentine": (1000, 200),
+            "128x64": (128, 64), "96x48": (96, 48), "64x12": (64, 12)}.get(
         case, (256, 128))
     if case == "serpentine":
         grid = Grid(W, H)

@@ -264,6 +264,14 @@ def _case(name):
         grid = Grid(60, 22)
         packed, area = serpentine(grid, "cpu", 55, 10, 18)
         return grid, packed, area, area, (4, 8, 4)
+    if name == "one-column":
+        # W below a tile: the tile's halo columns are its own cells, and
+        # it wakes itself through its own edge bits
+        grid, packed, area = _port_case(12, 44)
+        return grid, packed, area, area, (8, 16, 4)
+    if name == "one-row":
+        grid, packed, area = _port_case(100, 6)
+        return grid, packed, area, area, (8, 16, 4)
     grid, packed, area = _port_case(100, 44)
     if name == "port":
         return grid, packed, area, area, (8, 16, 4)
@@ -275,7 +283,8 @@ def _case(name):
 
 @pytest.mark.parametrize("variant", ["concurrent", "in place"])
 @pytest.mark.parametrize("name", ["port", "serpentine", "warm",
-                                  "diagonal", "rows"])
+                                  "diagonal", "rows", "one-column",
+                                  "one-row"])
 def test_tile_schedule_reaches_the_plain_fixpoint(name, variant):
     """A bit for bit and vis exactly, in both variants and two visit
     orders; vis starts at the mouths in every case."""
