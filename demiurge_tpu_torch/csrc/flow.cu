@@ -1,6 +1,7 @@
 // The flow fixpoint — upstream area accumulation (K7) and mouth
-// reachability (K8) — for Hopper (sm_90a); the band-local fixpoints of the
-// two-level solve (K10) are at the end of the file.
+// reachability (K8) — and the band-local fixpoints of the two-level solve
+// (K10a, K10b), for Hopper (sm_90a), on one design: shared-memory tiles
+// solved to a local fixpoint, in rounds that skip quiet tiles.
 //
 // K7 and K8 replace:
 //   - demiurge_tpu/pallas_kernels/flow.py flow_solve_pallas (:294, _kernel
@@ -73,15 +74,19 @@
 // for whole tiles and halo cells).  A tile's cells are written by that
 // tile's block only.  Claim: at the end of round t, every tile not woken
 // for round t+1 (no cell of its halo was written in round t) satisfies its
-// equations.  If it ran in round t, it relaxed against a halo that held to
+// equations.  If it ran in round t, it solved against a halo that held to
 // the end of the round, and its cells are its local fixpoint against it.
 // If it did not run, it was not woken for round t, so it satisfied its
 // equations at the end of round t-1 (induction; round 0 runs every tile),
 // and neither its cells nor its halo changed since.  So a round in which no
 // tile wrote leaves every cell satisfied: the global fixpoint.  A tile
-// whose halo was written is woken by that write and relaxes again against
+// whose halo was written is woken by that write and solves again against
 // the new halo.  Reads of other tiles' cells go through L2 (__ldcg), and
-// 4-byte stores do not tear.
+// 4-byte stores do not tear.  The argument asks nothing of the field but
+// that a visit leave the tile's cells a function of its halo that
+// satisfies the equations, so it holds for K10a's exit ids too, which are
+// not monotone as vis is: a visit recomputes every cell of the tile from
+// the halo as loaded and writes back the cells that differ.
 //
 // Bound on this card: device-memory bytes: read the masks, the area and
 // the start and write A once (16 bytes a pixel, 0.0100 ms at 2048x1024),
@@ -90,26 +95,41 @@
 // touched every pixel in L2 on every sweep (~20 us each, 504 a solve); the
 // tiles keep the sweeps in shared memory, skip clean rows and quiet tiles,
 // and need about as many rounds as the longest path crosses tile edges.
+//
+// K10a and K10b, the band-local fixpoints of the two-level solve, replace
+// demiurge_tpu/pallas_kernels/flow2.py flow_local_solve (:150,
+// _local_kernel :78) and flow_local_vis (:331, _local_vis_kernel :291).
+// Rows come in bands of `band`; kernels/flow2.py mask_local has already
+// cleared the incoming bits that reach across a band edge.  A cell of a
+// band's first row whose out bit points to the row before (dy = -1), or of
+// its last row pointing to the row after (dy = +1), is a crossing cell:
+//     A[p]   = area[p] + sum_{i in scan order, inc_i} A[neighbour_i]
+//     E[p]   = own id (col on the band's first row, W + col on its last)
+//              on a crossing cell; -1 where p has no out bit; else
+//              E[target]
+//     vis[p] = seed[p] on a crossing cell or without an out bit, else
+//              seed[p] | vis[target]  (seed: max(mouth, seed), where vis
+//              starts)
+// The TPU kernel runs one band per grid step, rolling whole (band, W) slabs
+// in VMEM.  Here bands need no block structure: a non-crossing cell's
+// target lies in its own band, and the masked masks read nothing across a
+// band edge, so a tile may hold several bands or parts of them.  A on the
+// masked masks is K7's equation as it stands (K7 reads the incoming bits,
+// and the dy = 0 out bits only as a hint), so K10a's A is K7's kernel from
+// the start a0.  K10a's exit ids are exit_tile_kernel, K8's pointer jumping
+// over int32 with crossing cells and cells without an out bit as ends, and
+// K10b is K8's kernel with crossing cells as ends (band > 0).  The host
+// runs A's and E's rounds side by side, one read for both a batch.
+// Bound: as K7 and K8, plus the exit ids written once (4 bytes a pixel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockX = 128;  // K10's block
-
-__constant__ int kDx[8] = {1, 0, -1, 1, -1, 1, 0, -1};
-__constant__ int kDy[8] = {1, 1, 1, 0, 0, -1, -1, -1};
-
-__device__ __forceinline__ long neighbour(int r, int c, int k, int W) {
-  int cc = c + kDx[k];
-  cc = cc < 0 ? cc + W : (cc >= W ? cc - W : cc);
-  return (long)(r + kDy[k]) * W + cc;
-}
-
 // ---------------------------------------------------------------------------
-// K7 / K8: shared-memory tiles relaxed to a local fixpoint, quiet tiles
-// skipped.
+// K7, K8 and K10: shared-memory tiles solved to a local fixpoint, quiet
+// tiles skipped.
 // ---------------------------------------------------------------------------
 
 // NEIGHBORS_FLOW_ORDER as compile-time offsets
@@ -123,6 +143,13 @@ __host__ __device__ constexpr int dyk(int k) {
 constexpr int kFeed = 1 << 8;  // a change of this cell feeds its own row
 constexpr int kReal = 1 << 9;  // a cell of the grid (edge tiles are ragged)
 constexpr int kRowOut = (1 << 3) | (1 << 4);  // the dy = 0 neighbours
+constexpr int kNegOut = (1 << 5) | (1 << 6) | (1 << 7);  // out bits, dy = -1
+constexpr int kPosOut = (1 << 0) | (1 << 1) | (1 << 2);  // out bits, dy = +1
+
+// K10: whether a cell of band row rl with out bits `out` leaves its band
+__device__ __forceinline__ bool crossing(int out, int rl, int band) {
+  return (rl == 0 && (out & kNegOut)) || (rl == band - 1 && (out & kPosOut));
+}
 
 // a tile's edge bits: what it wrote of its border
 constexpr int kTop = 1, kBottom = 2, kLeft = 4, kRight = 8;
@@ -137,6 +164,7 @@ __device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ uint8_t ld_cg(const uint8_t* p) {
   return __ldcg(p);
 }
+__device__ __forceinline__ int ld_cg(const int* p) { return __ldcg(p); }
 
 // Step 1: whether a neighbour tile wrote a cell of this tile's halo last
 // round; a quiet block clears its own bits for this round.  Also zeroes
@@ -273,6 +301,11 @@ constexpr size_t vis_smem() {
 }
 
 template <int TY, int TX>
+constexpr size_t exit_smem() {
+  return (sizeof(int) + sizeof(int16_t)) * (TY + 2) * (TX + 2);
+}
+
+template <int TY, int TX>
 __global__ void __launch_bounds__(TX)
     area_tile_kernel(const int* __restrict__ packed,
                      const float* __restrict__ area, float* A,
@@ -334,17 +367,42 @@ __global__ void __launch_bounds__(TX)
   finish<TY, TX>(wrote, c, r0, c0, H, W, &out, cur, stats, slot, passes);
 }
 
+// The pointers of a halo'd tile (sNext: cell -> a cell further down its
+// path): every cell at itself, then each cell of the grid at its target
+// unless is_end(out bits, row, tile row).  is_end sees every cell of the
+// grid and may set its value; a cell without an out bit is an end
+// whatever it returns, and so are the halo cells and the tile's cells
+// beyond the grid.
+template <int TY, int TX, typename End>
+__device__ void point_down(volatile int16_t* sNext, const int* packed,
+                           int r0, int c, int H, int W, End is_end) {
+  constexpr int SW = TX + 2, SN = (TY + 2) * SW;
+  const int t = threadIdx.x;
+  for (int k = t; k < SN; k += TX) sNext[k] = (int16_t)k;
+  __syncthreads();
+  for (int li = 0; li < TY; ++li) {
+    if (c >= W || r0 + li >= H) continue;
+    const int o = (__ldg(packed + (long)(r0 + li) * W + c) >> 8) & 0xff;
+    if (is_end(o, r0 + li, li) || !o) continue;
+    const int k = __ffs(o) - 1, q = (li + 1) * SW + t + 1;
+    sNext[q] = (int16_t)(q + dyk(k) * SW + dxk(k));
+  }
+  __syncthreads();
+}
+
 // K8's step 3: each cell of the halo'd tile points at a cell further down
 // its path (at first its target; a sink, a halo cell or a cell beyond the
-// grid at itself), and the pointers jump (next = next of next) until a
-// cell reaches a 1 or points at an end.  In place: a pointer read at any
-// time points further down the same path, and a cell only turns to 1 from
-// a 1 on its path.  A pass that changes nothing leaves every cell either
-// 1 or pointing at an end that holds 0: the tile's local fixpoint, in
-// about log2 of its longest path passes.
+// grid at itself, and for K10b a crossing cell), and the pointers jump
+// (next = next of next) until a cell reaches a 1 or points at an end.  In
+// place: a pointer read at any time points further down the same path, and
+// a cell only turns to 1 from a 1 on its path.  A pass that changes
+// nothing leaves every cell either 1 or pointing at an end that holds 0:
+// the tile's local fixpoint, in about log2 of its longest path passes.
+// band == 0 is K8 (no crossing cells); band > 0 is K10b, whose crossing
+// cells are ends and keep the seed they start from.
 template <int TY, int TX>
 __global__ void __launch_bounds__(TX)
-    vis_tile_kernel(const int* __restrict__ packed, uint8_t* vis,
+    vis_tile_kernel(const int* __restrict__ packed, uint8_t* vis, int band,
                     const int* __restrict__ prev, int* cur, int* stats,
                     int slot, int H, int W, int nby, int nbx) {
   constexpr int SW = TX + 2, SN = (TY + 2) * SW;
@@ -361,16 +419,9 @@ __global__ void __launch_bounds__(TX)
   const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
   const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
   load_halo<TY, TX>(sV, vis, r0, c0, H, W);
-  for (int k = t; k < SN; k += TX) sNext[k] = (int16_t)k;
-  __syncthreads();
-  for (int li = 0; li < TY; ++li) {
-    if (c >= W || r0 + li >= H) continue;
-    const int o = (__ldg(packed + (long)(r0 + li) * W + c) >> 8) & 0xff;
-    if (!o) continue;
-    const int k = __ffs(o) - 1, q = (li + 1) * SW + t + 1;
-    sNext[q] = (int16_t)(q + dyk(k) * SW + dxk(k));
-  }
-  __syncthreads();
+  point_down<TY, TX>(sNext, packed, r0, c, H, W, [&](int o, int r, int) {
+    return band > 0 && crossing(o, r % band, band);
+  });
 
   uint64_t touched = 0;
   int passes = 0;
@@ -396,6 +447,69 @@ __global__ void __launch_bounds__(TX)
   for (int li = 0; li < TY; ++li)
     if ((touched >> li) & 1) vis[(long)(r0 + li) * W + c] = 1;
   finish<TY, TX>(touched, c, r0, c0, H, W, &out, cur, stats, slot, passes);
+}
+
+// K10a's exit ids: the ends are the crossing cells, pinned to their own
+// id, the cells without an out bit, at -1, and the halo cells (and cells
+// beyond the grid), at E as loaded.  The pointers jump until each points
+// at an end (about log2 of the tile's longest path passes; in place, as
+// K8's), then every cell of the grid takes its end's id.  E is not
+// monotone, so the visit recomputes every cell against the halo it loaded
+// and writes back the cells that differ from device memory.
+template <int TY, int TX>
+__global__ void __launch_bounds__(TX)
+    exit_tile_kernel(const int* __restrict__ packed, int* E, int band,
+                     const int* __restrict__ prev, int* cur, int* stats,
+                     int slot, int H, int W, int nby, int nbx) {
+  constexpr int SW = TX + 2, SN = (TY + 2) * SW;
+  static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
+  static_assert(SN <= 32767, "a halo'd tile's cells are int16 indices");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int out;
+  volatile int* sE = reinterpret_cast<int*>(smem);
+  volatile int16_t* sNext =
+      reinterpret_cast<int16_t*>(smem + sizeof(int) * SN);
+  if (!tile_awake(prev, cur, nby, nbx, &out)) return;
+
+  const int t = threadIdx.x;
+  const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
+  const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
+  load_halo<TY, TX>(sE, E, r0, c0, H, W);
+  // (point_down's barriers order the ends' ids before the first pass)
+  point_down<TY, TX>(sNext, packed, r0, c, H, W, [&](int o, int r, int li) {
+    const int rl = r % band;
+    const bool cross = crossing(o, rl, band);
+    if (cross || !o)
+      sE[(li + 1) * SW + t + 1] = !o ? -1 : (rl == 0 ? c : W + c);
+    return cross;
+  });
+
+  int passes = 0;
+  for (bool changed = true; changed && passes <= SN; ++passes) {
+    changed = false;
+    for (int li = 0; li < TY; ++li) {
+      const int q = (li + 1) * SW + t + 1;
+      const int n = sNext[q], m = sNext[n];
+      if (m != n) {
+        sNext[q] = (int16_t)m;
+        changed = true;
+      }
+    }
+    changed = __syncthreads_or(changed);
+  }
+
+  // every pointer is at an end, and no end is written here
+  uint64_t wrote = 0;
+  for (int li = 0; li < TY; ++li) {
+    if (c >= W || r0 + li >= H) continue;
+    const long i = (long)(r0 + li) * W + c;
+    const int e = sE[sNext[(li + 1) * SW + t + 1]];
+    if (e != __ldcg(E + i)) {
+      __stcg(E + i, e);
+      wrote |= 1ull << li;
+    }
+  }
+  finish<TY, TX>(wrote, c, r0, c0, H, W, &out, cur, stats, slot, passes);
 }
 
 // n rounds, the first of them the solve's round `first`: round t reads the
@@ -425,109 +539,9 @@ int tile_rounds(Kernel kernel, size_t smem, int ty, int tx, int* flags,
   return (int)cudaGetLastError();
 }
 
-// K7's and K8's tile: rows, columns = threads a block (PERF.md has the
-// shapes raced)
+// K7's, K8's and K10's tile: rows, columns = threads a block (PERF.md has
+// the shapes raced)
 constexpr int kTileRows = 16, kTileCols = 128;
-
-// ---------------------------------------------------------------------------
-// K10: the band-local fixpoints of the two-level solve.
-//
-// Replaces demiurge_tpu/pallas_kernels/flow2.py flow_local_solve (:150,
-// _local_kernel :78) and flow_local_vis (:331, _local_vis_kernel :291).
-// Rows come in bands of `band`; the incoming bits that reach across a band
-// edge are already cleared (kernels/flow2.py mask_local), so a band's A
-// never reads another band.  A cell of a band's first row whose out bit
-// points one row down (dy = -1), or of its last row pointing up (dy = +1),
-// is a crossing cell: its exit id E is pinned to its own id (col on the
-// first row, W + col on the last) and its vis to the seed.  Otherwise
-//     A[p] = area[p] + sum_{i in scan order, inc_i} A[neighbour_i]
-//     E[p] = E[target]   (target = the neighbour of p's one out bit; -1
-//                         where p has no out bit)
-//     vis[p] = seed[p] | OR_i (out_i & vis[neighbour_i])
-// The TPU kernel runs one band per grid step, rolling whole (band, W)
-// slabs in VMEM until a band-local flag says done.  Here bands need no
-// block structure at all: one launch is one sweep, one thread per pixel,
-// IN PLACE, and the host launches rounds of sweeps, each with its own
-// flag, reading the flags once a round (kernels/flow.py
-// solve_rounds_cuda).  CUDA blocks run in no order, so a thread may read
-// a neighbour's value from before or after that neighbour's update in the
-// same sweep.  That is safe: every value read is one the cell held at
-// some time in the sweep (4-byte stores do not tear; loads go through L2,
-// __ldcg); a sweep writes a cell only when its bits change and raises its
-// flag when it writes, so a sweep with its flag down saw the current state
-// everywhere and certifies the fixpoint.  Each fixpoint is unique, since
-// D8 flow is acyclic both ways, so A, E and vis equal the plain twin's
-// (kernels/flow2.py) bit for bit.
-// Bound on this card: device-memory bytes, as K7 (20 bytes a pixel to
-// read and write once; the sweeps stay in L2 at 2048x1024).  K7's tiles
-// (above) are the design to carry over: later work.
-
-constexpr int kNegOut = (1 << 5) | (1 << 6) | (1 << 7);  // out bits, dy = -1
-constexpr int kPosOut = (1 << 0) | (1 << 1) | (1 << 2);  // out bits, dy = +1
-
-__device__ __forceinline__ bool crossing(int out, int rl, int band) {
-  return (rl == 0 && (out & kNegOut)) || (rl == band - 1 && (out & kPosOut));
-}
-
-__global__ void flow_local_sweep_kernel(const int* __restrict__ packed,
-                                        const float* __restrict__ area,
-                                        float* A, int* E, int* flag, int H,
-                                        int W, int band) {
-  const int c = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y;
-  bool changed = false;
-  if (c < W) {
-    const long i = (long)r * W + c;
-    const int p = __ldg(packed + i);
-    float acc = __ldg(area + i);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      if ((p >> k) & 1)
-        acc = __fadd_rn(acc, __ldcg(A + neighbour(r, c, k, W)));
-    if (__float_as_int(acc) != __float_as_int(__ldcg(A + i))) {
-      __stcg(A + i, acc);
-      changed = true;
-    }
-    if (E != nullptr) {
-      const int out = (p >> 8) & 0xff;
-      const int rl = r % band;
-      int e = -1;
-      if (crossing(out, rl, band))
-        e = rl == 0 ? c : W + c;
-      else if (out)
-        e = __ldcg(E + neighbour(r, c, __ffs(out) - 1, W));
-      if (e != __ldcg(E + i)) {
-        __stcg(E + i, e);
-        changed = true;
-      }
-    }
-  }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) *flag = 1;
-}
-
-__global__ void flow_local_vis_sweep_kernel(const int* __restrict__ packed,
-                                            uint8_t* vis, int* flag, int H,
-                                            int W, int band) {
-  const int c = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y;
-  bool changed = false;
-  if (c < W) {
-    const long i = (long)r * W + c;
-    const int p = __ldg(packed + i);
-    const int out = (p >> 8) & 0xff;
-    if (vis[i] == 0 && out && !crossing(out, r % band, band)) {
-      const volatile uint8_t* v = vis;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (((out >> k) & 1) && v[neighbour(r, c, k, W)]) {
-          vis[i] = 1;
-          changed = true;
-        }
-      }
-    }
-  }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) *flag = 1;
-}
 
 }  // namespace
 
@@ -546,47 +560,31 @@ int demiurge_flow_area_tiles(const int* packed, const float* area, float* A,
                      H, W, first, n, (cudaStream_t)stream, packed, area, A);
 }
 
-// K8: n rounds of the tiled vis relaxation (vis: one byte a pixel, from
-// the mouths); arguments as K7's.
-int demiurge_flow_vis_tiles(const int* packed, uint8_t* vis, int* flags,
-                            int* stats, int H, int W, int ty, int tx,
-                            int first, int n, void* stream) {
-  if (ty != kTileRows || tx != kTileCols) return (int)cudaErrorInvalidValue;
+// K8 (band 0) and K10b (band > 0): n rounds of the tiled vis solve (vis:
+// one byte a pixel, from the mouths, or from max(mouth, seed) for K10b);
+// other arguments as K7's.
+int demiurge_flow_vis_tiles(const int* packed, uint8_t* vis, int band,
+                            int* flags, int* stats, int H, int W, int ty,
+                            int tx, int first, int n, void* stream) {
+  if (ty != kTileRows || tx != kTileCols || band < 0)
+    return (int)cudaErrorInvalidValue;
   return tile_rounds(vis_tile_kernel<kTileRows, kTileCols>,
                      vis_smem<kTileRows, kTileCols>(), ty, tx, flags, stats,
-                     H, W, first, n, (cudaStream_t)stream, packed, vis);
+                     H, W, first, n, (cudaStream_t)stream, packed, vis,
+                     band);
 }
 
-// n in-place sweeps of the band-local A relaxation, and of the exit ids
-// when E is not null (K10a).
-int demiurge_flow_local_sweeps(const int* packed, const float* area,
-                               float* A, int* E, int* flags, int H, int W,
-                               int band, int n, void* stream) {
-  const dim3 block(kBlockX);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, H);
-  for (int j = 0; j < n; ++j) {
-    flow_local_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        packed, area, A, E, flags + j, H, W, band);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
-}
-
-// n in-place sweeps of the band-local vis relaxation (K10b); vis starts at
-// max(mouth, seed), one byte a pixel.
-int demiurge_flow_local_vis_sweeps(const int* packed, uint8_t* vis,
-                                   int* flags, int H, int W, int band, int n,
-                                   void* stream) {
-  const dim3 block(kBlockX);
-  const dim3 grid((W + kBlockX - 1) / kBlockX, H);
-  for (int j = 0; j < n; ++j) {
-    flow_local_vis_sweep_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        packed, vis, flags + j, H, W, band);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaGetLastError();
+// K10a's exit ids: n rounds of the tiled solve on bands of `band` rows (E
+// int32, any start); other arguments as K7's.  K10a's A is K7's entry
+// point on the masked masks.
+int demiurge_flow_exit_tiles(const int* packed, int* E, int band, int* flags,
+                             int* stats, int H, int W, int ty, int tx,
+                             int first, int n, void* stream) {
+  if (ty != kTileRows || tx != kTileCols || band < 1)
+    return (int)cudaErrorInvalidValue;
+  return tile_rounds(exit_tile_kernel<kTileRows, kTileCols>,
+                     exit_smem<kTileRows, kTileCols>(), ty, tx, flags, stats,
+                     H, W, first, n, (cudaStream_t)stream, packed, E, band);
 }
 
 }  // extern "C"

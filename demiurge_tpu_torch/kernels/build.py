@@ -55,12 +55,11 @@ SIGNATURES = {
     "demiurge_flow_directions": [_P] * 5 + [_I] * 2 + [_F, _P],
     # packed area A flags stats, H W ty tx first n, stream
     "demiurge_flow_area_tiles": [_P] * 5 + [_I] * 6 + [_P],
-    # packed vis flags stats, H W ty tx first n, stream
-    "demiurge_flow_vis_tiles": [_P] * 4 + [_I] * 6 + [_P],
-    # packed area A E(nullable) flags, H W band n, stream
-    "demiurge_flow_local_sweeps": [_P] * 5 + [_I] * 4 + [_P],
-    # packed vis flags, H W band n, stream
-    "demiurge_flow_local_vis_sweeps": [_P] * 3 + [_I] * 4 + [_P],
+    # packed vis, band, flags stats, H W ty tx first n, stream
+    "demiurge_flow_vis_tiles": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 6 + [_P],
+    # packed E, band, flags stats, H W ty tx first n, stream
+    "demiurge_flow_exit_tiles": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 6
+    + [_P],
     # packed area A vis flags bands(host), nact H W band k, stream
     "demiurge_flow_banded_round": [_P] * 6 + [_I] * 5 + [_P],
     # packed area A vis prev cur act, H W ty tx k, stream

@@ -145,34 +145,44 @@ def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
     raise RuntimeError(f"{entry}: no fixpoint after {sweeps} sweeps")
 
 
-def _solve_tiles_cuda(entry: str, args, device, grid: Grid,
-                      max_rounds: int) -> dict:
-    """Batches of ``BATCH`` tiled rounds until a round writes nothing,
-    through the C entry point ``entry(*args(flags, stats, ty, tx, first,
-    n))``; one host read of the batch's round flags and the visit counts
-    ends a batch.  The rounds after the certifying one find every tile
-    quiet."""
+def solve_tiles_cuda(solves, device, shape, max_rounds: int) -> list:
+    """Tiled solves side by side: batches of ``BATCH`` rounds of every
+    solve not yet certified, each ``(entry, args)`` through its C entry
+    point ``entry(*args(flags, stats, ty, tx, first, n))``, until a round
+    of it writes nothing; one host read of every solve's round flags and
+    visit counts ends a batch.  The rounds after a certifying one find
+    every tile quiet.  Returns each solve's stats."""
     from . import build
 
     ty, tx = TILE
-    H, W = grid.shape
+    H, W = shape
     nt = -(-H // ty) * -(-W // tx)
     # every edge bit set: round 0 wakes every tile
-    flags = torch.full((2 * nt,), -1, dtype=torch.int32, device=device)
-    stats = torch.zeros(2 + BATCH, dtype=torch.int32, device=device)
-    fn = getattr(build.library(), entry)
+    flags = torch.full((len(solves), 2 * nt), -1, dtype=torch.int32,
+                       device=device)
+    stats = torch.zeros((len(solves), 2 + BATCH), dtype=torch.int32,
+                        device=device)
+    lib = build.library()
+    out = [None] * len(solves)
     done, reads = 0, 0
     while done < max_rounds:
-        build.check(fn(*args(flags.data_ptr(), stats.data_ptr(), ty, tx,
-                             done, BATCH)), entry)
-        visits, passes, *wrote = stats.tolist()  # the batch's one read
+        for j, (entry, args) in enumerate(solves):
+            if out[j] is None:
+                build.check(getattr(lib, entry)(*args(
+                    flags[j].data_ptr(), stats[j].data_ptr(), ty, tx, done,
+                    BATCH)), entry)
+        rows = stats.tolist()  # the batch's one read
         reads += 1
-        if 0 in wrote:
-            return {"rounds": done + wrote.index(0) + 1,
-                    "launched": done + BATCH, "host_reads": reads,
-                    "tiles_run": visits, "max_inner_sweeps": passes}
+        for j, (visits, passes, *wrote) in enumerate(rows):
+            if out[j] is None and 0 in wrote:
+                out[j] = {"rounds": done + wrote.index(0) + 1,
+                          "launched": done + BATCH, "host_reads": reads,
+                          "tiles_run": visits, "max_inner_sweeps": passes}
+        if None not in out:
+            return out
         done += BATCH
-    raise RuntimeError(f"{entry}: no fixpoint after {done} rounds")
+    raise RuntimeError(f"{[e for e, _ in solves]}: no fixpoint after {done} "
+                       f"rounds")
 
 
 def flow_solve_area_cuda(packed, area, grid: Grid, a0=None) -> torch.Tensor:
@@ -188,11 +198,11 @@ def flow_solve_area_cuda(packed, area, grid: Grid, a0=None) -> torch.Tensor:
     A = start.clone()
     H, W = grid.shape
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    stats = _solve_tiles_cuda(
-        "demiurge_flow_area_tiles",
-        lambda *batch: (packed.data_ptr(), area.data_ptr(), A.data_ptr(),
-                        *batch[:2], H, W, *batch[2:], stream),
-        A.device, grid, _max_sweeps(grid))
+    (stats,) = solve_tiles_cuda(
+        [("demiurge_flow_area_tiles",
+          lambda *batch: (packed.data_ptr(), area.data_ptr(), A.data_ptr(),
+                          *batch[:2], H, W, *batch[2:], stream))],
+        A.device, grid.shape, _max_sweeps(grid))
     LAUNCHES_A += stats["launched"]
     LAST_SOLVE["A"] = stats
     return A
@@ -208,11 +218,11 @@ def vis_solve_cuda(packed, grid: Grid) -> torch.Tensor:
     vis = ((packed >> 16) & 1).to(torch.uint8)
     H, W = grid.shape
     stream = torch.cuda.current_stream(vis.device).cuda_stream
-    stats = _solve_tiles_cuda(
-        "demiurge_flow_vis_tiles",
-        lambda *batch: (packed.data_ptr(), vis.data_ptr(), *batch[:2], H, W,
-                        *batch[2:], stream),
-        vis.device, grid, _max_sweeps(grid))
+    (stats,) = solve_tiles_cuda(
+        [("demiurge_flow_vis_tiles",
+          lambda *batch: (packed.data_ptr(), vis.data_ptr(), 0, *batch[:2],
+                          H, W, *batch[2:], stream))],
+        vis.device, grid.shape, _max_sweeps(grid))
     LAUNCHES_VIS += stats["launched"]
     LAST_SOLVE["vis"] = stats
     return vis.bool()

@@ -26,10 +26,15 @@ K10b, and ``_or_chain_adaptive``) serves the sharded solve in
 ``flow_local_solve`` / ``flow_local_vis`` launch the CUDA kernels
 (``csrc/flow.cu``) for CUDA tensors and run the plain twins (the port of
 the reference's XLA twins: all bands sweep together on a (nbands, band, W)
-stack) for CPU tensors.  Exit ids are int32 here (float32 in the
-reference; ids < 2W are exact in both).  ``LAUNCHES_LOCAL`` /
-``LAUNCHES_LOCAL_VIS`` count kernel launches (one per sweep);
-``LAST_SOLVE`` holds the last CUDA solve's sweeps and host reads.
+stack) for CPU tensors.  On the card they are K7/K8's tiled solves
+(``kernels/flow.py``): A is K7's kernel on the masked masks, the exit ids
+a tile kernel of their own, and vis K8's kernel with the crossing cells
+pinned; a tile may span several bands.  Exit ids are int32 here (float32
+in the reference; ids < 2W are exact in both).  ``LAUNCHES_LOCAL`` /
+``LAUNCHES_LOCAL_VIS`` count kernel launches (one per round, the A and
+exit-id rounds both); ``LAST_SOLVE`` holds the last CUDA solve's tile
+stats ("A", "E" and "vis": rounds, launches, host reads, tile visits, the
+most inner passes a visit took).
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch
 from ..core.grid import Grid
 from ..core.platform import check_kernel_inputs, use_cuda_kernels
 from ..core.topology import NEIGHBORS_FLOW_ORDER, shift
-from .flow import pack_masks, solve_rounds_cuda
+from .flow import solve_tiles_cuda, pack_masks
 
 LAUNCHES_LOCAL = 0
 LAUNCHES_LOCAL_VIS = 0
@@ -152,8 +157,8 @@ def _check_band(shape, band: int) -> None:
 
 def flow_local_solve_cuda(packed_local, area2d, a0, band: int,
                           with_exit: bool = True):
-    """K10a on the card: in-place sweeps on a copy of ``a0`` (and on exit
-    ids from -1), in K7's certified rounds."""
+    """K10a on the card: K7's tiled rounds on a copy of ``a0`` and, beside
+    them, the exit-id rounds from -1, one host read for both a batch."""
     global LAUNCHES_LOCAL
     shape = tuple(packed_local.shape)
     check_kernel_inputs(("packed_local",), (packed_local,), shape=shape,
@@ -162,23 +167,29 @@ def flow_local_solve_cuda(packed_local, area2d, a0, band: int,
     _check_band(shape, band)
     H, W = shape
     A = a0.clone()
-    E = torch.full(shape, -1, dtype=torch.int32, device=A.device) \
-        if with_exit else None
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    stats = solve_rounds_cuda(
-        "demiurge_flow_local_sweeps",
-        lambda flags, n: (packed_local.data_ptr(), area2d.data_ptr(),
-                          A.data_ptr(), None if E is None else E.data_ptr(),
-                          flags, H, W, band, n, stream),
-        A.device, band * W + 1)
-    LAUNCHES_LOCAL += stats["launched"]
-    LAST_SOLVE["A"] = stats
+    solves = [("demiurge_flow_area_tiles",
+               lambda *batch: (packed_local.data_ptr(), area2d.data_ptr(),
+                               A.data_ptr(), *batch[:2], H, W, *batch[2:],
+                               stream))]
+    E = None
+    if with_exit:
+        E = torch.full(shape, -1, dtype=torch.int32, device=A.device)
+        solves.append(("demiurge_flow_exit_tiles",
+                       lambda *batch: (packed_local.data_ptr(), E.data_ptr(),
+                                       band, *batch[:2], H, W, *batch[2:],
+                                       stream)))
+    stats = solve_tiles_cuda(solves, A.device, shape, band * W + 1)
+    LAUNCHES_LOCAL += sum(st["launched"] for st in stats)
+    LAST_SOLVE["A"] = stats[0]
+    if with_exit:
+        LAST_SOLVE["E"] = stats[1]
     return A, E
 
 
 def flow_local_vis_cuda(packed_local, seed, band: int) -> torch.Tensor:
-    """K10b on the card: one byte a pixel from max(mouth, seed) (seed is
-    0/1), in K7's certified rounds.  Returns float 0/1."""
+    """K10b on the card: K8's tiled rounds, crossing cells pinned, one byte
+    a pixel from max(mouth, seed) (seed is 0/1).  Returns float 0/1."""
     global LAUNCHES_LOCAL_VIS
     shape = tuple(packed_local.shape)
     check_kernel_inputs(("packed_local",), (packed_local,), shape=shape,
@@ -189,11 +200,11 @@ def flow_local_vis_cuda(packed_local, seed, band: int) -> torch.Tensor:
     vis = (((packed_local >> 16) & 1) | (seed != 0).to(torch.int32)).to(
         torch.uint8)
     stream = torch.cuda.current_stream(vis.device).cuda_stream
-    stats = solve_rounds_cuda(
-        "demiurge_flow_local_vis_sweeps",
-        lambda flags, n: (packed_local.data_ptr(), vis.data_ptr(), flags, H,
-                          W, band, n, stream),
-        vis.device, band * W + 1)
+    (stats,) = solve_tiles_cuda(
+        [("demiurge_flow_vis_tiles",
+          lambda *batch: (packed_local.data_ptr(), vis.data_ptr(), band,
+                          *batch[:2], H, W, *batch[2:], stream))],
+        vis.device, shape, band * W + 1)
     LAUNCHES_LOCAL_VIS += stats["launched"]
     LAST_SOLVE["vis"] = stats
     return vis.to(torch.float32)

@@ -313,17 +313,26 @@ def test_flow_kernels_equal_plain_twins(dev, case):
 
 def test_flow_kernels_raise_on_a_refused_launch(dev, monkeypatch):
     """A tile that csrc/flow.cu was not built for is refused by its entry
-    points, and the wrappers raise; nothing is counted."""
+    points, and the wrappers raise (K7, K8 and K10's, which share the
+    tile); nothing is counted."""
     from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow2 as k2
 
     grid, _, _, area, packed = _flow_inputs(256, 128, dev)
-    before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS)
+    before = (kf.LAUNCHES_A, kf.LAUNCHES_VIS, k2.LAUNCHES_LOCAL,
+              k2.LAUNCHES_LOCAL_VIS)
     monkeypatch.setattr(kf, "TILE", (48, 128))
     with pytest.raises(RuntimeError, match="CUDA error"):
         kf.flow_solve_area_cuda(packed, area, grid)
     with pytest.raises(RuntimeError, match="CUDA error"):
         kf.vis_solve_cuda(packed, grid)
-    assert (kf.LAUNCHES_A, kf.LAUNCHES_VIS) == before
+    ploc = k2.mask_local(packed, 16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k2.flow_local_solve_cuda(ploc, area, area, 16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        k2.flow_local_vis_cuda(ploc, torch.zeros_like(area), 16)
+    assert (kf.LAUNCHES_A, kf.LAUNCHES_VIS, k2.LAUNCHES_LOCAL,
+            k2.LAUNCHES_LOCAL_VIS) == before
 
 
 def test_coupled_step_on_the_card_matches_the_cpu(dev):
@@ -370,32 +379,78 @@ def _flow_inputs(W, H, dev):
     return grid, code, mouth, area, kf.pack_masks(code, mouth, grid)
 
 
-@pytest.mark.parametrize("band", [16, 32])
-def test_local_flow_kernels_equal_plain_twins(dev, band):
-    """K10a's A and exit ids bit for bit, cold and from a warm start, and
-    K10b's vis exactly with an all-zero and a nonzero seed."""
+# K10's grids and bands (tests/test_torch_flow2_tiles.py runs the schedule
+# on the CPU): 16-row tiles over 8 bands of 2, 2 of 8, one of 16 and half
+# of 32; a grid the tiles do not divide; one tile column
+LOCAL_FLOW_CASES = {
+    "256x128-band2": (256, 128, 2),
+    "256x128-band8": (256, 128, 8),
+    "256x128-band16": (256, 128, 16),
+    "256x128-band32": (256, 128, 32),
+    "2000x1000-band8": (2000, 1000, 8),
+    "128x64-band8": (128, 64, 8),
+}
+
+
+@pytest.mark.parametrize("name", list(LOCAL_FLOW_CASES))
+def test_local_flow_kernels_equal_plain_twins(dev, name):
+    """K10a's A and exit ids bit for bit, cold and from a warm start
+    without exit ids, and K10b's vis exactly with an all-zero and a
+    nonzero seed; the launches counted are the tile rounds."""
     from demiurge_tpu_torch.kernels import flow2 as k2
 
-    grid, _, _, area, packed = _flow_inputs(256, 128, dev)
+    W, H, band = LOCAL_FLOW_CASES[name]
+    grid, _, _, area, packed = _flow_inputs(W, H, dev)
     ploc = k2.mask_local(packed, band)
-    before = (k2.LAUNCHES_LOCAL, k2.LAUNCHES_LOCAL_VIS)
+    before = k2.LAUNCHES_LOCAL
     A, E = k2.flow_local_solve_cuda(ploc, area, area, band)
+    sa, se = dict(k2.LAST_SOLVE["A"]), dict(k2.LAST_SOLVE["E"])
     wA, wE = k2.flow_local_solve_plain(ploc, area, area, band)
     torch.cuda.synchronize()
     assert torch.equal(A, wA) and torch.equal(E, wE)
-    assert bool((E >= 0).any()) and float(A.max()) > 10 * float(area.max())
+    assert k2.LAUNCHES_LOCAL - before == sa["launched"] + se["launched"]
+    # rivers: above 10x a cell's area at 256x128 from band 8 (21.6x), 8-9x
+    # where band 2 or the 128x64 grid cut them
+    rivers = 5 if band < 8 or W < 256 else 10
+    assert bool((E >= 0).any())
+    assert float(A.max()) > rivers * float(area.max())
     warm = torch.rand(grid.shape, device=dev) * 2 * area
     A2, E2 = k2.flow_local_solve_cuda(ploc, area, warm, band, with_exit=False)
     assert E2 is None and torch.equal(A2, wA)
     seed = torch.zeros(grid.shape, device=dev)
-    seed[band - 1, ::7] = 1.0
-    seed[band, 3::11] = 1.0
+    seed[band - 1::band, ::7] = 1.0
+    seed[band::band, 3::11] = 1.0
     for s in (torch.zeros_like(seed), seed):
+        before = k2.LAUNCHES_LOCAL_VIS
         got = k2.flow_local_vis_cuda(ploc, s, band)
+        sv = dict(k2.LAST_SOLVE["vis"])
         want = k2.flow_local_vis_plain(ploc, s, band)
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and torch.equal(got, want)
-    assert k2.LAUNCHES_LOCAL > before[0] and k2.LAUNCHES_LOCAL_VIS > before[1]
+        assert k2.LAUNCHES_LOCAL_VIS - before == sv["launched"]
+    for st in (sa, se, sv):
+        assert 1 <= st["rounds"] <= st["launched"]
+        assert 1 <= st["host_reads"] <= st["launched"]
+        assert st["tiles_run"] >= 1 and st["max_inner_sweeps"] >= 1
+
+
+def test_local_flow_kernels_at_one_band_equal_k7_and_k8(dev):
+    """One band of H rows has no crossing cell (no out bit leaves the
+    grid), so K10a's A is K7's, its exit ids all -1, and K10b's vis with a
+    zero seed is K8's (the same kernel at band 0), each equal to its
+    twin."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow2 as k2
+
+    grid, _, _, area, packed = _flow_inputs(256, 128, dev)
+    A, E = k2.flow_local_solve_cuda(packed, area, area, 128)
+    vis = k2.flow_local_vis_cuda(packed, torch.zeros_like(area), 128)
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(A, A7) and bool((E == -1).all())
+    assert torch.equal(vis8, kf.vis_solve_plain(packed, grid))
+    assert torch.equal(vis.bool(), vis8) and bool(vis8.any())
 
 
 def test_twolevel_on_the_card_matches_k7(dev):

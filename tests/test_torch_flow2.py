@@ -12,9 +12,8 @@ twins, and the Pallas kernels in interpret mode).  Tolerances, and why:
 - flow_solve_twolevel against flow_solve_stencil: rtol 1e-5, atol 1e-7,
   the reference's own bound (the chain sums reassociate f32 additions).
 
-The CUDA kernels cannot run here; a numpy transliteration of their
-schedule (in-place sweeps, rows in random orders, until a sweep writes
-nothing) is held to the twins instead.
+The CUDA kernels cannot run here; ``tests/test_torch_flow2_tiles.py``
+holds a numpy transliteration of their tiled schedule to the twins.
 """
 
 import jax.numpy as jnp
@@ -35,8 +34,6 @@ from demiurge_tpu_torch.ops import flow as tf
 torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
-SCAN = ((1, 1), (0, 1), (-1, 1), (1, 0), (-1, 0), (1, -1), (0, -1),
-        (-1, -1))
 
 
 def _height(W, H, seed):
@@ -219,67 +216,6 @@ def test_twolevel_at_256x128_matches_reference_twolevel():
                                   band=32, interpret=True)
     got = k2.flow_solve_twolevel(code, area, mouth, tg, band=32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-def _kernel_schedule(packed, area, a0, band, seedm, order_seed):
-    """The K10a and K10b kernels' schedule, transliterated: in-place
-    sweeps, each row a block, rows in a random order each sweep, until a
-    sweep writes nothing (csrc/flow.cu flow_local_sweep_kernel and
-    flow_local_vis_sweep_kernel)."""
-    p = packed.numpy()
-    H, W = p.shape
-    A, area = a0.numpy().copy(), area.numpy()
-    E = np.full((H, W), -1, np.int64)
-    vis = seedm.copy()
-    cols = np.arange(W)
-    rng = np.random.default_rng(order_seed)
-    neg, pos = sum(1 << i for i in (5, 6, 7)), sum(1 << i for i in (0, 1, 2))
-    for _ in range(H * W):
-        wrote = False
-        for r in rng.permutation(H):
-            acc = area[r].copy()
-            for i, (dx, dy) in enumerate(SCAN):
-                on = (p[r] >> i) & 1 == 1
-                nb = A[min(max(r + dy, 0), H - 1), (cols + dx) % W]
-                acc = np.where(on, acc + nb, acc).astype(np.float32)
-            out = (p[r] >> 8) & 0xff
-            rl = r % band
-            cross = ((rl == 0) & ((out & neg) != 0)) \
-                | ((rl == band - 1) & ((out & pos) != 0))
-            e = np.full(W, -1, np.int64)
-            v = vis[r].copy()
-            for i, (dx, dy) in enumerate(SCAN):
-                on = (out >> i) & 1 == 1
-                rr = min(max(r + dy, 0), H - 1)
-                e = np.where(on, E[rr, (cols + dx) % W], e)
-                v = np.where(on & ~cross, v | vis[rr, (cols + dx) % W], v)
-            e = np.where(cross, np.where(rl == 0, cols, W + cols), e)
-            if (acc.view(np.int32) != A[r].view(np.int32)).any() \
-                    or (e != E[r]).any() or (v != vis[r]).any():
-                wrote = True
-                A[r], E[r], vis[r] = acc, e, v
-        if not wrote:
-            return A, E, vis
-    raise AssertionError("no fixpoint")
-
-
-@pytest.mark.parametrize("order_seed", [0, 1])
-def test_kernel_schedule_reaches_the_twins_fixpoints(order_seed):
-    """Any row order with in-place reads certifies the twins' A, exit ids
-    and vis, bit for bit (the argument in csrc/flow.cu)."""
-    _, tg, code, mouth, area, packed, _ = _flow_case(64, 32, seed=5)
-    band = 8
-    ploc = k2.mask_local(packed, band)
-    seed = _seed(packed.shape, band)
-    seedm = (((packed.numpy() >> 16) & 1) | (seed != 0)).astype(np.uint8)
-    A, E, vis = _kernel_schedule(ploc, area, torch.zeros(tg.shape), band,
-                                 seedm, order_seed)
-    wA, wE = k2.flow_local_solve_plain(ploc, area, torch.zeros(tg.shape),
-                                       band)
-    wvis = k2.flow_local_vis_plain(ploc, torch.from_numpy(seed), band)
-    np.testing.assert_array_equal(A, wA.numpy())
-    np.testing.assert_array_equal(E, wE.numpy())
-    np.testing.assert_array_equal(vis, wvis.numpy().astype(np.uint8))
 
 
 def test_k10_wrappers_raise_on_cpu_tensors():

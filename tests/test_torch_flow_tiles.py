@@ -156,19 +156,15 @@ def _woken(edges):
             | (at(1, -1) & TR) | (at(1, 1) & TL)) != 0
 
 
-def _tile_rounds(packed, start, area, tile, variant, order_seed,
-                 own_only=False):
-    """The tiled solve of A (``area`` given) or vis (``area`` None) from
-    ``start``.  ``own_only``: the wrong rule, a tile woken by its own
-    writes only.  Returns (field, stats)."""
-    p = packed.numpy()
-    H, W = p.shape
-    ty, tx, strip = tile
+def _rounds(start, visit, tile, variant, order_seed, own_only=False):
+    """Tiled rounds from ``start`` (H, W) until a round writes nothing.
+    ``visit(local, cells, real, rng)`` solves the halo'd tile ``local`` in
+    place (``cells(a)``: the tile's cells of a grid array, 0 beyond the
+    grid) and returns the passes it took.  ``own_only``: the wrong rule, a
+    tile woken by its own writes only.  Returns (field, stats)."""
+    H, W = start.shape
+    ty, tx = tile
     nby, nbx = -(-H // ty), -(-W // tx)
-    if area is None:
-        bits = (p >> 8) & 0xFF
-    else:
-        bits, feed_bits = p & 0xFF, (p >> 8) & ROW_FEED
     # the tiles' (rows, columns) of the grid, padded to whole tiles, with
     # one halo cell a side: x periodic, rows beyond the grid never read
     pad_r = np.arange(-1, nby * ty + 1)
@@ -196,23 +192,17 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
             real = ((rr >= 0) & (rr < H))[:, None] & (cc < W)[None, :]
             inner = np.ix_(np.clip(rr, 0, H - 1), np.minimum(cc, W - 1))
 
-            def cells(a):
+            def cells(a, real=real, inner=inner):
                 return np.where(real, a[inner], 0)
 
             before = local[1:-1, 1:-1].copy()
-            if area is None:
-                most = max(most, _jump(local, cells(bits), real))
-            else:
-                most = max(most, _relax(local, cells(bits),
-                                        cells(feed_bits) != 0, real,
-                                        cells(area).astype(np.float32),
-                                        strip, rng))
+            most = max(most, visit(local, cells, real, rng))
             visits += 1
             after = local[1:-1, 1:-1]
-            if area is None:
-                moved = real & (after != before)
-            else:
+            if X.dtype == np.float32:
                 moved = real & (after.view(np.int32) != before.view(np.int32))
+            else:
+                moved = real & (after != before)
             if moved.any():
                 X[rr[:, None].repeat(tx, 1)[moved],
                   cc[None, :].repeat(ty, 0)[moved]] = after[moved]
@@ -223,6 +213,23 @@ def _tile_rounds(packed, start, area, tile, variant, order_seed,
             return X, {"rounds": rnd, "tiles_run": visits,
                        "max_inner_sweeps": most, "tiles": nby * nbx}
     raise AssertionError("no fixpoint")
+
+
+def _tile_rounds(packed, start, area, tile, variant, order_seed,
+                 own_only=False):
+    """The tiled solve of A (``area`` given: K7's visit) or vis (``area``
+    None: K8's) from ``start``.  Returns (field, stats)."""
+    p = packed.numpy()
+    ty, tx, strip = tile
+    if area is None:
+        def visit(local, cells, real, rng):
+            return _jump(local, cells((p >> 8) & 0xFF), real)
+    else:
+        def visit(local, cells, real, rng):
+            return _relax(local, cells(p & 0xFF),
+                          cells((p >> 8) & ROW_FEED) != 0, real,
+                          cells(area).astype(np.float32), strip, rng)
+    return _rounds(start, visit, (ty, tx), variant, order_seed, own_only)
 
 
 def _rivers(grid, rivers):
