@@ -12,9 +12,10 @@
    pressure Jacobi (200 and 1000 sweeps) and viscosity Jacobi (50 sweeps),
    bit for bit, with their launches and K11e's time on the same solves,
    and both once more at 8192x4096 (the same terrain recipe and a (u, v)
-   after one plain ocean step), bit for bit; the tiered advect sampler
-   (atol 1e-5) and, at 2048x1000 (H not a whole number of 32-row strips),
-   the same kernel with a one-row table (K4b, atol 1e-5);
+   after one plain ocean step), bit for bit, with the tiered advect sampler
+   there (atol 1e-5); the sampler at 2048x1024 (atol 1e-5) and, at
+   2048x1000 (H not a whole number of 32-row strips), the same kernel with
+   a one-row table (K4b, atol 1e-5);
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
    at --jacobi 1000, 5 at --jacobi 200, 1 at 2048x1000, which takes the
    one-row table) and 5 ``ocean_step``s at the coupled model's solver
@@ -45,9 +46,12 @@
    rows sum to the step; the ocean's coefficient builds apart from the
    Jacobi sweeps);
 8. the sharded path on a 1x1 mesh, in this process, in a world-size-1
-   NCCL group: the two-level flow kernels (K10a with exit ids, K10b with a
-   zero and a nonzero seed) at 2048x1024 on the coupled path's masks
-   (band 128), each bit for bit against its twin; ``flow_solve_twolevel``
+   NCCL group: the two-level flow kernels (K10a cold with exit ids and
+   warm without, K10b with a zero and a nonzero seed) on the coupled
+   path's masks at 2048x1024 (band 128), at 2000x1000 (band 8) and at
+   8192x4096 (band 128), each bit for bit against its twin, with its
+   rounds, host reads and tile visits, and timed beside K7 and K8 on the
+   same masks; ``flow_solve_twolevel``
    at 2048x1024 and 8192x4096 against K7's A (rtol 1e-5, atol 1e-7), and
    both sharded flow solves on the mesh against K7 and K8 (same bound, vis
    exact), each timed beside K7; then, with every launch counter at 0, 3
@@ -323,7 +327,20 @@ def main() -> int:
            f"tiles; K11e {k11e_ms:.3f} ms")
     del ob_3, tab_3
 
-    # both solves once at the coupled CLI's default size
+    def sampler_inputs(u_, v_, g_):
+        """K4's (dx, dy), strip table and Ry on g_ for (u_, v_): the
+        ocean's departure points, clamped as ``ocean.advect`` clamps
+        them."""
+        s2, t2 = ocean._departure(u_, v_, g_, cfg)[:2]
+        c, r = ocean._row_col(g_, dev)
+        radii = ka.strip_radii(g_, ocean.resolved_vmax(cfg), cfg.timestep)
+        ry = ocean.tap_radius_y(g_, cfg)
+        rxrow = ocean._strip_radius_rows(radii, ka.STRIP, dev)
+        dx = torch.clamp(s2 * g_.width - 0.5 - c, -rxrow, rxrow)
+        dy = torch.clamp(t2 * g_.height - 0.5 - r, -ry, ry)
+        return dx, dy, ka.strip_meta(radii, g_.width), ry
+
+    # both solves and the sampler once at the coupled CLI's default size
     big_grid = Grid(*BIG)
     t_big = cli._terrain(big_grid, SEED, dev)
     u_big, v_big = ocean.init_ocean(big_grid, dev)
@@ -345,19 +362,22 @@ def main() -> int:
     torch.cuda.synchronize()
     assert torch.equal(gu, wu) and torch.equal(gv, wv), \
         max(max_err(gu, wu), max_err(gv, wv))
+    dx, dy, meta, ry = sampler_inputs(u_big, v_big, big_grid)
+    gu, gv = ka.advect_sample_cuda(u_big, v_big, dx, dy, meta, ka.STRIP, ry)
+    wu, wv = ka.advect_sample_tiered_plain(u_big, v_big, dx, dy, meta,
+                                           ka.STRIP, ry)
+    torch.cuda.synchronize()
+    err_big = max(max_err(gu, wu), max_err(gv, wv))
+    assert err_big <= 1e-5, err_big
     print(f"  at {BIG[0]}x{BIG[1]}: pressure 200 sweeps and viscosity 50 "
-          f"sweeps on (u, v) bit for bit against their twins")
-    del t_big, u_big, v_big, p_big, d_big, gu, gv, wu, wv
+          f"sweeps on (u, v) bit for bit against their twins; the advect "
+          f"sampler (K4, strips (rx, q) "
+          f"{sorted(set(map(tuple, meta.tolist())))}, Ry {ry}) max err "
+          f"{err_big:.3e} (atol 1e-5)")
+    del t_big, u_big, v_big, p_big, d_big, gu, gv, wu, wv, dx, dy
     torch.cuda.empty_cache()
 
-    s2, t2 = ocean._departure(u, v, grid, cfg)[:2]
-    c, r = ocean._row_col(grid, dev)
-    radii = ka.strip_radii(grid, ocean.resolved_vmax(cfg), cfg.timestep)
-    meta = ka.strip_meta(radii, W)
-    ry = ocean.tap_radius_y(grid, cfg)
-    rxrow = ocean._strip_radius_rows(radii, ka.STRIP, dev)
-    dx = torch.clamp(s2 * W - 0.5 - c, -rxrow, rxrow)
-    dy = torch.clamp(t2 * H - 0.5 - r, -ry, ry)
+    dx, dy, meta, ry = sampler_inputs(u, v, grid)
     gu, gv = ka.advect_sample_cuda(u, v, dx, dy, meta, ka.STRIP, ry)
     wu, wv = ka.advect_sample_tiered_plain(u, v, dx, dy, meta, ka.STRIP, ry)
     torch.cuda.synchronize()
@@ -754,48 +774,103 @@ def main() -> int:
     print(f"mesh {mesh.ny}x{mesh.nx} on {mdev}: backend "
           f"{tdist.get_backend()}, world size {tdist.get_world_size()}")
 
-    # K10a / K10b on the coupled path's packed masks (phase 5)
-    band = _pick_dist_band(H // mesh.size)
-    ploc = k2.mask_local(packed, band)
-    local_edges = float(sum(((ploc >> i) & 1).sum() for i in range(8)))
-    got_A, got_E = k2.flow_local_solve_cuda(ploc, area, area, band)
-    stats = dict(k2.LAST_SOLVE["A"])
-    want_A, want_E = k2.flow_local_solve_plain(ploc, area, area, band)
-    torch.cuda.synchronize()
-    assert torch.equal(got_A, want_A) and torch.equal(got_E, want_E)
-    k_ms = cuda_ms(lambda: k2.flow_local_solve_cuda(ploc, area, area, band),
-                   3)
-    p_ms = cuda_ms(lambda: k2.flow_local_solve_plain(ploc, area, area, band),
-                   1)
-    record("flow_local_solve", "demiurge_tpu_torch/csrc/flow.cu",
-           "demiurge_tpu/pallas_kernels/flow2.py:150", 0.0, k_ms, p_ms,
-           5 * plane, local_edges + N,
-           f"band {band}: A and exit ids bit-exact; {stats['sweeps']} "
-           f"sweeps, {stats['launched']} launched, {stats['host_reads']} "
-           f"host reads; {int((got_E >= 0).sum())} cells exit their band")
-    del want_A, want_E
-
-    seed = torch.zeros_like(area)
-    seed[band - 1::band, ::7] = 1.0    # last rows of the bands
-    seed[band::band, 3::11] = 1.0      # first rows of the next bands
-    vis_notes = []
-    for label, s_ in (("zero seed", torch.zeros_like(area)),
-                      ("seeded", seed)):
-        got = k2.flow_local_vis_cuda(ploc, s_, band)
-        st_ = dict(k2.LAST_SOLVE["vis"])
-        want = k2.flow_local_vis_plain(ploc, s_, band)
+    # K10a / K10b against their twins, each timed beside K7/K8 on the same
+    # masks: the coupled path's (phase 5) at 2048x1024, band 128 as the
+    # mesh picks it; a grid the 16x128 tiles do not divide, band 8 (16 bands
+    # a tile row apart); the coupled CLI's 8192x4096, band 128
+    def local_against_twins(label, g_, pk_, band_):
+        """K10a cold (A, exit ids) and warm (the two-level re-solve from
+        A_loc + the coarse graph's injections, without exit ids), and K10b
+        with a zero and a boundary-row seed, each against its twin bit for
+        bit; then each timed (CUDA events, 3 calls), K7 and K8 on the
+        unmasked masks beside them.  Returns the times and a note."""
+        Hg, Wg = g_.shape
+        ar_ = of.cell_area_lower_edge(g_, dev)
+        pl_ = k2.mask_local(pk_, band_)
+        A_, E_ = k2.flow_local_solve_cuda(pl_, ar_, ar_, band_)
+        st = {"A": dict(k2.LAST_SOLVE["A"]), "E": dict(k2.LAST_SOLVE["E"])}
+        wA_, wE_ = k2.flow_local_solve_plain(pl_, ar_, ar_, band_)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), label
-        vis_notes.append(f"{label}: {st_['sweeps']} sweeps, "
-                         f"{st_['launched']} launched, reachable "
-                         f"{float(got.mean()):.3f}")
-    ms = cuda_ms(lambda: k2.flow_local_vis_cuda(ploc, seed, band), 3)
-    plain_ms = cuda_ms(lambda: k2.flow_local_vis_plain(ploc, seed, band), 1)
+        assert torch.equal(A_, wA_) and torch.equal(E_, wE_), label
+        del wA_, wE_
+        succ, m0, _, tflat_g, _, cross = k2.coarse_graph(pk_, A_, E_, band_)
+        X = k2._accumulate_adaptive(succ, m0)
+        inj = torch.zeros(Hg * Wg + 1, device=dev).index_add_(
+            0, tflat_g, torch.where(cross, X, 0.0))[:Hg * Wg].reshape(Hg, Wg)
+        ar2, a02 = ar_ + inj, A_ + inj
+        del succ, m0, tflat_g, cross, X, inj
+        A2, E2 = k2.flow_local_solve_cuda(pl_, ar2, a02, band_,
+                                          with_exit=False)
+        st["warm"] = dict(k2.LAST_SOLVE["A"])
+        wA2, _ = k2.flow_local_solve_plain(pl_, ar2, a02, band_,
+                                           with_exit=False)
+        torch.cuda.synchronize()
+        assert E2 is None and torch.equal(A2, wA2), label
+        del A2, wA2
+        seed_ = torch.zeros_like(ar_)
+        seed_[band_ - 1::band_, ::7] = 1.0    # last rows of the bands
+        seed_[band_::band_, 3::11] = 1.0      # first rows of the next bands
+        reach = []
+        for what, s_ in (("zero", torch.zeros_like(ar_)),
+                         ("seeded", seed_)):
+            got = k2.flow_local_vis_cuda(pl_, s_, band_)
+            st[f"vis {what}"] = dict(k2.LAST_SOLVE["vis"])
+            want = k2.flow_local_vis_plain(pl_, s_, band_)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (label, what)
+            reach.append(f"{float(got.mean()):.3f}")
+        ms = {"K10a cold": cuda_ms(lambda: k2.flow_local_solve_cuda(
+                  pl_, ar_, ar_, band_), 3),
+              "K10a warm": cuda_ms(lambda: k2.flow_local_solve_cuda(
+                  pl_, ar2, a02, band_, with_exit=False), 3),
+              "K10b seeded": cuda_ms(lambda: k2.flow_local_vis_cuda(
+                  pl_, seed_, band_), 3),
+              "K7 cold": cuda_ms(lambda: kf.flow_solve_area_cuda(
+                  pk_, ar_, g_), 3),
+              "K8": cuda_ms(lambda: kf.vis_solve_cuda(pk_, g_), 3)}
+        print(f"  K10 at {label}, band {band_}: A and exit ids bit-exact "
+              f"cold, A warm, vis exact with a zero and a seeded start "
+              f"(reachable {' and '.join(reach)}); "
+              f"{int((E_ >= 0).sum())} cells exit their band")
+        for what, st_ in st.items():
+            print(f"    {what}: {solve_note(st_)}")
+        print(f"    ms ({card}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items()))
+        note = (f"band {band_}: " + "; ".join(
+            f"{k} {solve_note(v)}" for k, v in st.items()))
+        return ms, note, pl_, ar_, seed_
+
+    band = _pick_dist_band(H // mesh.size)
+    local_ms = {}
+    local_ms[f"{W}x{H}"], local_note, ploc, area_l, seed = \
+        local_against_twins(f"{W}x{H}", grid, packed, band)
+    local_edges = float(sum(((ploc >> i) & 1).sum() for i in range(8)))
     out_edges = float((((ploc >> 8) & 0xFF) != 0).sum())
+    ms = local_ms[f"{W}x{H}"]
+    p_ms = cuda_ms(lambda: k2.flow_local_solve_plain(ploc, area_l, area_l,
+                                                     band), 1)
+    record("flow_local_solve", "demiurge_tpu_torch/csrc/flow.cu",
+           "demiurge_tpu/pallas_kernels/flow2.py:150", 0.0, ms["K10a cold"],
+           p_ms, 5 * plane, local_edges + N,
+           f"A and exit ids bit-exact; time of the cold solve (A and exit "
+           f"ids), warm re-solve {ms['K10a warm']:.3f} ms, K7 cold "
+           f"{ms['K7 cold']:.3f} ms; {local_note}")
+    plain_ms = cuda_ms(lambda: k2.flow_local_vis_plain(ploc, seed, band), 1)
     record("flow_local_vis", "demiurge_tpu_torch/csrc/flow.cu",
-           "demiurge_tpu/pallas_kernels/flow2.py:331", 0.0, ms, plain_ms,
-           3 * plane, out_edges,
-           "vis exact; " + "; ".join(vis_notes) + " (time: seeded)")
+           "demiurge_tpu/pallas_kernels/flow2.py:331", 0.0,
+           ms["K10b seeded"], plain_ms, 3 * plane, out_edges,
+           f"vis exact, zero and seeded; time of the seeded solve, K8 "
+           f"{ms['K8']:.3f} ms; {local_note}")
+    del ploc, area_l, seed
+
+    g_r = Grid(*RAGGED)
+    hb_r = ob.blur(cli._terrain(g_r, SEED, dev), g_r, ccfg.flow_preblur)
+    code_r = of.flow_directions(hb_r, torch.ones_like(hb_r), g_r)
+    _, mouth_r, _ = of.incoming_mask(code_r, g_r)
+    local_ms[f"{RAGGED[0]}x{RAGGED[1]}"] = local_against_twins(
+        f"{RAGGED[0]}x{RAGGED[1]}", g_r, kf.pack_masks(code_r, mouth_r, g_r),
+        8)[0]
+    del hb_r, code_r, mouth_r
 
     # flow_solve_twolevel against K7, both from the codes (masks packed)
     def twolevel_against_k7(g, code_, mouth_):
@@ -810,7 +885,7 @@ def main() -> int:
         print(f"  at {g.width}x{g.height}: K7 {solve_note(k7_stats)}; "
               f"two-level: K10a "
               f"{k2.LAUNCHES_LOCAL - before} launched in its two solves, "
-              f"the re-solve {resolve['sweeps']} sweeps")
+              f"the re-solve {solve_note(resolve)}")
         t_two = cuda_ms(lambda: k2.flow_solve_twolevel(code_, ar, mouth_, g),
                         3)
         t_k7 = cuda_ms(lambda: kf.flow_solve_area_cuda(
@@ -821,16 +896,23 @@ def main() -> int:
               f"pack_masks; {card})")
         return t_two, t_k7
 
-    twolevel_ms = {"2048x1024": twolevel_against_k7(grid, code, mouth)}
+    twolevel_ms = {f"{W}x{H}": twolevel_against_k7(grid, code, mouth)}
     big_grid = Grid(*BIG)
     hb_big = ob.blur(cli._terrain(big_grid, SEED, dev), big_grid,
                      ccfg.flow_preblur)
     code_big = of.flow_directions(hb_big, torch.ones_like(hb_big), big_grid)
     _, mouth_big, _ = of.incoming_mask(code_big, big_grid)
-    twolevel_ms["8192x4096"] = twolevel_against_k7(big_grid, code_big,
-                                                   mouth_big)
-    del hb_big, code_big, mouth_big
+    del hb_big
+    local_ms[f"{BIG[0]}x{BIG[1]}"] = local_against_twins(
+        f"{BIG[0]}x{BIG[1]}", big_grid,
+        kf.pack_masks(code_big, mouth_big, big_grid), 128)[0]
     torch.cuda.empty_cache()
+    twolevel_ms[f"{BIG[0]}x{BIG[1]}"] = twolevel_against_k7(
+        big_grid, code_big, mouth_big)
+    del code_big, mouth_big
+    torch.cuda.empty_cache()
+    print(f"K10 and K7/K8 ms by grid (CUDA events, 3 calls each; {card}): "
+          f"{json.dumps(local_ms)}")
 
     # both sharded flow solves on the mesh against K7 and K8
     A7 = kf.flow_solve_area_cuda(packed, area, grid)

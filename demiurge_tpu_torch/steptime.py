@@ -1,6 +1,6 @@
-"""Time the single-card coupled step of a checkout of the port, on the card.
+"""Time the coupled step of a checkout of the port, on the card.
 
-    python demiurge_tpu_torch/steptime.py [--tree DIR] [--reps 10]
+    python demiurge_tpu_torch/steptime.py [--tree DIR] [--reps 10] [--mesh]
 
 Imports ``demiurge_tpu_torch`` from ``DIR`` (default: the checkout that
 holds this file), builds its kernels, makes the coupled CLI's terrain
@@ -9,8 +9,12 @@ holds this file), builds its kernels, makes the coupled CLI's terrain
 timed on the host clock (ending in ``torch.cuda.synchronize()``, as
 ``chip_smoke.py`` phase 7 times its loop) and with CUDA events.  Prints one
 JSON line: the tree, the card, and ms per step of each run with their
-median.  Only entry points that every slice of the port has are used, so
-two checkouts can be timed alternately in one session on one card.
+median.  ``--mesh`` times ``coupled_step(mesh=...)`` on a 1x1 mesh in a
+world-size-1 group of this process (the sharded path: ``dist/`` and the
+two-level flow kernels) instead of the single-card step.  Only entry
+points that every slice of the port has (since the sharded step, with
+``--mesh``) are used, so two checkouts can be timed alternately in one
+session on one card.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--mesh", action="store_true",
+                   help="the step on a 1x1 mesh (the sharded path)")
     args = p.parse_args(argv)
 
     tree = pathlib.Path(args.tree).resolve()
@@ -60,9 +66,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     grid = Grid(args.width, args.height)
     cfg = model.CoupledConfig()
-    s = model.init_coupled(cli._terrain(grid, args.seed, dev), grid)
+    mesh = None
+    if args.mesh:
+        from demiurge_tpu_torch.dist import mesh as dmesh
+
+        mesh = dmesh.make_mesh(shape=(1, 1), device=dmesh.initialize("cuda"))
+    s = model.init_coupled(cli._terrain(grid, args.seed, dev), grid,
+                           mesh=mesh)
     for _ in range(2):
-        s = model.coupled_step(s, grid, cfg)
+        s = model.coupled_step(s, grid, cfg, mesh=mesh)
     torch.cuda.synchronize()
     host, device = [], []
     for _ in range(args.reps):
@@ -71,15 +83,17 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         start.record()
         for _ in range(args.steps):
-            s = model.coupled_step(s, grid, cfg)
+            s = model.coupled_step(s, grid, cfg, mesh=mesh)
         end.record()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3 / args.steps)
         device.append(start.elapsed_time(end) / args.steps)
     if not bool(torch.isfinite(s.height).all()):
         raise RuntimeError("the height is not finite")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     print(json.dumps({
-        "tree": str(tree), "card": card,
+        "tree": str(tree), "card": card, "mesh": None if mesh is None else "1x1",
         "grid": f"{args.width}x{args.height}", "steps_per_run": args.steps,
         "host_ms_per_step": host, "device_ms_per_step": device,
         "host_median": statistics.median(host),
