@@ -15,14 +15,18 @@ of ``ops.blur.sigma_list`` the blur runs two 13-tap passes of
 The taps' shifts and weights depend only on the grid and the radius; they
 are built once (``tables``) in float32 exactly as the plain twin derives
 them, and stay on the device.  ``blur`` launches the CUDA kernel
-(``csrc/blur.cu``, two launches per iteration) for CUDA tensors and runs
-the plain twin ``blur_plain`` — the ``blur13_pass`` sequence — for CPU
-tensors; both sum the taps in the same order.  ``LAUNCHES`` counts kernel
+(``csrc/blur.cu``) for CUDA tensors and runs the plain twin ``blur_plain``
+— the ``blur13_pass`` sequence — for CPU tensors; both sum the taps in the
+same order.  A launch runs a group of iterations on full-width row bands
+in shared memory (``kernels/bands.py``), whose vertical reaches sum to the
+band's halo; an iteration that alone outgrows a band runs as two one-pass
+launches.  ``launches`` plans a call's.  ``LAUNCHES`` counts kernel
 launches.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -32,9 +36,13 @@ from ..core.grid import Grid
 from ..core.platform import check_kernel_inputs, host_to_device, \
     use_cuda_kernels
 from ..core.topology import _pole_col_shift
+from . import bands
 
 LAUNCHES = 0
 TAPS = 6  # taps of one pass besides the center: 3 offsets x 2 signs
+# a band's row (blur.cu): two buffers with margins, 4 ints; 128 floats of
+# slack
+LAYOUT = bands.Layout(planes=2, bare=0, ints=4, slack=128)
 
 _TABLES: dict = {}
 
@@ -81,9 +89,68 @@ def tables(grid: Grid, rlist, device):
     return out
 
 
+def reach(r: float) -> int:
+    """The vertical reach of an iteration of radius ``r``: the farthest row
+    its taps read (blur.cu ``reach``)."""
+    from ..ops.blur import vertical_taps
+
+    out = 0
+    for oy in vertical_taps(r):
+        k = math.floor(oy)
+        out = max(out, abs(k), abs(k + 1) if oy != k else 0)
+    return out
+
+
+def launches(grid: Grid, rlist, **plan_kw):
+    """The launches of a call: ("band", first iteration, iterations,
+    ``bands.Bands``) for a group of iterations whose reaches sum to at most
+    the deepest halo a band takes, ("passes", iteration, 1, None) for an
+    iteration that alone reaches farther (two launches).  ``plan_kw`` goes
+    to ``bands.plan``."""
+    W, H = grid.width, grid.height
+    cap = bands.halo_max(W, LAYOUT, **plan_kw)
+    out, group, depth = [], [], 0
+
+    def close():
+        if group:
+            out.append(("band", group[0], len(group),
+                        bands.plan(W, H, depth, LAYOUT, **plan_kw)))
+            group.clear()
+
+    for i, r in enumerate(rlist):
+        R = reach(r)
+        if group and (R > cap or depth + R > cap):
+            close()
+            depth = 0
+        if R > cap:
+            out.append(("passes", i, 1, None))
+        else:
+            group.append(i)
+            depth += R
+    close()
+    return out
+
+
+def card_launches(grid: Grid, rlist):
+    """``launches`` with the clusters the card runs at once (builds the
+    kernels), once per grid and radius list."""
+    return _card_launches(grid, tuple(rlist))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_launches(grid: Grid, rlist: tuple):
+    return launches(grid, rlist, occupancy=functools.partial(
+        bands.card_clusters, "demiurge_blur_band_clusters"))
+
+
+def launch_count(plan) -> int:
+    """Kernel launches of a plan: one a band group, two a lone iteration."""
+    return sum(1 if kind == "band" else 2 for kind, *_ in plan)
+
+
 def blur_cuda(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:
-    """Every iteration on the card: a vertical and a horizontal launch each,
-    ping-pong buffers, on the current stream, no synchronisation."""
+    """Every iteration on the card: ``launches(grid, rlist)``, out of place,
+    on the current stream, no synchronisation."""
     global LAUNCHES
     check_kernel_inputs(("field",), (field,), shape=grid.shape)
     if not grid.wrap_x:
@@ -94,17 +161,31 @@ def blur_cuda(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:
     from . import build
 
     vk, vw, hk, hw, weights = tables(grid, rlist, field.device)
-    ping, pong = torch.empty_like(field), torch.empty_like(field)
+    plan = card_launches(grid, rlist)
     H, W = grid.shape
+    topo = (H, W, int(grid.wrap_south), int(grid.wrap_north),
+            _pole_col_shift(grid))
     stream = torch.cuda.current_stream(field.device).cuda_stream
-    err = build.library().demiurge_blur(
-        field.data_ptr(), vk.data_ptr(), vw.data_ptr(), hk.data_ptr(),
-        hw.data_ptr(), weights.data_ptr(), ping.data_ptr(), pong.data_ptr(),
-        H, W, int(grid.wrap_south), int(grid.wrap_north),
-        _pole_col_shift(grid), n, stream)
-    build.check(err, "demiurge_blur")
-    LAUNCHES += 2 * n
-    return pong  # the last (horizontal) pass of every iteration lands there
+    lib = build.library()
+    src = field
+    for kind, i, m, b in plan:
+        ptrs = (vk[i].data_ptr(), vw[i].data_ptr(), hk[i].data_ptr(),
+                hw[i].data_ptr(), weights.data_ptr())
+        dst = torch.empty_like(field)
+        if kind == "band":
+            err = lib.demiurge_blur_band(
+                src.data_ptr(), *ptrs, dst.data_ptr(), *topo, m, b.halo,
+                b.cluster, b.seg, b.th, stream)
+            build.check(err, "demiurge_blur_band")
+            LAUNCHES += 1
+        else:  # the vertical pass to tmp, the horizontal one to dst
+            tmp = torch.empty_like(field)
+            err = lib.demiurge_blur(src.data_ptr(), *ptrs, tmp.data_ptr(),
+                                    dst.data_ptr(), *topo, 1, stream)
+            build.check(err, "demiurge_blur")
+            LAUNCHES += 2
+        src = dst
+    return src
 
 
 def blur(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:

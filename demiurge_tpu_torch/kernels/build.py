@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``), one
-``nvcc`` process per source, all started together, and the objects are
-linked into one shared library with a plain C interface, loaded with
-``ctypes``.  The build runs at first use, from a kernel wrapper that was
+Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers it includes) is
+compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per
+source, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs at first use, from a kernel wrapper that was
 handed a CUDA tensor, and lands in ``demiurge_tpu_torch/_build/``
 (git-ignored) under a name keyed by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the existing library.
@@ -45,12 +45,18 @@ SIGNATURES = {
     # stream
     "demiurge_advect_sample": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 5
     + [_P],
-    # T cinv asr shifts ping pong, H W wrap_s wrap_n pole_shift substeps,
-    # diff_scale olr_coef, stream
-    "demiurge_climate_step": [_P] * 6 + [_I] * 6 + [_F] * 2 + [_P],
+    # T cinv asr shifts out, H W wrap_s wrap_n pole_shift steps cluster seg
+    # th, diff_scale olr_coef, stream
+    "demiurge_climate_band": [_P] * 5 + [_I] * 9 + [_F] * 2 + [_P],
     # field vk vw hk hw weights ping pong, H W wrap_s wrap_n pole_shift
     # n_iter, stream
     "demiurge_blur": [_P] * 8 + [_I] * 6 + [_P],
+    # field vk vw hk hw weights out, H W wrap_s wrap_n pole_shift n_iter
+    # halo cluster seg th, stream
+    "demiurge_blur_band": [_P] * 7 + [_I] * 10 + [_P],
+    # cluster smem -> clusters the card holds at once
+    "demiurge_climate_band_clusters": [_I] * 2,
+    "demiurge_blur_band_clusters": [_I] * 2,
     # hb sel q dx8 code, H W, dy8, stream
     "demiurge_flow_directions": [_P] * 5 + [_I] * 2 + [_F, _P],
     # packed area A flags stats, H W ty tx first n, stream
@@ -82,7 +88,7 @@ def _sources():
 def _digest(sources) -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -19,10 +19,14 @@ side, half a world round.
 ``climate_step`` launches the CUDA kernel (``csrc/climate.cu``) for CUDA
 tensors and runs the plain twin ``climate_step_plain`` for CPU tensors.
 Both evaluate the sums above in the same order, so on one card they agree
-bit for bit.  ``LAUNCHES`` counts kernel launches (one per substep).
+bit for bit.  A launch runs up to ``STEPS_PER_LAUNCH`` substeps on
+full-width row bands in shared memory (``kernels/bands.py``); ``launches``
+plans a call's.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -32,8 +36,14 @@ from ..core.platform import check_kernel_inputs, host_to_device, \
     use_cuda_kernels
 from ..core.stencils import corner_shifts
 from ..core.topology import _pole_col_shift, shift
+from . import bands
 
 LAUNCHES = 0
+
+STEPS_PER_LAUNCH = 8   # substeps a launch at most: a band's halo
+# a band's row (climate.cu): T in two buffers with margins, cinv, 8 ints;
+# 128 floats of slack
+LAYOUT = bands.Layout(planes=2, bare=1, ints=8, slack=128)
 
 OLR_COEF = float(np.float32(210.0 * 0.93 / 273.4 ** 4))
 KELVIN = 273.15
@@ -65,6 +75,30 @@ def shift_table(grid: Grid, device) -> torch.Tensor:
     return _TABLES[key]
 
 
+def launches(grid: Grid, substeps: int, **plan_kw):
+    """The launches of a call of ``substeps`` substeps: (first substep,
+    substeps, ``bands.Bands``) each, as few as the halo allows, of nearly
+    equal depth.  ``plan_kw`` goes to ``bands.plan``."""
+    W, H = grid.width, grid.height
+    cap = min(STEPS_PER_LAUNCH,
+              bands.halo_max(W, LAYOUT, **plan_kw))
+    n = -(-substeps // max(cap, 1))
+    out, s0 = [], 0
+    for i in range(n):
+        steps = substeps // n + (1 if i < substeps % n else 0)
+        out.append((s0, steps, bands.plan(W, H, steps, LAYOUT, **plan_kw)))
+        s0 += steps
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def card_launches(grid: Grid, substeps: int):
+    """``launches`` with the clusters the card runs at once (builds the
+    kernels), once per grid and depth."""
+    return launches(grid, substeps, occupancy=functools.partial(
+        bands.card_clusters, "demiurge_climate_band_clusters"))
+
+
 def climate_step_plain(T, cinv, asr, grid: Grid, diffusivity: float):
     """``asr.shape[0]`` substeps in plain PyTorch, in the kernel's order."""
     _check_grid(grid)
@@ -85,8 +119,8 @@ def climate_step_plain(T, cinv, asr, grid: Grid, diffusivity: float):
 
 
 def climate_step_cuda(T, cinv, asr, grid: Grid, diffusivity: float):
-    """The substeps on the card: one launch per substep on the current
-    stream, out of place, no synchronisation."""
+    """The substeps on the card: ``launches(grid, K)`` band launches on the
+    current stream, out of place, no synchronisation."""
     global LAUNCHES
     _check_grid(grid)
     check_kernel_inputs(("T", "cinv"), (T, cinv), shape=grid.shape)
@@ -97,17 +131,21 @@ def climate_step_cuda(T, cinv, asr, grid: Grid, diffusivity: float):
     from . import build
 
     shifts = shift_table(grid, T.device)
-    ping, pong = torch.empty_like(T), torch.empty_like(T)
+    plan = card_launches(grid, K)
     H, W = grid.shape
     stream = torch.cuda.current_stream(T.device).cuda_stream
-    err = build.library().demiurge_climate_step(
-        T.data_ptr(), cinv.data_ptr(), asr.data_ptr(), shifts.data_ptr(),
-        ping.data_ptr(), pong.data_ptr(), H, W, int(grid.wrap_south),
-        int(grid.wrap_north), _pole_col_shift(grid), K,
-        diff_scale(grid, diffusivity), OLR_COEF, stream)
-    build.check(err, "demiurge_climate_step")
-    LAUNCHES += K
-    return ping if (K - 1) % 2 == 0 else pong
+    src = T
+    for s0, steps, b in plan:
+        dst = torch.empty_like(T)
+        err = build.library().demiurge_climate_band(
+            src.data_ptr(), cinv.data_ptr(), asr[s0].data_ptr(),
+            shifts.data_ptr(), dst.data_ptr(), H, W, int(grid.wrap_south),
+            int(grid.wrap_north), _pole_col_shift(grid), steps, b.cluster,
+            b.seg, b.th, diff_scale(grid, diffusivity), OLR_COEF, stream)
+        build.check(err, "demiurge_climate_band")
+        LAUNCHES += 1
+        src = dst
+    return src
 
 
 def climate_step(T, cinv, asr, grid: Grid, diffusivity: float):

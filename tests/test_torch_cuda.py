@@ -200,41 +200,95 @@ def _terrain(W, H, dev, seed=0):
     return grid, (h - 0.05) * 20
 
 
-@pytest.mark.parametrize("shape", [(256, 128), (200, 100)],
-                         ids=["256x128", "200x100"])
-def test_climate_kernel_equals_plain_twin(dev, shape):
-    from demiurge_tpu_torch.kernels import climate as kc
+# the band kernels' grids (tests/test_torch_climate_tiles.py and
+# test_torch_blur_tiles.py run their schedules on the CPU): the coupled
+# model's size, a ragged one, one block a band (128x64), H < 2k (64x12),
+# an odd width, and the smaller grids the tests held before
+BAND_GRIDS = [(2048, 1024), (2000, 1000), (128, 64), (64, 12), (1001, 500),
+              (256, 128), (200, 100)]
+
+
+def _same(got, want):
+    """Bit for bit, NaN where the twin has NaN."""
+    return torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+        torch.nan_to_num(got, nan=0.0), torch.nan_to_num(want, nan=0.0))
+
+
+def _climate_inputs(W, H, dev, substeps):
     from demiurge_tpu_torch.ops import temperature
 
-    grid, h = _terrain(*shape, dev)
+    grid, h = _terrain(W, H, dev)
     T = temperature.init_temperature(grid, dev) + h
     i0 = torch.full((), 3.0, device=dev)
-    asr = temperature.insolation_table(grid, i0, 10, 0.30)
+    asr = temperature.insolation_table(grid, i0, substeps, 0.30)
     cinv = (temperature.YEAR_SECONDS / temperature.SUBSTEPS_PER_YEAR
             / temperature.heat_capacity(h)).contiguous()
+    return grid, T, cinv, asr
+
+
+@pytest.mark.parametrize("shape", BAND_GRIDS + [(4096, 2048)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_climate_kernel_equals_plain_twin(dev, shape):
+    """The coupled step's 10 substeps in at most 2 launches (was 10); at
+    the climate CLI's 4096x2048 a dispatch's 250 substeps in at most 32
+    (was 250), past the reference's stability bound on land: the NaNs and
+    infs fall where the twin's do."""
+    from demiurge_tpu_torch.kernels import climate as kc
+
+    substeps, most = (250, 32) if shape == (4096, 2048) else (10, 2)
+    grid, T, cinv, asr = _climate_inputs(*shape, dev, substeps)
     before = kc.LAUNCHES
     got = kc.climate_step_cuda(T, cinv, asr, grid, 0.55e6)
     want = kc.climate_step_plain(T, cinv, asr, grid, 0.55e6)
     torch.cuda.synchronize()
-    assert kc.LAUNCHES - before == 10
-    assert torch.equal(got, want)
+    assert kc.LAUNCHES - before == len(kc.card_launches(grid, substeps))
+    assert kc.LAUNCHES - before <= most
+    assert _same(got, want)
+    if shape == (4096, 2048):
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        assert not bool(torch.isfinite(want).all())
 
 
-@pytest.mark.parametrize("radius", [0.5, 3.0])
-def test_blur_kernel_equals_plain_twin(dev, radius):
-    """Radius 0.5 is the pre-blur; 3.0 has taps several rows away, across
-    the poles."""
+@pytest.mark.parametrize("shape", BAND_GRIDS + [(8192, 4096)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("radius", [0.5, 3.0, 12.0])
+def test_blur_kernel_equals_plain_twin(dev, shape, radius):
+    """Radius 0.5 is the pre-blur (one launch, was 10); 3.0 has taps
+    several rows away, across the poles; 12.0 runs 7 iterations, the
+    widest of which outgrow a small grid's band (two one-pass launches)."""
     from demiurge_tpu_torch.kernels import blur as kb
     from demiurge_tpu_torch.ops.blur import sigma_list
 
-    grid, h = _terrain(256, 128, dev)
+    grid, h = _terrain(*shape, dev)
     rlist = sigma_list(radius)
     before = kb.LAUNCHES
     got = kb.blur_cuda(h, grid, rlist)
     want = kb.blur_plain(h, grid, rlist)
     torch.cuda.synchronize()
-    assert kb.LAUNCHES - before == 2 * len(rlist)
+    plan = kb.card_launches(grid, rlist)
+    assert kb.LAUNCHES - before == kb.launch_count(plan)
+    if radius == 0.5:
+        assert kb.launch_count(plan) == 1
     assert torch.equal(got, want)
+
+
+def test_band_kernels_raise_on_a_refused_launch(dev, monkeypatch):
+    """A cluster that csrc/bands.cuh does not take (3 blocks) is refused
+    by K1's and K5's entry points, and the wrappers raise; nothing is
+    counted."""
+    from demiurge_tpu_torch.kernels import bands
+    from demiurge_tpu_torch.kernels import blur as kb
+    from demiurge_tpu_torch.kernels import climate as kc
+    from demiurge_tpu_torch.ops.blur import sigma_list
+
+    grid, T, cinv, asr = _climate_inputs(1024, 512, dev, 10)
+    before = (kc.LAUNCHES, kb.LAUNCHES)
+    monkeypatch.setattr(bands, "cluster_of", lambda W, *a: 3)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kc.climate_step_cuda(T, cinv, asr, grid, 0.55e6)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kb.blur_cuda(T, grid, sigma_list(0.5))
+    assert (kc.LAUNCHES, kb.LAUNCHES) == before
 
 
 def test_directions_kernel_against_plain_twin(dev):
