@@ -25,25 +25,31 @@
    max|u|);
 5. the coupled step's kernels at 2048x1024 (the same terrain, and a state
    after one coupled step through the plain twins), each against its twin:
-   climate (10 substeps, exact expected, fails above 1e-6 of max|T|), blur
-   (radius 0.5, same bound on max|h|), directions (ties at most 1 per 10^4
-   pixels), the flow A fixpoint (K7) cold and warm (bit for bit) and
-   vis (K8, exact), each with its rounds, host reads and tile visits, and
-   both on a serpentine river (32 columns x 200 rows over the dateline)
-   and on a 2000x1000 grid that the tiles do not divide;
+   the band kernels K1 (climate, 10 substeps) and K5 (blur, radius 0.5)
+   bit for bit there and at 8192x4096, and K1 over a climate dispatch
+   (250 substeps) at 4096x2048, NaNs and infs where the twin's are, each
+   with its launches (at most 2 a coupled step, 32 a dispatch), bands and
+   CUDA-event time; directions (ties at most 1 per 10^4 pixels), the flow
+   A fixpoint (K7) cold and warm (bit for bit) and vis (K8, exact), each
+   with its rounds, host reads and tile visits, and both on a serpentine
+   river (32 columns x 200 rows over the dateline) and on a 2000x1000 grid
+   that the tiles do not divide;
 6. the coupled path with every launch counter at 0: the ``coupled`` CLI at
    2048x1024 for 3 steps and at its default 8192x4096 for 1 step, and the
-   ``climate`` CLI at its default 4096x2048 for 500 substeps; fails unless
-   every kernel of the step launched and every logged number and field of
-   the coupled runs is finite.  The climate run's grid is past the
-   reference model's stability bound on land (explicit substep,
-   a = D dt / C > 1/8), where the reference diverges too; that run is held
-   to the same 500 substeps through the plain twins, NaNs included;
+   ``climate`` CLI at its default 4096x2048 for 500 substeps; prints K1's
+   and K5's launches a run (fails above 2 a coupled step or 32 a climate
+   dispatch); fails unless every kernel of the step launched and every
+   logged number and field of the coupled runs is finite.  The climate
+   run's grid is past the reference model's stability bound on land
+   (explicit substep, a = D dt / C > 1/8), where the reference diverges
+   too; that run is held to the same 500 substeps through the plain
+   twins, NaNs included;
 7. 5 ``coupled_step``s at 2048x1024 on the kernels (host clock, ms per
    step) against the same 5 through the plain twins: u, v and T within
    1e-5 of max, the height beyond 1e-5 of max at no more than 1e-3 of the
    pixels; and a per-stage device profile of one step (CUDA events; the
-   rows sum to the step; the ocean's coefficient builds apart from the
+   rows sum to the step; the climate's insolation table and heat-capacity
+   build apart from K1, the ocean's coefficient builds apart from the
    Jacobi sweeps);
 8. the sharded path on a 1x1 mesh, in this process, in a world-size-1
    NCCL group: the two-level flow kernels (K10a cold with exit ids and

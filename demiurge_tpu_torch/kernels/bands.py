@@ -65,13 +65,12 @@ class Bands:
         return -(-H // self.th)
 
 
-def cluster_of(W: int, segment: int = SEGMENT,
-               cluster_max: int = CLUSTER_MAX) -> int:
+def cluster_of(W: int, segment: int = SEGMENT) -> int:
     """The least power-of-two cluster whose blocks hold at most
-    ``segment`` columns each, at most ``cluster_max``, and fewer where a
+    ``segment`` columns each, at most ``CLUSTER_MAX``, and fewer where a
     block would hold less than ``MARGIN`` (the kernels refuse that)."""
     c = 1
-    while c < cluster_max and c * segment < W:
+    while c < CLUSTER_MAX and c * segment < W:
         c *= 2
     while c > 1 and W - (c - 1) * -(-W // c) < MARGIN:
         c //= 2
@@ -79,32 +78,32 @@ def cluster_of(W: int, segment: int = SEGMENT,
 
 
 def rows_max(W: int, layout: Layout, segment: int = SEGMENT,
-             cluster_max: int = CLUSTER_MAX, smem: int = SMEM_BYTES) -> int:
+             smem: int = SMEM_BYTES) -> int:
     """The most extended rows a band of this width can hold."""
-    seg = -(-W // cluster_of(W, segment, cluster_max))
+    seg = -(-W // cluster_of(W, segment))
     return (smem // 4 - layout.slack) // layout.words(seg)
 
 
 def halo_max(W: int, layout: Layout, segment: int = SEGMENT,
-             cluster_max: int = CLUSTER_MAX, smem: int = SMEM_BYTES,
-             occupancy=None) -> int:
+             smem: int = SMEM_BYTES, occupancy=None) -> int:
     """The deepest halo a launch takes: a quarter of the band's rows, so
-    that at least half of them are output rows."""
-    return rows_max(W, layout, segment, cluster_max, smem) // 4
+    that at least half of them are output rows (``occupancy``, which only
+    ``plan`` reads, is taken so that both take the same keywords)."""
+    return rows_max(W, layout, segment, smem) // 4
 
 
 def plan(W: int, H: int, halo: int, layout: Layout,
-         segment: int = SEGMENT, cluster_max: int = CLUSTER_MAX,
-         smem: int = SMEM_BYTES, occupancy=None) -> Bands:
+         segment: int = SEGMENT, smem: int = SMEM_BYTES,
+         occupancy=None) -> Bands:
     """The geometry of a launch whose passes reach ``halo`` rows.  The
     bands come in waves of as many clusters as the card runs at once
     (``occupancy(cluster, smem)``; by default one block a multiprocessor
     of an H100): the fewest waves whose bands fit, every wave full, the
     bands of about the same height and, on small grids, at least twice as
     tall as the halo."""
-    cluster = cluster_of(W, segment, cluster_max)
+    cluster = cluster_of(W, segment)
     seg = -(-W // cluster)
-    th_max = rows_max(W, layout, segment, cluster_max, smem) - 2 * halo
+    th_max = rows_max(W, layout, segment, smem) - 2 * halo
     if halo < 1 or th_max < 1 or W < MARGIN:
         raise ValueError(f"a band of width {W} cannot hold a halo of "
                          f"{halo} rows")

@@ -19,8 +19,8 @@ its plain twin bit for bit (NaN where the twin has NaN):
 
 Prints one JSON line: the tree, the card, and each call's ms and
 launches.  Only entry points that every slice of the port since the
-coupled step has are used, so two checkouts can be raced alternately in
-one session on one card (order A B B A).
+coupled step has are used, so two checkouts can be raced alternately on
+one card (order A B B A).
 """
 
 from __future__ import annotations
