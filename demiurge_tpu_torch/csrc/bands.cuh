@@ -164,7 +164,7 @@ __device__ __forceinline__ int wrap(int x, int W) {
 // writes the cell into the margins of the neighbours that copy it (every
 // block holds at least kMargin columns, so only the two beside it do);
 // the cluster barrier after the pass makes the margins whole.
-constexpr int kMargin = 16;
+constexpr int kMargin = 32;
 
 // the block's dynamic shared memory; planes and tables are offsets into
 // it, so that every access of the block's own copy is a shared-memory

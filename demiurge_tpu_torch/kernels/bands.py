@@ -24,7 +24,7 @@ SMEM_BYTES = 232448     # the shared memory a block may ask for (227 KB)
 SEGMENT = 256           # a block's columns, as near as the cluster allows
 CLUSTER_MAX = 16        # blocks a cluster (above 8: non-portable on sm_90)
 SMS = 132               # an H100 SXM's multiprocessors: bands to fill them
-MARGIN = 16             # a block's copies of its neighbours' columns a side
+MARGIN = 32             # a block's copies of its neighbours' columns a side
 
 
 @dataclasses.dataclass(frozen=True)

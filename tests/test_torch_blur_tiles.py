@@ -47,13 +47,13 @@ SOUTH_CAP = (-PI / 2, 0.5, -PI, PI)  # the south pole only
 # (W, H, coords, plan overrides), as in test_torch_climate_tiles.py
 GRIDS = {
     "256x128": (256, 128, GLOBAL, dict(segment=64, smem=30000)),
-    "ragged-250x100": (250, 100, GLOBAL, dict(segment=48, smem=20000)),
+    "ragged-250x100": (250, 100, GLOBAL, dict(segment=48, smem=30000)),
     "one-tile-column-128x64": (128, 64, GLOBAL, {}),
-    "H<2k-64x10": (64, 10, GLOBAL, dict(segment=16, smem=24000)),
+    "H<2k-64x10": (64, 10, GLOBAL, dict(segment=16, smem=40000)),
     "odd-255x128": (255, 128, GLOBAL, dict(segment=64, smem=30000)),
-    "odd-33x6": (33, 6, GLOBAL, dict(segment=8, smem=24000)),
-    "band-96x48": (96, 48, BAND, dict(segment=32, smem=24000)),
-    "south-cap-40x24": (40, 24, SOUTH_CAP, dict(segment=16, smem=20000)),
+    "odd-33x6": (33, 6, GLOBAL, dict(segment=8, smem=40000)),
+    "band-96x48": (96, 48, BAND, dict(segment=32, smem=40000)),
+    "south-cap-40x24": (40, 24, SOUTH_CAP, dict(segment=16, smem=40000)),
 }
 # the pre-blur's radius; taps several rows away; more than 5 iterations,
 # some of which outgrow the smaller bands (two one-pass launches)

@@ -50,11 +50,11 @@ GRIDS = {
     "256x128": (256, 128, GLOBAL, dict(segment=64, smem=40000)),
     "ragged-250x100": (250, 100, GLOBAL, dict(segment=48, smem=30000)),
     "one-tile-column-128x64": (128, 64, GLOBAL, {}),
-    "H<2k-64x10": (64, 10, GLOBAL, dict(segment=16, smem=16000)),
+    "H<2k-64x10": (64, 10, GLOBAL, dict(segment=16, smem=32000)),
     "odd-255x128": (255, 128, GLOBAL, dict(segment=64, smem=40000)),
-    "odd-33x6": (33, 6, GLOBAL, dict(segment=8, smem=13000)),
-    "band-96x48": (96, 48, BAND, dict(segment=32, smem=20000)),
-    "south-cap-40x24": (40, 24, SOUTH_CAP, dict(segment=16, smem=14000)),
+    "odd-33x6": (33, 6, GLOBAL, dict(segment=8, smem=32000)),
+    "band-96x48": (96, 48, BAND, dict(segment=32, smem=38000)),
+    "south-cap-40x24": (40, 24, SOUTH_CAP, dict(segment=16, smem=35000)),
 }
 SUBSTEPS = (1, 5, 8, 10, 17)
 
