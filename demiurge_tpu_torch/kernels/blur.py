@@ -139,8 +139,8 @@ def card_launches(grid: Grid, rlist):
 
 @functools.lru_cache(maxsize=None)
 def _card_launches(grid: Grid, rlist: tuple):
-    return launches(grid, rlist, occupancy=functools.partial(
-        bands.card_clusters, "demiurge_blur_band_clusters"))
+    return tuple(launches(grid, rlist, occupancy=functools.partial(
+        bands.card_clusters, "demiurge_blur_band_clusters")))
 
 
 def launch_count(plan) -> int:

@@ -95,8 +95,8 @@ def launches(grid: Grid, substeps: int, **plan_kw):
 def card_launches(grid: Grid, substeps: int):
     """``launches`` with the clusters the card runs at once (builds the
     kernels), once per grid and depth."""
-    return launches(grid, substeps, occupancy=functools.partial(
-        bands.card_clusters, "demiurge_climate_band_clusters"))
+    return tuple(launches(grid, substeps, occupancy=functools.partial(
+        bands.card_clusters, "demiurge_climate_band_clusters")))
 
 
 def climate_step_plain(T, cinv, asr, grid: Grid, diffusivity: float):
