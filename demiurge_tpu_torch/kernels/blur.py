@@ -91,7 +91,7 @@ def tables(grid: Grid, rlist, device):
 
 def reach(r: float) -> int:
     """The vertical reach of an iteration of radius ``r``: the farthest row
-    its taps read (blur.cu ``reach``)."""
+    its taps read (blur.cu's ``max(kmax, -kmin)``)."""
     from ..ops.blur import vertical_taps
 
     out = 0

@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers it includes) is
 compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per
 source, all started together, and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs at first use, from a kernel wrapper that was
-handed a CUDA tensor, and lands in ``demiurge_tpu_torch/_build/``
-(git-ignored) under a name keyed by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the existing library.
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use, from a kernel wrapper that was handed a CUDA tensor, and
+lands in ``demiurge_tpu_torch/_build/`` (git-ignored) under a name keyed
+by a hash of the sources, headers and flags, so an edited source rebuilds
+and an unchanged one loads the existing library.
 Nothing here runs at import.
 """
 

@@ -215,7 +215,9 @@ def test_climate_bands_equal_plain_twin(name):
         grid, T, cinv, asr = _case(W, H, coords, substeps)
         got, n = band_schedule(T, cinv, asr, grid, 0.55e6, plan_kw)
         want = kc.climate_step_plain(T, cinv, asr, grid, 0.55e6)
-        assert n == -(-substeps // min(kc.STEPS_PER_LAUNCH, bands.halo_max(W, kc.LAYOUT, **plan_kw)))
+        cap = min(kc.STEPS_PER_LAUNCH,
+                  bands.halo_max(W, kc.LAYOUT, **plan_kw))
+        assert n == -(-substeps // cap)
         assert np.array_equal(got, want.numpy()), (name, substeps)
 
 
