@@ -15,11 +15,16 @@
    after one plain ocean step), bit for bit, with the tiered advect sampler
    there (atol 1e-5); the sampler at 2048x1024 (atol 1e-5) and, at
    2048x1000 (H not a whole number of 32-row strips), the same kernel with
-   a one-row table (K4b, atol 1e-5);
+   a one-row table (K4b, atol 1e-5); the fused advect stage (K4's stage
+   form, both designs) against its twin, the torch ops around the sampler
+   kernel, at 2048x1024, 8192x4096 and 2048x1000 (the one-row table):
+   within 1e-6 of max|u| with NaN and inf where the twin's are, the count
+   of differing pixels printed, and its two designs raced;
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
    at --jacobi 1000, 5 at --jacobi 200, 1 at 2048x1000, which takes the
    one-row table) and 5 ``ocean_step``s at the coupled model's solver
-   depths; fails unless its kernels launched, the
+   depths; fails unless its kernels launched, the advect stage ran as one
+   fused launch a step, the
    fields are finite, the CLI logged ``advect_clamped``, and the kernel
    path's (u, v) match the same 5 steps through the plain twins (1e-5 of
    max|u|);
@@ -29,7 +34,11 @@
    bit for bit there and at 8192x4096, and K1 over a climate dispatch
    (250 substeps) at 4096x2048, NaNs and infs where the twin's are, each
    with its launches (at most 2 a coupled step, 32 a dispatch), bands and
-   CUDA-event time; directions (ties at most 1 per 10^4 pixels), the flow
+   CUDA-event time; directions (ties at most 1 per 10^4 pixels); the
+   packed directions (K6's packed form: its codes against the plain twin,
+   ties at most 1 per 10^4 pixels, its packed masks exactly pack_masks of
+   its codes and their mouths) there, on a 2000x1000 grid and at
+   8192x4096; the flow
    A fixpoint (K7) cold and warm (bit for bit) and vis (K8, exact), each
    with its rounds, host reads and tile visits, and both on a serpentine
    river (32 columns x 200 rows over the dateline) and on a 2000x1000 grid
@@ -38,7 +47,9 @@
    2048x1024 for 3 steps and at its default 8192x4096 for 1 step, and the
    ``climate`` CLI at its default 4096x2048 for 500 substeps; prints K1's
    and K5's launches a run (fails above 2 a coupled step or 32 a climate
-   dispatch); fails unless every kernel of the step launched and every
+   dispatch); fails unless every kernel of the step launched, the advect
+   and the directions + masks ran as one fused launch each a step, and
+   every
    logged number and field of the coupled runs is finite.  The climate
    run's grid is past the reference model's stability bound on land
    (explicit substep, a = D dt / C > 1/8), where the reference diverges
@@ -50,7 +61,10 @@
    pixels; and a per-stage device profile of one step (CUDA events; the
    rows sum to the step; the climate's insolation table and heat-capacity
    build apart from K1, the ocean's coefficient builds apart from the
-   Jacobi sweeps);
+   Jacobi sweeps; each row's kernel launches), the same profile with the
+   advect and flow-mask stages as the tree before their fused kernels ran
+   them, and torch.profiler's count of device kernels in one step, each
+   way;
 8. the sharded path on a 1x1 mesh, in this process, in a world-size-1
    NCCL group: the two-level flow kernels (K10a cold with exit ids and
    warm without, K10b with a zero and a nonzero seed) on the coupled
@@ -137,6 +151,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int):
+    """(mean device milliseconds of ``fn`` over ``reps`` calls, whether
+    the host kept ahead): the calls are queued behind a sleep kernel of
+    about 0.1 s, so a kernel shorter than its wrapper's host time is timed
+    back to back on the device, without the host's gaps."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ahead = time.perf_counter() - t0 < 0.05
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, ahead
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -213,12 +247,15 @@ def main() -> int:
                 "flow_solve_fused": (kx, "LAUNCHES_FUSED"),
                 "flow_solve_wave": (kx, "LAUNCHES_WAVE"),
                 "flow_banded_rounds": (kx, "LAUNCHES_BANDED"),
-                "jacobi_packed": (kp, "LAUNCHES")}
+                "jacobi_packed": (kp, "LAUNCHES"),
+                "advect_stage": (ka, "LAUNCHES_STAGE"),
+                "flow_directions_packed": (kd, "LAUNCHES_PACKED")}
     # the kernels of the single-card coupled path; the mesh path's are
     # phase 8's, K4b's phase 4's, K11's phase 9's
     single_card = ["jacobi_pressure", "jacobi_diffusion",
                    "advect_sample_tiered", "climate", "blur",
-                   "flow_directions", "flow_solve", "flow_vis"]
+                   "flow_directions", "flow_solve", "flow_vis",
+                   "advect_stage", "flow_directions_packed"]
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -233,9 +270,11 @@ def main() -> int:
         swaps = [(kj, "pressure_solve", kj.pressure_solve_plain),
                  (kj, "diffusion_solve", kj.diffusion_solve_plain),
                  (ka, "advect_sample", ka.advect_sample_tiered_plain),
+                 (ka, "advect_stage", ka.advect_stage_plain),
                  (kc, "climate_step", kc.climate_step_plain),
                  (kb, "blur", kb.blur_plain),
                  (kd, "flow_directions", kd.flow_directions_plain),
+                 (kd, "directions_packed", kd.directions_packed_plain),
                  (kf, "flow_solve_area", kf.flow_solve_area_plain),
                  (kf, "vis_solve", kf.vis_solve_plain)]
         with contextlib.ExitStack() as stack:
@@ -368,6 +407,34 @@ def main() -> int:
     torch.cuda.synchronize()
     assert torch.equal(gu, wu) and torch.equal(gv, wv), \
         max(max_err(gu, wu), max_err(gv, wv))
+    def stage_against_twin(label, u_, v_, t_, g_):
+        """The fused advect stage (each design) against its twin: within
+        1e-6 of max|u|, NaN and inf where the twin's are, one launch.
+        Returns the differing pixels of each design, in words."""
+        wu, wv = ka.advect_stage_plain(u_, v_, t_, g_, cfg)
+        scale = float(torch.maximum(wu.abs().max(), wv.abs().max()))
+        notes = []
+        for design in ka.STAGE_DESIGNS:
+            n0 = ka.LAUNCHES_STAGE
+            gu, gv = ka.advect_stage_cuda(u_, v_, t_, g_, cfg, design=design)
+            assert ka.LAUNCHES_STAGE - n0 == 1
+            torch.cuda.synchronize()
+            for a, b in ((gu, wu), (gv, wv)):
+                assert torch.equal(torch.isnan(a), torch.isnan(b)), label
+                assert torch.equal(torch.isinf(a), torch.isinf(b)), label
+            err = max(max_err(torch.nan_to_num(gu), torch.nan_to_num(wu)),
+                      max_err(torch.nan_to_num(gv), torch.nan_to_num(wv)))
+            differ = int(((gu != wu) & ~torch.isnan(wu)).sum()
+                         + ((gv != wv) & ~torch.isnan(wv)).sum())
+            assert scale > 0 and err <= 1e-6 * scale, (label, design, err)
+            notes.append(f"{design} {differ} of {2 * u_.numel()} values "
+                         f"differ, max err {err:.3e}")
+        print(f"  fused advect stage at {label} against its twin (max|u|, "
+              f"|v| {scale:.4g}): " + "; ".join(notes))
+        return "; ".join(notes)
+
+    stage_notes = {f"{BIG[0]}x{BIG[1]}": stage_against_twin(
+        f"{BIG[0]}x{BIG[1]}", u_big, v_big, t_big, big_grid)}
     dx, dy, meta, ry = sampler_inputs(u_big, v_big, big_grid)
     gu, gv = ka.advect_sample_cuda(u_big, v_big, dx, dy, meta, ka.STRIP, ry)
     wu, wv = ka.advect_sample_tiered_plain(u_big, v_big, dx, dy, meta,
@@ -426,6 +493,48 @@ def main() -> int:
            f"K4b at {W}x{HB}: one-row table (Rx {rx1}, Ry {ry1}), atol "
            f"1e-5")
 
+    # the fused stage: at 2048x1000 (the one-row table) and 2048x1024; its
+    # two designs raced in turns (A B B A), each beside its twin
+    terrain_b = terrain[:HB].contiguous()
+    stage_notes[f"{W}x{HB}"] = stage_against_twin(f"{W}x{HB}", ub, vb,
+                                                  terrain_b, grid_b)
+    stage_b_ms, _ = device_ms(lambda: ka.advect_stage_cuda(
+        ub, vb, terrain_b, grid_b, cfg), 20)
+    stage_notes[f"{W}x{H}"] = stage_against_twin(f"{W}x{H}", u, v, terrain,
+                                                 grid)
+    race = {d: [] for d in ka.STAGE_DESIGNS}
+    first, second = ka.STAGE_DESIGNS
+    for design in (first, second, second, first):
+        race[design].append(device_ms(lambda: ka.advect_stage_cuda(
+            u, v, terrain, grid, cfg, design=design), 20)[0])
+    ms, ahead = device_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid,
+                                                       cfg), 20)
+    call_ms = cuda_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid,
+                                                   cfg), 20)
+    sampler_ms, _ = device_ms(lambda: ka.advect_sample_cuda(
+        u, v, dx, dy, meta, ka.STRIP, ry), 20)
+    plain_ms = cuda_ms(lambda: ka.advect_stage_plain(u, v, terrain, grid,
+                                                     cfg), 5)
+    print(f"  fused advect stage at {W}x{H}: designs raced (device ms, "
+          f"order A B B A, queued behind a sleep, {card}): "
+          f"{json.dumps(race)}; kept {ka.STAGE_DESIGN} {ms:.4f} ms (host "
+          f"ahead: {ahead}), a call on the host's clock {call_ms:.4f} ms; "
+          f"the sampler form alone {sampler_ms:.4f} ms; twin {plain_ms:.3f} "
+          f"ms; at {W}x{HB} (one-row table) {stage_b_ms:.4f} ms")
+    # per pixel: ~300 float operations (backtrace, taps, transport back,
+    # forcing) and 7 libm calls
+    record("advect_stage", "demiurge_tpu_torch/csrc/advect.cu",
+           "demiurge_tpu/pallas_kernels/advect.py:235", err, ms, plain_ms,
+           5 * plane, 300 * N,
+           f"the whole single-card advect stage in one launch (design "
+           f"{ka.STAGE_DESIGN}; device time, launches queued ahead; a call "
+           f"on the host's clock {call_ms:.4f} ms; race "
+           f"{json.dumps(race)}); against the twin "
+           f"(torch ops around the sampler kernel): " + " | ".join(
+               f"{k}: {v}" for k, v in stage_notes.items())
+           + f"; one-row table at {W}x{HB} {stage_b_ms:.4f} ms")
+    del terrain_b
+
     # -- 4. the ocean path, counted ------------------------------------------
     zero_counts()
     log_text = io.StringIO()
@@ -443,7 +552,7 @@ def main() -> int:
     step_ms = (time.perf_counter() - t0) * 1e3 / 5
     ocean_launches = read_counts(["jacobi_pressure", "jacobi_diffusion",
                                   "advect_sample_tiered",
-                                  "advect_sample_pallas"])
+                                  "advect_sample_pallas", "advect_stage"])
     records = [json.loads(line) for line in log_text.getvalue().splitlines()
                if line.startswith("{")]
     for rec in records:
@@ -452,6 +561,11 @@ def main() -> int:
     assert all("advect_clamped" in rec for rec in records)
     for name, n in ocean_launches.items():
         assert n > 0, f"{name} was never launched on the ocean path"
+    # 12 steps (7 CLI, 5 ocean_step), one fused advect launch each, one of
+    # them on the one-row table; the sampler form never ran
+    assert ocean_launches["advect_stage"] == 12, ocean_launches
+    assert ocean_launches["advect_sample_tiered"] == 12, ocean_launches
+    assert ocean_launches["advect_sample_pallas"] == 1, ocean_launches
     for f in (u, v, p, d):
         assert f.shape == (H, W) and bool(torch.isfinite(f).all())
     u_ref, v_ref = u0, v0
@@ -591,7 +705,53 @@ def main() -> int:
     record("flow_directions", "demiurge_tpu_torch/csrc/directions.cu",
            "demiurge_tpu/pallas_kernels/directions.py:152", err, ms,
            plain_ms, 3 * plane, 90 * N,
-           f"{ties} ties of {N} pixels (bound 1 per 10^4)")
+           f"{ties} ties of {N} pixels (bound 1 per 10^4); the codes-only "
+           f"form, which the mesh step runs")
+
+    def packed_against_twin(label, hb_, sel_, g_):
+        """K6's packed form in one launch: its codes against the plain
+        twin (ties at most 1 per 10^4 pixels) and its packed masks exactly
+        pack_masks of its own codes and their mouths.  Returns the
+        ties."""
+        n0 = kd.LAUNCHES_PACKED
+        code_k, packed_k = kd.directions_packed_cuda(hb_, sel_, g_)
+        assert kd.LAUNCHES_PACKED - n0 == 1
+        want_code = kd.flow_directions_plain(hb_, sel_, g_)
+        _, mouth_k, _ = of.incoming_mask(code_k, g_)
+        want_packed = kf.pack_masks(code_k, mouth_k, g_)
+        torch.cuda.synchronize()
+        ties_ = int((code_k != want_code).sum())
+        assert ties_ <= hb_.numel() // 10000, (label, ties_)
+        assert torch.equal(packed_k, want_packed), label
+        print(f"  packed directions at {label}: {ties_} ties of "
+              f"{hb_.numel()} pixels; packed masks equal pack_masks of its "
+              f"codes ({int(((packed_k >> 16) & 1).sum())} mouths)")
+        return ties_
+
+    packed_ties = {f"{W}x{H}": packed_against_twin(f"{W}x{H}", hb, sel,
+                                                   grid)}
+
+    def parent_masks(hb_, sel_, g_):
+        """The codes and masks as the tree before the packed form made
+        them: the codes kernel, then incoming_mask and pack_masks."""
+        code_ = kd.flow_directions(hb_, sel_, g_)
+        _, mouth_, _ = of.incoming_mask(code_, g_)
+        return code_, kf.pack_masks(code_, mouth_, g_)
+
+    packed_ms, packed_ahead = device_ms(
+        lambda: kd.directions_packed_cuda(hb, sel, grid), 20)
+    packed_call_ms = cuda_ms(lambda: kd.directions_packed_cuda(hb, sel, grid),
+                             20)
+    codes_ms, _ = device_ms(lambda: kd.flow_directions_cuda(hb, sel, grid),
+                            20)
+    parent_ms = cuda_ms(lambda: parent_masks(hb, sel, grid), 5)
+    packed_plain_ms = cuda_ms(
+        lambda: kd.directions_packed_plain(hb, sel, grid), 3)
+    print(f"  packed directions at {W}x{H}: {packed_ms:.4f} device ms "
+          f"(launches queued ahead; host ahead: {packed_ahead}), a call on "
+          f"the host's clock {packed_call_ms:.4f} ms; the codes-only form "
+          f"{codes_ms:.4f} device ms; the parent's codes kernel + "
+          f"incoming_mask + pack_masks {parent_ms:.3f} ms ({card})")
 
     code = want
     _, mouth, _ = of.incoming_mask(code, grid)
@@ -638,6 +798,23 @@ def main() -> int:
     # tiles do not divide, against their twins
     g_r = Grid(*RAGGED)
     hb_r = ob.blur(cli._terrain(g_r, SEED, dev), g_r, ccfg.flow_preblur)
+    packed_ties[f"{RAGGED[0]}x{RAGGED[1]}"] = packed_against_twin(
+        f"{RAGGED[0]}x{RAGGED[1]}", hb_r, torch.ones_like(hb_r), g_r)
+    g_b = Grid(*BIG)
+    hb_b = ob.blur(cli._terrain(g_b, SEED, dev), g_b, ccfg.flow_preblur)
+    packed_ties[f"{BIG[0]}x{BIG[1]}"] = packed_against_twin(
+        f"{BIG[0]}x{BIG[1]}", hb_b, torch.ones_like(hb_b), g_b)
+    del hb_b
+    torch.cuda.empty_cache()
+    record("flow_directions_packed", "demiurge_tpu_torch/csrc/directions.cu",
+           "demiurge_tpu/pallas_kernels/directions.py:152", 0.0, packed_ms,
+           packed_plain_ms, 5 * plane, 103 * N,
+           f"codes and packed masks in one launch (device time, launches "
+           f"queued ahead; a call on the host's clock {packed_call_ms:.4f} "
+           f"ms; the codes-only form {codes_ms:.4f}); ties against the "
+           f"plain codes {json.dumps(packed_ties)}, packed masks exact; "
+           f"the parent's codes kernel + incoming_mask + pack_masks "
+           f"{parent_ms:.3f} ms")
     code_r = of.flow_directions(hb_r, torch.ones_like(hb_r), g_r)
     _, mouth_r, _ = of.incoming_mask(code_r, g_r)
     for label, g_, (pk_, ar_) in (
@@ -704,6 +881,11 @@ def main() -> int:
     print(f"launches on the coupled path: {launches}")
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the coupled path"
+    # 4 coupled steps: one fused advect and one packed directions launch
+    # each, and neither stage's other form
+    for fused, every in (("advect_stage", "advect_sample_tiered"),
+                         ("flow_directions_packed", "flow_directions")):
+        assert launches[fused] == launches[every] == 4, launches
     assert len(records) == 3 + 1 + 2, log_text.getvalue()
     assert not climate_unstable(grid)
     for rec in records[:4]:
@@ -791,7 +973,7 @@ def main() -> int:
         mark(f"climate ({ccfg.climate_substeps} substeps, K1)")
         oc = ccfg.ocean
         uu, vv = ocean.advect(st.u, st.v, st.height, grid, oc)
-        mark("ocean advect")
+        mark("ocean advect (K4, fused)")
         # ocean.diffusion and ocean.pressure_solve, their coefficient
         # builds apart from the sweeps
         dco = kj.diffusion_coefficients(st.height, grid)
@@ -809,12 +991,10 @@ def main() -> int:
         mark("ocean projection")
         hbs = ob.blur(st.height, grid, ccfg.flow_preblur)
         mark("flow pre-blur")
-        cd = of.flow_directions(hbs, st.sel, grid)
-        mark("flow directions")
-        _, mo, _ = of.incoming_mask(cd, grid)
+        _, pk = kd.directions_packed(hbs.contiguous(), st.sel.contiguous(),
+                                     grid)
         ar = of.cell_area_lower_edge(grid, dev)
-        pk = kf.pack_masks(cd, mo, grid)
-        mark("flow masks")
+        mark("flow directions + masks (K6, fused)")
         acc = kf.flow_solve_area(pk, ar, grid, a0=st.flow_acc)
         mark("flow A fixpoint")
         vis = kf.vis_solve(pk, grid)
@@ -828,6 +1008,34 @@ def main() -> int:
                                   u=uu, v=vv, temperature=T, t_index=ti,
                                   flow_acc=acc)
 
+    @contextlib.contextmanager
+    def parent_stages():
+        """The advect and flow-mask stages as the tree before their fused
+        kernels ran them: torch ops around the sampler kernel; the codes
+        kernel, then incoming_mask and pack_masks; the per-grid tables
+        rebuilt every call."""
+        def rebuilt(fn, cache):
+            def call(*args):
+                cache.clear()
+                return fn(*args)
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in (
+                    (ka, "advect_stage", ka.advect_stage_plain),
+                    (kd, "directions_packed", parent_masks),
+                    (of, "cell_area_lower_edge",
+                     lambda g, d, scale=1e-5: of._cell_area_build(g, d,
+                                                                  scale)),
+                    (ocean, "stage_tables",
+                     rebuilt(ocean.stage_tables, ocean._TABLES)),
+                    (ocean, "sampler_plan",
+                     rebuilt(ocean.sampler_plan, ocean._PLANS))):
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            yield
+
+    from demiurge_tpu_torch.kernels import launch_counts
+
     prev = model.coupled_step(start, grid, ccfg)  # a warm flow_acc
     want = model.coupled_step(prev, grid, ccfg)
     events = []
@@ -835,25 +1043,66 @@ def main() -> int:
     def mark(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        events.append((name, ev))
+        events.append((name, ev, launch_counts()))
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mark("start")
-    got = staged_step(prev, mark)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    for name in ("height", "u", "v", "temperature", "flow_acc"):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-    rows = [(name, events[i][1].elapsed_time(ev))
-            for i, (name, ev) in enumerate(events[1:])]
-    total = events[0][1].elapsed_time(events[-1][1])
-    print(f"profile of one warm coupled step at {W}x{H} (CUDA events on the "
-          f"stream; device-timeline ms, gaps included; {card}):")
-    for name, t in rows:
-        print(f"  {name:32s} {t:9.3f} ms  {100 * t / total:5.1f}%")
-    print(f"  {'sum of rows':32s} {sum(t for _, t in rows):9.3f} ms; "
-          f"first-to-last event {total:.3f} ms; host clock {host_ms:.3f} ms")
+    def profile_rows(label, exact=True):
+        """One staged step, timed between stages; its rows and launches.
+        Equal to coupled_step, or (``exact`` false: the stages as the tree
+        before the fused kernels ran them) u and v within 1e-6 of max,
+        the rest equal."""
+        events.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark("start")
+        got = staged_step(prev, mark)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        for name in ("height", "u", "v", "temperature", "flow_acc"):
+            a, b = getattr(got, name), getattr(want, name)
+            if exact or name not in ("u", "v"):
+                assert torch.equal(a, b), (label, name)
+            else:
+                assert max_err(a, b) <= 1e-6 * float(b.abs().max()), name
+        rows = []
+        for (_, ev0, n0), (name, ev, n1) in zip(events, events[1:]):
+            fired = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+            rows.append((name, ev0.elapsed_time(ev), fired))
+        total = events[0][1].elapsed_time(events[-1][1])
+        print(f"profile of one warm coupled step at {W}x{H}, {label} (CUDA "
+              f"events on the stream; device-timeline ms, gaps included; "
+              f"kernel launches of the row; {card}):")
+        for name, t, fired in rows:
+            print(f"  {name:40s} {t:9.3f} ms  {100 * t / total:5.1f}%  "
+                  f"{json.dumps(fired)}")
+        print(f"  {'sum of rows':40s} {sum(t for _, t, _ in rows):9.3f} ms; "
+              f"first-to-last event {total:.3f} ms; host clock "
+              f"{host_ms:.3f} ms")
+
+    def device_kernels():
+        """Device kernels, and copies and fills, of one coupled_step
+        (torch.profiler)."""
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            model.coupled_step(prev, grid, ccfg)
+            torch.cuda.synchronize()
+        kinds = {"kernels": 0, "copies and fills": 0}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kinds["copies and fills" if e.name.startswith(
+                    ("Memcpy", "Memset")) else "kernels"] += 1
+        return kinds
+
+    profile_rows("fused advect and flow masks")
+    with parent_stages():
+        profile_rows("advect and flow masks as the tree before them ran "
+                     "them", exact=False)
+        before_kernels = device_kernels()
+    after_kernels = device_kernels()
+    print(f"device kernels in one coupled step (torch.profiler): before the "
+          f"fused stages {json.dumps(before_kernels)}, after "
+          f"{json.dumps(after_kernels)}")
 
     # -- 8. the sharded path on a 1x1 mesh (NCCL, world size 1) -----------
     import torch.distributed as tdist
@@ -1113,7 +1362,7 @@ def main() -> int:
     # round the chain sums apart
     hold_to_single(got, want, "the staged mesh step against coupled_step")
     rows = [(name, events[i][1].elapsed_time(ev))
-            for i, (name, ev) in enumerate(events[1:])]
+            for i, (name, ev, _) in enumerate(events[1:])]
     total = events[0][1].elapsed_time(events[-1][1])
     print(f"profile of one coupled step on the 1x1 mesh at {W}x{H} (CUDA "
           f"events; device-timeline ms, gaps included; {card}):")

@@ -26,4 +26,6 @@ def launch_counts() -> dict:
             "flow_solve_fused": flow_deadends.LAUNCHES_FUSED,
             "flow_solve_wave": flow_deadends.LAUNCHES_WAVE,
             "flow_banded_rounds": flow_deadends.LAUNCHES_BANDED,
-            "jacobi_packed": jacobi_packed.LAUNCHES}
+            "jacobi_packed": jacobi_packed.LAUNCHES,
+            "advect_stage": advect.LAUNCHES_STAGE,
+            "flow_directions_packed": directions.LAUNCHES_PACKED}

@@ -12,9 +12,14 @@ row (``global_meta``) gives the single-radius form.
 
 ``advect_sample`` launches the CUDA kernel (``csrc/advect.cu``) for CUDA
 tensors and runs the plain twin ``advect_sample_tiered_plain`` — the literal
-tap sum — for CPU tensors.  ``LAUNCHES`` counts kernel launches;
+tap sum — for CPU tensors.  ``advect_stage`` is the whole single-card
+advect stage of ``ops.ocean`` (backtrace, clamp, tap sum, transport back,
+forcing, land mask) in one launch of the same kernel's stage form; its
+twin ``advect_stage_plain`` is ``ops.ocean.advect_plain``, the torch ops
+around the sampler.  ``LAUNCHES`` counts kernel launches of both forms;
 ``LAUNCHES_ONE_ROW`` counts those of them with a one-row table, the
-single-radius form that replaces the reference's ``advect_sample_pallas``.
+single-radius form that replaces the reference's ``advect_sample_pallas``;
+``LAUNCHES_STAGE`` counts the stage form's.
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ STRIDE = 8     # lattice stride of a polar strip's coarse taps
 
 LAUNCHES = 0
 LAUNCHES_ONE_ROW = 0
+LAUNCHES_STAGE = 0
+
+# the stage kernel's designs (csrc/advect.cu): one thread a pixel with its
+# taps gathered through L1, or row tiles whose tap window is staged in
+# shared memory; STAGE_DESIGN is the one the stage runs
+STAGE_DESIGNS = ("gather", "tiles")
+STAGE_DESIGN = "gather"
 
 
 def strip_radii(grid, vmax: float, timestep: float, strip: int = STRIP,
@@ -137,3 +149,53 @@ def advect_sample(u, v, dx, dy, meta, strip_rows: int, Ry: int):
     if use_cuda_kernels(u, v, dx, dy):
         return advect_sample_cuda(u, v, dx, dy, meta, strip_rows, Ry)
     return advect_sample_tiered_plain(u, v, dx, dy, meta, strip_rows, Ry)
+
+
+def advect_stage_plain(u, v, terrain, grid, cfg):
+    """The stage's twin: ``ops.ocean.advect_plain``, torch ops around the
+    sampler."""
+    from ..ops.ocean import advect_plain
+
+    return advect_plain(u, v, terrain, grid, cfg)
+
+
+def advect_stage_cuda(u, v, terrain, grid, cfg, design=None):
+    """The whole single-card advect stage on the card: one launch on the
+    current stream, no synchronisation.  The table is the tiered one where
+    H is a whole number of strips, else the one-row one, as the twin takes
+    them on the card.  ``design``: one of STAGE_DESIGNS (default
+    STAGE_DESIGN)."""
+    global LAUNCHES, LAUNCHES_ONE_ROW, LAUNCHES_STAGE
+    from ..ops import ocean
+
+    check_kernel_inputs(("u", "v", "terrain"), (u, v, terrain),
+                        shape=grid.shape)
+    if not grid.wrap_x:
+        raise NotImplementedError("the advect stage needs an x-periodic grid")
+    H, W = grid.shape
+    meta, rows, ry, _ = ocean.sampler_plan(
+        grid, cfg, ocean.sampler_tiered(grid, True), u.device)
+    meta = _check_meta(meta, rows, H)
+    tables = ocean.stage_tables(grid, u.device).flat
+    scalars = ocean.stage_scalars(grid, cfg)
+    from . import build
+
+    ou, ov = torch.empty_like(u), torch.empty_like(v)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = build.library().demiurge_advect_stage(
+        u.data_ptr(), v.data_ptr(), terrain.data_ptr(), tables.data_ptr(),
+        meta.ctypes.data, meta.shape[0], rows, scalars.ctypes.data,
+        scalars.size, ou.data_ptr(), ov.data_ptr(), H, W, ry, RF, STRIDE,
+        STAGE_DESIGNS.index(design or STAGE_DESIGN), stream)
+    build.check(err, "demiurge_advect_stage")
+    LAUNCHES += 1
+    LAUNCHES_ONE_ROW += int(meta.shape[0] == 1)
+    LAUNCHES_STAGE += 1
+    return ou, ov
+
+
+def advect_stage(u, v, terrain, grid, cfg):
+    """The stage kernel for CUDA tensors, its twin for CPU tensors."""
+    if use_cuda_kernels(u, v, terrain):
+        return advect_stage_cuda(u, v, terrain, grid, cfg)
+    return advect_stage_plain(u, v, terrain, grid, cfg)

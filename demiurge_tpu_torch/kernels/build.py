@@ -46,6 +46,10 @@ SIGNATURES = {
     # stream
     "demiurge_advect_sample": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 5
     + [_P],
+    # u v terrain tables meta(host), nstrips strip_rows, scalars(host)
+    # nscalars, ou ov, H W Ry Rf stride design, stream
+    "demiurge_advect_stage": [_P] * 5 + [_I] * 2 + [_P, _I] + [_P] * 2
+    + [_I] * 6 + [_P],
     # T cinv asr shifts out, H W wrap_s wrap_n pole_shift steps cluster seg
     # th, diff_scale olr_coef, stream
     "demiurge_climate_band": [_P] * 5 + [_I] * 9 + [_F] * 2 + [_P],
@@ -58,8 +62,12 @@ SIGNATURES = {
     # cluster smem -> clusters the card holds at once
     "demiurge_climate_band_clusters": [_I] * 2,
     "demiurge_blur_band_clusters": [_I] * 2,
-    # hb sel q dx8 code, H W, dy8, stream
-    "demiurge_flow_directions": [_P] * 5 + [_I] * 2 + [_F, _P],
+    # hb sel q dx8 code, H W, dy8, ty tx, stream
+    "demiurge_flow_directions": [_P] * 5 + [_I] * 2 + [_F] + [_I] * 2
+    + [_P],
+    # hb sel q dx8 code packed, H W, dy8, turn_s turn_n wrap ty tx, stream
+    "demiurge_flow_directions_packed": [_P] * 6 + [_I] * 2 + [_F]
+    + [_I] * 5 + [_P],
     # packed area A flags stats, H W ty tx first n, stream
     "demiurge_flow_area_tiles": [_P] * 5 + [_I] * 6 + [_P],
     # packed vis, band, flags stats, H W ty tx first n, stream

@@ -13,10 +13,14 @@ on the "coordsMod" grid (x periodic, y clamped — FlowFilter.cpp:253-256):
 
 ``flow_directions`` launches the CUDA kernel (``csrc/directions.cu``) for
 CUDA tensors and runs the plain twin ``flow_directions_plain`` — the
-reference's XLA pass, op by op — for CPU tensors.  The tie-break noise
-and the per-row metric are built once per grid, by the same torch ops the
-twin uses, and handed to the kernel as tables.  ``LAUNCHES`` counts kernel
-launches.
+reference's XLA pass, op by op — for CPU tensors.  ``directions_packed``
+also returns the packed flow masks that K7/K8 read (``kernels.flow``
+``pack_masks`` of the codes and their mouths), from one launch of the
+kernel's packed form on the card; its twin is ``directions_packed_plain``.
+The tie-break noise and the per-row metric are built once per grid, by the
+same torch ops the twin uses, and handed to the kernel as tables.
+``LAUNCHES`` counts kernel launches of both forms, ``LAUNCHES_PACKED``
+those of the packed form.
 
 Knife-edge ties: a pixel whose aspect lies within an ulp of an octant
 boundary, or of the tie-break threshold, can resolve to the neighbouring
@@ -35,10 +39,13 @@ import torch
 from ..core.grid import Grid
 from ..core.platform import check_kernel_inputs, use_cuda_kernels
 from ..core.stencils import get_aspect
-from ..core.topology import NEIGHBORS_FLOW_ORDER, shift
+from ..core.topology import NEIGHBORS_FLOW_ORDER, _pole_col_shift, shift
 
 PI = math.pi
 LAUNCHES = 0
+LAUNCHES_PACKED = 0
+
+TILE = (16, 128)   # a block's tile, rows x columns: csrc/directions.cu's
 
 _TABLES: dict = {}
 
@@ -128,7 +135,7 @@ def flow_directions_cuda(hb, sel, grid: Grid) -> torch.Tensor:
     stream = torch.cuda.current_stream(hb.device).cuda_stream
     err = build.library().demiurge_flow_directions(
         hb.data_ptr(), sel.data_ptr(), q.data_ptr(), dx8.data_ptr(),
-        code.data_ptr(), H, W, dy8(grid), stream)
+        code.data_ptr(), H, W, dy8(grid), *TILE, stream)
     build.check(err, "demiurge_flow_directions")
     LAUNCHES += 1
     return code
@@ -139,3 +146,59 @@ def flow_directions(hb, sel, grid: Grid) -> torch.Tensor:
     if use_cuda_kernels(hb, sel):
         return flow_directions_cuda(hb, sel, grid)
     return flow_directions_plain(hb, sel, grid)
+
+
+def pole_turns(grid: Grid):
+    """(south, north) column turn of a neighbour beyond each pole, 0 where
+    that edge clamps (``topology.shift``'s pole wrap), and whether the
+    incoming masks wrap over the dateline (``ops.flow._incoming_fields``)."""
+    H = grid.height
+    turn = _pole_col_shift(grid)
+    south = turn if grid.wrap_x and grid.wrap_south and H > 1 else 0
+    north = turn if grid.wrap_x and grid.wrap_north and H > 1 else 0
+    wrap = abs(grid.lam1 - grid.lam0) > 2 * PI - 1e-4
+    return south, north, int(wrap)
+
+
+def directions_packed_plain(hb, sel, grid: Grid):
+    """(codes, packed masks) as the plain passes compute them: the
+    direction pass, ``incoming_mask``'s mouths and ``pack_masks``."""
+    from ..ops.flow import incoming_mask
+    from .flow import pack_masks
+
+    code = flow_directions_plain(hb, sel, grid)
+    _, mouth, _ = incoming_mask(code, grid)
+    return code, pack_masks(code, mouth, grid)
+
+
+def directions_packed_cuda(hb, sel, grid: Grid):
+    """The codes and the packed masks on the card: one launch on the
+    current stream, no synchronisation."""
+    global LAUNCHES, LAUNCHES_PACKED
+    check_kernel_inputs(("hb", "sel"), (hb, sel), shape=grid.shape)
+    if not grid.wrap_x:
+        raise NotImplementedError(
+            "the direction pass needs an x-periodic grid")
+    from . import build
+
+    q, dx8 = tables(grid, hb.device)
+    code = torch.empty(grid.shape, dtype=torch.int32, device=hb.device)
+    packed = torch.empty_like(code)
+    H, W = grid.shape
+    stream = torch.cuda.current_stream(hb.device).cuda_stream
+    err = build.library().demiurge_flow_directions_packed(
+        hb.data_ptr(), sel.data_ptr(), q.data_ptr(), dx8.data_ptr(),
+        code.data_ptr(), packed.data_ptr(), H, W, dy8(grid),
+        *pole_turns(grid), *TILE, stream)
+    build.check(err, "demiurge_flow_directions_packed")
+    LAUNCHES += 1
+    LAUNCHES_PACKED += 1
+    return code, packed
+
+
+def directions_packed(hb, sel, grid: Grid):
+    """The packed kernel for CUDA tensors, the plain passes for CPU
+    tensors."""
+    if use_cuda_kernels(hb, sel):
+        return directions_packed_cuda(hb, sel, grid)
+    return directions_packed_plain(hb, sel, grid)

@@ -9,7 +9,9 @@ reference FlowFilter (src/filter/FlowFilter.cpp):
      steepest descent (``flow_directions``, kernel in
      ``kernels.directions``);
   3. the incoming-neighbour bitmask and the river mouths
-     (``incoming_mask``);
+     (``incoming_mask``); on one card 2 and 3 are one launch of the
+     direction kernel's packed form (``kernels.directions``
+     ``directions_packed``), which writes the packed masks of step 4;
   4. the upstream area accumulation and the mouth reachability, as the
      fixpoint of an 8-neighbour relaxation (``flow_solve_stencil``; the
      kernels in ``kernels.flow``).
@@ -120,11 +122,22 @@ def incoming_mask(code, grid: Grid):
     return mask, mouth & interesting, interesting
 
 
+_AREAS: dict = {}  # (grid, device, scale) -> cell_area_lower_edge
+
+
 def cell_area_lower_edge(grid: Grid, device, scale: float = 1e-5
                          ) -> torch.Tensor:
     """Per-cell area with phi at the row's *lower edge* (FlowFilter.cpp:
     607-613); cos is clamped at 0, so the pole rows get ~0 and not the NaN
-    a negative cos would give the reference's powf."""
+    a negative cos would give the reference's powf.  Built once per grid
+    and device (``_cell_area_build``); callers must not write to it."""
+    key = (grid, str(device), scale)
+    if key not in _AREAS:
+        _AREAS[key] = _cell_area_build(grid, device, scale)
+    return _AREAS[key]
+
+
+def _cell_area_build(grid: Grid, device, scale: float) -> torch.Tensor:
     H, W = grid.shape
     y = torch.arange(H, dtype=torch.float32, device=device).reshape(-1, 1) / H
     geoy = y * (grid.phi1 - grid.phi0) + grid.phi0
@@ -238,9 +251,9 @@ def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
     if mesh is not None:
         return _flow_filter_sharded(height, sel, grid, exponent, preblur,
                                     acc0, return_acc, mesh)
-    code, mouth = _codes_and_mouths(height, sel, grid, preblur)
+    hb = blur(height, grid, preblur)
+    _, packed = kd.directions_packed(hb.contiguous(), sel.contiguous(), grid)
     area = cell_area_lower_edge(grid, height.device)
-    packed = kf.pack_masks(code, mouth, grid)
     acc = kf.flow_solve_area(packed, area, grid, a0=acc0)
     vis = kf.vis_solve(packed, grid)
     out = torch.where(vis, torch.pow(acc, exponent), -1.0)

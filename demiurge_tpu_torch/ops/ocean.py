@@ -14,8 +14,10 @@ Counterpart of ``demiurge_tpu/ops/ocean.py`` (intent mode in full, and
                  (``kernels.jacobi``)
   5. project   — subtract the pressure gradient; coastal free-slip redirect
 
-On CUDA tensors the three solves run on the hand-written kernels; on CPU
-tensors on their plain twins.  Not ported yet (they raise):
+On CUDA tensors the three solves run on the hand-written kernels, and the
+whole single-card advect stage is one launch (``kernels.advect``'s stage
+form); on CPU tensors they run on their plain twins (``advect_plain`` for
+the stage).  Not ported yet (they raise):
 ``pressure_method="cg"`` and ``advect_method="exact"`` (the gather
 sampler, also what a grid that is not x-periodic would use).
 """
@@ -23,8 +25,9 @@ sampler, also what a grid that is not x-periodic would use).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,6 +40,14 @@ from ..kernels import jacobi as kj
 
 PI = math.pi
 REF_PI = 3.14159  # the reference's truncated pi literal, used where it does
+WZ = 1.0 / 24.0   # planetary rotation (rev/h); omega = (0, 0, WZ)
+CORIOLIS_DIV = 5000
+STRESS = 0.0001   # wind stress: 1 + STRESS |w - v|^2, to the STRESS_EXP
+STRESS_EXP = -2.0 / 24.0
+DRAG = 1.0 - 0.4 ** (1.0 / 24.0)
+
+_TABLES: dict = {}  # (grid, device) -> StageTables
+_PLANS: dict = {}   # (grid, cfg, tiered, device) -> sampler_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +108,34 @@ def wind_profile(grid: Grid, device):
     return wx, wy
 
 
+class StageTables(NamedTuple):
+    """Per-grid tables of the advect stage: sin and cos of the pixel
+    centres' longitude (1, W) and latitude (H, 1), the wind profile
+    (H, 1), and all six in one flat float32 tensor, the stage kernel's
+    table [sin_lam | cos_lam | sin_phi | cos_phi | wx | wy]."""
+    sin_lam: torch.Tensor
+    cos_lam: torch.Tensor
+    sin_phi: torch.Tensor
+    cos_phi: torch.Tensor
+    wx: torch.Tensor
+    wy: torch.Tensor
+    flat: torch.Tensor
+
+
+def stage_tables(grid: Grid, device) -> StageTables:
+    """The advect stage's per-grid tables, built once per grid and device
+    by the torch ops that ``_departure`` and ``wind_profile`` ran on every
+    call."""
+    key = (grid, str(device))
+    if key not in _TABLES:
+        lam1d, phi1d = grid.lam_phi(device)
+        parts = (torch.sin(lam1d), torch.cos(lam1d), torch.sin(phi1d),
+                 torch.cos(phi1d), *wind_profile(grid, device))
+        flat = torch.cat([t.reshape(-1) for t in parts]).contiguous()
+        _TABLES[key] = StageTables(*parts, flat)
+    return _TABLES[key]
+
+
 def vmax_from_wind(timestep: float = 24.0, dissipation: float = 1.0,
                    safety: float = 1.4) -> float:
     """Static bound on |v| from the wind forcing's drag equilibrium: the
@@ -137,41 +176,55 @@ def _strip_radius_rows(radii, strip: int, device) -> torch.Tensor:
                           device).reshape(-1, 1)
 
 
-def _advect_sample_fast(u, v, s2, t2, grid: Grid, Rx: int, Ry: int,
-                        cfg: Optional[OceanConfig] = None):
-    """Bilinear fetch of (u, v) at backtraced tex coords (s2, t2) through
-    the tap sampler.
+def sampler_plan(grid: Grid, cfg: OceanConfig, tiered: bool, device):
+    """The sampler's table and clamps: (meta, strip_rows, ry, the dx
+    clamp), built once per grid, config and device.  Tiered: one (rx, q)
+    a 32-row strip from the velocity bound (strip_radii), dx clamped per
+    strip to its rx ((H, 1) rows), dy to tap_radius_y.  Otherwise the
+    one-row table, dx clamped to Rx and dy to Ry."""
+    key = (grid, cfg, tiered, str(device))
+    if key not in _PLANS:
+        if tiered:
+            radii = ka.strip_radii(grid, resolved_vmax(cfg), cfg.timestep)
+            _PLANS[key] = (ka.strip_meta(radii, grid.width), ka.STRIP,
+                           tap_radius_y(grid, cfg),
+                           _strip_radius_rows(radii, ka.STRIP, device))
+        else:
+            _PLANS[key] = (ka.global_meta(cfg.tap_radius_x), grid.height,
+                           cfg.tap_radius_y, cfg.tap_radius_x)
+    return _PLANS[key]
 
-    On the card, when H is a whole number of 32-row strips, the tiered
-    form: dx clamped per strip to its radius (strip_radii of the velocity
-    bound), dy to tap_radius_y.  Otherwise the single-radius form, dx to Rx
-    and dy to Ry (on the card, the same kernel with a one-row table)."""
+
+def sampler_tiered(grid: Grid, on_card: bool) -> bool:
+    """Whether the sampler takes the tiered table: on the card, when H is
+    a whole number of 32-row strips."""
+    return on_card and grid.height % ka.STRIP == 0
+
+
+def _advect_sample_fast(u, v, s2, t2, grid: Grid, cfg: OceanConfig,
+                        tiered: Optional[bool] = None):
+    """Bilinear fetch of (u, v) at backtraced tex coords (s2, t2) through
+    the tap sampler, with ``sampler_plan``'s table and clamps; ``tiered``
+    None = ``sampler_tiered`` (on the card the tiered form; otherwise the
+    single-radius form, on the card the same kernel with a one-row
+    table)."""
     H, W = u.shape
+    if tiered is None:
+        tiered = sampler_tiered(grid, use_cuda_kernels(u, v, s2, t2))
+    meta, rows, ry, rx = sampler_plan(grid, cfg, tiered, u.device)
     c, r = _row_col(grid, u.device)
-    if use_cuda_kernels(u, v, s2, t2) and H % ka.STRIP == 0:
-        vmax = resolved_vmax(cfg) if cfg is not None else 1.0
-        ts = cfg.timestep if cfg is not None else 24.0
-        ry = tap_radius_y(grid, cfg) if cfg is not None else Ry
-        radii = ka.strip_radii(grid, vmax, ts)
-        rxrow = _strip_radius_rows(radii, ka.STRIP, u.device)
-        dx = torch.clamp(s2 * W - 0.5 - c, -rxrow, rxrow)
-        dy = torch.clamp(t2 * H - 0.5 - r, -ry, ry)
-        return ka.advect_sample(u, v, dx, dy, ka.strip_meta(radii, W),
-                                ka.STRIP, ry)
-    dx = torch.clamp(s2 * W - 0.5 - c, -Rx, Rx)
-    dy = torch.clamp(t2 * H - 0.5 - r, -Ry, Ry)
-    return ka.advect_sample(u, v, dx, dy, ka.global_meta(Rx), H, Ry)
+    dx = torch.clamp(s2 * W - 0.5 - c, -rx, rx)
+    dy = torch.clamp(t2 * H - 0.5 - r, -ry, ry)
+    return ka.advect_sample(u, v, dx, dy, meta, rows, ry)
 
 
 def _departure(u, v, grid: Grid, cfg: OceanConfig):
     """Great-circle backtrace of every pixel: sample coords (s2, t2),
     rotated point q, rotation axis, arclength, and the departure tangent
     basis."""
-    lam1d, phi1d = grid.lam_phi(u.device)     # (1,W), (H,1)
-    sin_lam = torch.sin(lam1d)
-    cos_lam = torch.cos(lam1d)
-    sin_phi = torch.sin(phi1d)
-    cos_phi = torch.cos(phi1d)
+    tab = stage_tables(grid, u.device)      # (1,W) x2, (H,1) x2
+    sin_lam, cos_lam = tab.sin_lam, tab.cos_lam
+    sin_phi, cos_phi = tab.sin_phi, tab.cos_phi
 
     speed = torch.sqrt(u * u + v * v)
     arclength = 2 * REF_PI / grid.circumference * speed * cfg.timestep
@@ -234,6 +287,8 @@ def advect_clamped_fraction(u, v, terrain, grid: Grid,
 def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
     """Semi-Lagrangian advection + wind forcing.
 
+    One card: the stage as one kernel launch on CUDA tensors, its twin
+    ``advect_plain`` on CPU tensors (``kernels.advect.advect_stage``).
     ``mesh``: the fields are this rank's blocks; the departure points run
     on the gathered fields (``sharded_call``), the sampler on blocks with
     one halo exchange and one global radius (``dist.advect``), the rest
@@ -242,21 +297,34 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
         raise NotImplementedError(
             "the gather sampler (advect_method='exact', or a grid that is "
             "not x-periodic) is not ported yet")
-    wx, wy = wind_profile(grid, u.device)
     if mesh is None:
-        dep = _departure(u, v, grid, cfg)
-        nu, nv = _advect_sample_fast(u, v, dep[0], dep[1], grid,
-                                     cfg.tap_radius_x, cfg.tap_radius_y,
-                                     cfg=cfg)
-    else:
-        from ..dist.advect import advect_sample_sharded
-        from ..dist.mesh import local_part, sharded_call
+        return ka.advect_stage(u, v, terrain, grid, cfg)
+    from ..dist.advect import advect_sample_sharded
+    from ..dist.mesh import local_part, sharded_call
 
-        dep = sharded_call(_departure, mesh)(u, v, grid, cfg)
-        nu, nv = advect_sample_sharded(u, v, dep[0], dep[1], grid, mesh,
-                                       Rx=cfg.tap_radius_x,
-                                       Ry=cfg.tap_radius_y)
-        wx, wy = (local_part(w, grid.shape, mesh) for w in (wx, wy))
+    dep = sharded_call(_departure, mesh)(u, v, grid, cfg)
+    nu, nv = advect_sample_sharded(u, v, dep[0], dep[1], grid, mesh,
+                                   Rx=cfg.tap_radius_x, Ry=cfg.tap_radius_y)
+    tab = stage_tables(grid, u.device)
+    wx, wy = (local_part(w, grid.shape, mesh) for w in (tab.wx, tab.wy))
+    return _advect_finish(nu, nv, dep, wx, wy, terrain, cfg)
+
+
+def advect_plain(u, v, terrain, grid: Grid, cfg: OceanConfig,
+                 tiered: Optional[bool] = None):
+    """The single-card advect stage as plain torch ops around the sampler:
+    the stage kernel's twin (``tiered`` as ``_advect_sample_fast`` takes
+    it)."""
+    dep = _departure(u, v, grid, cfg)
+    nu, nv = _advect_sample_fast(u, v, dep[0], dep[1], grid, cfg, tiered)
+    tab = stage_tables(grid, u.device)
+    return _advect_finish(nu, nv, dep, tab.wx, tab.wy, terrain, cfg)
+
+
+def _advect_finish(nu, nv, dep, wx, wy, terrain, cfg: OceanConfig):
+    """What follows the sampler: the sampled (nu, nv) transported back to
+    the pixel, NaN -> 0, Coriolis, dissipation, wind stress and drag, the
+    land mask."""
     (_, _, qx, qy, qz, ax, ay, az, arclength, ex, ey, nx, ny, nz) = dep
 
     # parallel transport back (rotate the sampled vector by +arclength);
@@ -283,33 +351,48 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
     # Coriolis; the reference multiplies it by 0.0 (exact_quirks)
     cor = 0.0 if cfg.exact_quirks else cfg.coriolis
     if cor != 0.0:
-        wz_ = 1.0 / 24.0  # planetary rotation (rev/h); omega = (0, 0, wz)
         vcx = nu * ex + nv * nx
         vcy = nu * ey + nv * ny
         vcz = nv * nz
-        acx = -2 * (-wz_ * vcy)
-        acy = -2 * (wz_ * vcx)
+        acx = -2 * (-WZ * vcy)
+        acy = -2 * (WZ * vcx)
         acz = torch.zeros_like(vcz)
         du = acx * ex + acy * ey
         dv = acx * nx + acy * ny + acz * nz
-        nu = nu + du * cfg.timestep / 5000 * cor
-        nv = nv + dv * cfg.timestep / 5000 * cor
+        nu = nu + du * cfg.timestep / CORIOLIS_DIV * cor
+        nv = nv + dv * cfg.timestep / CORIOLIS_DIV * cor
 
     nu = cfg.dissipation * nu
     nv = cfg.dissipation * nv
 
     # wind stress + drag
-    sx = 1.0 + 0.0001 * torch.abs(wx - nu) ** 2
-    sy = 1.0 + 0.0001 * torch.abs(wy - nv) ** 2
-    drag = 1.0 - 0.4 ** (1.0 / 24.0)
-    nu = nu + wx * (1 - sx ** (-2.0 / 24.0)) - nu * drag
-    nv = nv + wy * (1 - sy ** (-2.0 / 24.0)) - nv * drag
+    sx = 1.0 + STRESS * torch.abs(wx - nu) ** 2
+    sy = 1.0 + STRESS * torch.abs(wy - nv) ** 2
+    nu = nu + wx * (1 - sx ** STRESS_EXP) - nu * DRAG
+    nv = nv + wy * (1 - sy ** STRESS_EXP) - nv * DRAG
 
     # solid cells hold zero velocity (and take no wind forcing)
     land = terrain > 0
     nu = torch.where(land, 0.0, nu)
     nv = torch.where(land, 0.0, nv)
     return nu, nv
+
+
+@functools.lru_cache(maxsize=None)
+def stage_scalars(grid: Grid, cfg: OceanConfig) -> np.ndarray:
+    """The stage kernel's scalars (csrc/advect.cu StageScalars), each the
+    float32 that torch makes of the Python number ``advect_plain``
+    writes; a torch op on the card divides by a scalar as a multiply by
+    its float32 reciprocal, so the divisors come as reciprocals.  Built
+    once per grid and config; callers must not write to it."""
+    f = np.float32
+    cor = 0.0 if cfg.exact_quirks else cfg.coriolis
+    return np.array(
+        [2 * REF_PI / grid.circumference, cfg.timestep, grid.lam0,
+         f(1) / f(grid.lam1 - grid.lam0), grid.phi0,
+         f(1) / f(grid.phi1 - grid.phi0), grid.width, grid.height, cor,
+         -WZ, WZ, f(1) / f(CORIOLIS_DIV), cfg.dissipation, STRESS,
+         STRESS_EXP, DRAG], np.float32)
 
 
 def _pole_flip_mask(dy: int, grid: Grid, device) -> torch.Tensor:

@@ -155,6 +155,52 @@ def test_advect_kernel_equals_plain_twin(dev, form):
     assert float((gv - wv).abs().max()) <= 1e-6
 
 
+def _stage_case(W, H, dev, quirks):
+    """A terrain with coastlines and (u, v) fast enough that the clamps
+    bite (dx beyond the strips' rx, dy beyond Ry) and the polar strips
+    take coarse taps (vmax 5 gives rx 256, q = W // 16 there)."""
+    grid, h, u, v = _case(W, H, GLOBAL, dev, seed=4)
+    cfg = ocean.OceanConfig(vmax_hint=5.0, exact_quirks=quirks)
+    return grid, (h - 0.05) * 20, u * 80, v * 80, cfg
+
+
+@pytest.mark.parametrize("design", ka.STAGE_DESIGNS)
+@pytest.mark.parametrize("quirks", [False, True],
+                         ids=["coriolis", "exact_quirks"])
+@pytest.mark.parametrize("shape", [(256, 128), (256, 120)],
+                         ids=["tiered", "one-row"])
+def test_advect_stage_kernel_equals_twin(dev, shape, quirks, design):
+    """The fused advect stage against its twin (the torch ops around the
+    sampler kernel) on the card, bit for bit, NaN-free; one launch, on
+    the tiered table at H = 128 and the one-row table at H = 120."""
+    grid, h, u, v, cfg = _stage_case(*shape, dev, quirks)
+    before = (ka.LAUNCHES_STAGE, ka.LAUNCHES_ONE_ROW)
+    gu, gv = ka.advect_stage_cuda(u, v, h, grid, cfg, design=design)
+    assert ka.LAUNCHES_STAGE - before[0] == 1
+    assert ka.LAUNCHES_ONE_ROW - before[1] == int(shape[1] % ka.STRIP != 0)
+    wu, wv = ka.advect_stage_plain(u, v, h, grid, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(wu).all() and torch.isfinite(wv).all())
+    differ = int((gu != wu).sum() + (gv != wv).sum())
+    assert torch.equal(gu, wu) and torch.equal(gv, wv), differ
+
+
+def test_advect_stage_raises_on_a_refused_launch(dev, monkeypatch):
+    """A scalar table of another length than csrc/advect.cu's is refused
+    by the stage's entry point, and the wrapper raises; nothing is
+    counted."""
+    import numpy as _np
+
+    grid, h, u, v, cfg = _stage_case(256, 128, dev, False)
+    real = ocean.stage_scalars
+    before = (ka.LAUNCHES, ka.LAUNCHES_STAGE)
+    monkeypatch.setattr(ocean, "stage_scalars", lambda g, c: _np.append(
+        real(g, c), _np.float32(0.0)))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ka.advect_stage_cuda(u, v, h, grid, cfg)
+    assert (ka.LAUNCHES, ka.LAUNCHES_STAGE) == before
+
+
 def test_ocean_step_on_the_card_matches_the_cpu(dev):
     """Three steps at 256x128 on the card (tiered advect, Jacobi kernels)
     against the CPU (single-radius advect, plain twins): the two advect
@@ -308,6 +354,59 @@ def test_directions_kernel_against_plain_twin(dev):
     assert kd.LAUNCHES - before == 1
     assert got.dtype == torch.int32
     assert int((got != want).sum()) <= hb.numel() // 10000
+
+
+PACKED_GRIDS = {"256x128": (256, 128), "255x128": (255, 128),
+                "96x48": (96, 48), "64x12": (64, 12),
+                "2000x1000": (2000, 1000)}
+
+
+@pytest.mark.parametrize("name", list(PACKED_GRIDS))
+def test_directions_packed_kernel(dev, name):
+    """The packed form in one launch: its codes equal the codes-only
+    form's and the plain twin's but for knife-edge ties (at most one in
+    10^4 pixels), and its packed field is exactly pack_masks of its own
+    codes and their mouths (incoming_mask); odd W (the pole turn by
+    round(W/2)), widths and heights below a tile, a grid no tile
+    divides."""
+    from demiurge_tpu_torch.kernels import directions as kd
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.ops import flow
+    from demiurge_tpu_torch.ops.blur import blur
+
+    grid, h = _terrain(*PACKED_GRIDS[name], dev)
+    hb = blur(h, grid, 0.5)
+    sel = torch.ones_like(hb)
+    sel[:, :16] = 0.0
+    sel[-3:, 40:60] = 0.0
+    before = (kd.LAUNCHES, kd.LAUNCHES_PACKED)
+    code, packed = kd.directions_packed_cuda(hb, sel, grid)
+    assert (kd.LAUNCHES - before[0], kd.LAUNCHES_PACKED - before[1]) == (1, 1)
+    only = kd.flow_directions_cuda(hb, sel, grid)
+    plain = kd.flow_directions_plain(hb, sel, grid)
+    _, mouth, _ = flow.incoming_mask(code, grid)
+    want = kf.pack_masks(code, mouth, grid)
+    torch.cuda.synchronize()
+    assert code.dtype == packed.dtype == torch.int32
+    assert torch.equal(code, only)
+    assert int((code != plain).sum()) <= hb.numel() // 10000
+    assert torch.equal(packed, want)
+    assert bool(((packed >> 16) & 1).any())
+
+
+def test_directions_kernels_raise_on_a_refused_launch(dev, monkeypatch):
+    """A tile that csrc/directions.cu was not built for is refused by both
+    entry points, and the wrappers raise; nothing is counted."""
+    from demiurge_tpu_torch.kernels import directions as kd
+
+    grid, h = _terrain(256, 128, dev)
+    before = (kd.LAUNCHES, kd.LAUNCHES_PACKED)
+    monkeypatch.setattr(kd, "TILE", (8, 128))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kd.flow_directions_cuda(h, torch.ones_like(h), grid)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kd.directions_packed_cuda(h, torch.ones_like(h), grid)
+    assert (kd.LAUNCHES, kd.LAUNCHES_PACKED) == before
 
 
 @pytest.mark.parametrize("case", ["cold", "warm", "serpentine", "ragged",

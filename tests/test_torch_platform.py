@@ -106,15 +106,20 @@ def test_check_kernel_inputs_rejects_cpu_tensors():
 def test_kernel_wrappers_raise_on_cpu_tensors():
     g = Grid(64, 32)
     z = torch.zeros(g.shape)
-    launches = (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES)
+    launches = (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES,
+                ka.LAUNCHES_STAGE)
     with pytest.raises(ValueError, match="CUDA"):
         kj.pressure_solve_cuda(z, z, z, z, z, z, z, g, 3)
     with pytest.raises(ValueError, match="CUDA"):
         kj.diffusion_solve_cuda(z, z, z, z, z, z, z, g, 3)
     with pytest.raises(ValueError, match="CUDA"):
         ka.advect_sample_cuda(z, z, z, z, ka.global_meta(8), 32, 2)
-    assert (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES) \
-        == launches
+    from demiurge_tpu_torch.ops.ocean import OceanConfig
+
+    with pytest.raises(ValueError, match="CUDA"):
+        ka.advect_stage_cuda(z, z, z, g, OceanConfig())
+    assert (kj.PRESSURE_LAUNCHES, kj.DIFFUSION_LAUNCHES, ka.LAUNCHES,
+            ka.LAUNCHES_STAGE) == launches
 
 
 def test_coupled_kernel_wrappers_raise_on_cpu_tensors():
@@ -126,18 +131,19 @@ def test_coupled_kernel_wrappers_raise_on_cpu_tensors():
     g = Grid(64, 32)
     z = torch.zeros(g.shape)
     packed = torch.zeros(g.shape, dtype=torch.int32)
-    counts = (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kf.LAUNCHES_A,
-              kf.LAUNCHES_VIS)
+    counts = (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED,
+              kf.LAUNCHES_A, kf.LAUNCHES_VIS)
     for call in (lambda: kc.climate_step_cuda(z, z, torch.zeros(4, 32), g,
                                               0.55e6),
                  lambda: kb.blur_cuda(z, g, [0.1, 0.2]),
                  lambda: kd.flow_directions_cuda(z, z, g),
+                 lambda: kd.directions_packed_cuda(z, z, g),
                  lambda: kf.flow_solve_area_cuda(packed, z, g),
                  lambda: kf.vis_solve_cuda(packed, g)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kf.LAUNCHES_A,
-            kf.LAUNCHES_VIS) == counts
+    assert (kc.LAUNCHES, kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED,
+            kf.LAUNCHES_A, kf.LAUNCHES_VIS) == counts
 
 
 def test_k11_kernel_wrappers_raise_on_cpu_tensors():
@@ -168,8 +174,9 @@ def test_launch_counts_name_every_counter():
 
     names = set(launch_counts())
     assert {"advect_sample_pallas", "flow_solve_2d", "flow_solve_fused",
-            "flow_solve_wave", "flow_banded_rounds", "jacobi_packed"} <= names
-    assert len(names) == 16
+            "flow_solve_wave", "flow_banded_rounds", "jacobi_packed",
+            "advect_stage", "flow_directions_packed"} <= names
+    assert len(names) == 18
 
 
 def test_interop_round_trip_and_config():
