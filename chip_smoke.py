@@ -16,10 +16,11 @@
    there (atol 1e-5); the sampler at 2048x1024 (atol 1e-5) and, at
    2048x1000 (H not a whole number of 32-row strips), the same kernel with
    a one-row table (K4b, atol 1e-5); the fused advect stage (K4's stage
-   form, both designs) against its twin, the torch ops around the sampler
+   form) against its twin, the torch ops around the sampler
    kernel, at 2048x1024, 8192x4096 and 2048x1000 (the one-row table):
    within 1e-6 of max|u| with NaN and inf where the twin's are, the count
-   of differing pixels printed, and its two designs raced;
+   of differing values printed; the fused kernels timed on the device
+   with their launches queued ahead of the host (``device_ms``);
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
    at --jacobi 1000, 5 at --jacobi 200, 1 at 2048x1000, which takes the
    one-row table) and 5 ``ocean_step``s at the coupled model's solver
@@ -408,30 +409,28 @@ def main() -> int:
     assert torch.equal(gu, wu) and torch.equal(gv, wv), \
         max(max_err(gu, wu), max_err(gv, wv))
     def stage_against_twin(label, u_, v_, t_, g_):
-        """The fused advect stage (each design) against its twin: within
-        1e-6 of max|u|, NaN and inf where the twin's are, one launch.
-        Returns the differing pixels of each design, in words."""
+        """The fused advect stage against its twin: within 1e-6 of max|u|,
+        NaN and inf where the twin's are, one launch.  Returns the
+        differing values, in words."""
         wu, wv = ka.advect_stage_plain(u_, v_, t_, g_, cfg)
         scale = float(torch.maximum(wu.abs().max(), wv.abs().max()))
-        notes = []
-        for design in ka.STAGE_DESIGNS:
-            n0 = ka.LAUNCHES_STAGE
-            gu, gv = ka.advect_stage_cuda(u_, v_, t_, g_, cfg, design=design)
-            assert ka.LAUNCHES_STAGE - n0 == 1
-            torch.cuda.synchronize()
-            for a, b in ((gu, wu), (gv, wv)):
-                assert torch.equal(torch.isnan(a), torch.isnan(b)), label
-                assert torch.equal(torch.isinf(a), torch.isinf(b)), label
-            err = max(max_err(torch.nan_to_num(gu), torch.nan_to_num(wu)),
-                      max_err(torch.nan_to_num(gv), torch.nan_to_num(wv)))
-            differ = int(((gu != wu) & ~torch.isnan(wu)).sum()
-                         + ((gv != wv) & ~torch.isnan(wv)).sum())
-            assert scale > 0 and err <= 1e-6 * scale, (label, design, err)
-            notes.append(f"{design} {differ} of {2 * u_.numel()} values "
-                         f"differ, max err {err:.3e}")
+        n0 = ka.LAUNCHES_STAGE
+        gu, gv = ka.advect_stage_cuda(u_, v_, t_, g_, cfg)
+        assert ka.LAUNCHES_STAGE - n0 == 1
+        torch.cuda.synchronize()
+        for a, b in ((gu, wu), (gv, wv)):
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), label
+            assert torch.equal(torch.isinf(a), torch.isinf(b)), label
+        err = max(max_err(torch.nan_to_num(gu), torch.nan_to_num(wu)),
+                  max_err(torch.nan_to_num(gv), torch.nan_to_num(wv)))
+        differ = int(((gu != wu) & ~torch.isnan(wu)).sum()
+                     + ((gv != wv) & ~torch.isnan(wv)).sum())
+        assert scale > 0 and err <= 1e-6 * scale, (label, err)
+        note = (f"{differ} of {2 * u_.numel()} values differ, max err "
+                f"{err:.3e}")
         print(f"  fused advect stage at {label} against its twin (max|u|, "
-              f"|v| {scale:.4g}): " + "; ".join(notes))
-        return "; ".join(notes)
+              f"|v| {scale:.4g}): {note}")
+        return note
 
     stage_notes = {f"{BIG[0]}x{BIG[1]}": stage_against_twin(
         f"{BIG[0]}x{BIG[1]}", u_big, v_big, t_big, big_grid)}
@@ -493,8 +492,7 @@ def main() -> int:
            f"K4b at {W}x{HB}: one-row table (Rx {rx1}, Ry {ry1}), atol "
            f"1e-5")
 
-    # the fused stage: at 2048x1000 (the one-row table) and 2048x1024; its
-    # two designs raced in turns (A B B A), each beside its twin
+    # the fused stage: at 2048x1000 (the one-row table) and 2048x1024
     terrain_b = terrain[:HB].contiguous()
     stage_notes[f"{W}x{HB}"] = stage_against_twin(f"{W}x{HB}", ub, vb,
                                                   terrain_b, grid_b)
@@ -502,11 +500,6 @@ def main() -> int:
         ub, vb, terrain_b, grid_b, cfg), 20)
     stage_notes[f"{W}x{H}"] = stage_against_twin(f"{W}x{H}", u, v, terrain,
                                                  grid)
-    race = {d: [] for d in ka.STAGE_DESIGNS}
-    first, second = ka.STAGE_DESIGNS
-    for design in (first, second, second, first):
-        race[design].append(device_ms(lambda: ka.advect_stage_cuda(
-            u, v, terrain, grid, cfg, design=design), 20)[0])
     ms, ahead = device_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid,
                                                        cfg), 20)
     call_ms = cuda_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid,
@@ -515,21 +508,20 @@ def main() -> int:
         u, v, dx, dy, meta, ka.STRIP, ry), 20)
     plain_ms = cuda_ms(lambda: ka.advect_stage_plain(u, v, terrain, grid,
                                                      cfg), 5)
-    print(f"  fused advect stage at {W}x{H}: designs raced (device ms, "
-          f"order A B B A, queued behind a sleep, {card}): "
-          f"{json.dumps(race)}; kept {ka.STAGE_DESIGN} {ms:.4f} ms (host "
-          f"ahead: {ahead}), a call on the host's clock {call_ms:.4f} ms; "
+    print(f"  fused advect stage at {W}x{H}: {ms:.4f} device ms "
+          f"(launches queued ahead; host ahead: {ahead}), a call on the "
+          f"host's clock {call_ms:.4f} ms; "
           f"the sampler form alone {sampler_ms:.4f} ms; twin {plain_ms:.3f} "
-          f"ms; at {W}x{HB} (one-row table) {stage_b_ms:.4f} ms")
+          f"ms; at {W}x{HB} (one-row table) {stage_b_ms:.4f} ms ({card})")
     # per pixel: ~300 float operations (backtrace, taps, transport back,
     # forcing) and 7 libm calls
     record("advect_stage", "demiurge_tpu_torch/csrc/advect.cu",
            "demiurge_tpu/pallas_kernels/advect.py:235", err, ms, plain_ms,
            5 * plane, 300 * N,
-           f"the whole single-card advect stage in one launch (design "
-           f"{ka.STAGE_DESIGN}; device time, launches queued ahead; a call "
-           f"on the host's clock {call_ms:.4f} ms; race "
-           f"{json.dumps(race)}); against the twin "
+           f"the whole single-card advect stage in one launch (device "
+           f"time, launches queued ahead; a call on the host's clock "
+           f"{call_ms:.4f} ms; the sampler form {sampler_ms:.4f}); against "
+           f"the twin "
            f"(torch ops around the sampler kernel): " + " | ".join(
                f"{k}: {v}" for k, v in stage_notes.items())
            + f"; one-row table at {W}x{HB} {stage_b_ms:.4f} ms")

@@ -148,8 +148,7 @@ struct GlobalTaps {
 };
 
 // the closed-form tap sum of the module comment
-template <class Taps>
-__device__ __forceinline__ void tap_sum(const Taps& taps, float ddx,
+__device__ __forceinline__ void tap_sum(const GlobalTaps& taps, float ddx,
                                         float ddy, int rx, int q, int Ry,
                                         int Rf, int stride, float& ou,
                                         float& ov) {
@@ -163,7 +162,9 @@ __device__ __forceinline__ void tap_sum(const Taps& taps, float ddx,
   // tap lattice: unit spacing out to fine_r, or `stride` out to stride*q
   const float step = fine ? 1.0f : (float)stride;
   const float reach = fine ? (float)fine_r : (float)(stride * q);
-  const float kx0 = __fmul_rn(floorf(__fdiv_rn(ddx, step)), step);
+  // a fine tap's step is 1, and x / 1 == x: its divisions are skipped
+  const float kx0 =
+      fine ? floorf(ddx) : __fmul_rn(floorf(__fdiv_rn(ddx, step)), step);
   const float ky0 = floorf(ddy);
 
   float acc_u = 0.0f, acc_v = 0.0f;
@@ -174,7 +175,8 @@ __device__ __forceinline__ void tap_sum(const Taps& taps, float ddx,
     for (int jx = 0; jx < 2; ++jx) {
       const float kx = __fadd_rn(kx0, __fmul_rn((float)jx, step));
       if (fabsf(kx) > reach) continue;
-      const float wx = hat(__fdiv_rn(__fsub_rn(ddx, kx), step));
+      const float d = __fsub_rn(ddx, kx);
+      const float wx = hat(fine ? d : __fdiv_rn(d, step));
       const float w = __fmul_rn(wy, wx);
       float tu, tv;
       taps((int)ky, (int)kx, tu, tv);
@@ -287,8 +289,11 @@ __device__ __forceinline__ void finish(const Departure& d, float su,
 // kStage = false: in0 = dx, in1 = dy, the sampled (u, v) out.
 // kStage = true: in0 = terrain, tab = the per-grid table
 // [sin_lam (W) | cos_lam (W) | sin_phi (H) | cos_phi (H) | wx (H) | wy (H)],
-// the stage's new (u, v) out; one thread a pixel, the taps gathered
-// through L1 (design "gather").
+// the stage's new (u, v) out.  One thread a pixel, the taps gathered
+// through L1: a design that staged each row tile's tap window in shared
+// memory by cp.async, the backtrace computed while the copies flew, lost
+// to this one by 2% at 2048x1024 (PERF.md section 6), since the taps hit
+// L1 either way and the pixel's arithmetic and libm calls dominate.
 template <bool kStage>
 __global__ void advect_kernel(const float* __restrict__ u,
                               const float* __restrict__ v,
@@ -318,87 +323,6 @@ __global__ void advect_kernel(const float* __restrict__ u,
   tap_sum(taps, d.ddx, d.ddy, rx, q, Ry, Rf, stride, su, sv);
   finish(d, su, sv, __ldg(tab + 2 * W + 2 * H + r),
          __ldg(tab + 2 * W + 3 * H + r), in0[i], sc, ou[i], ov[i]);
-}
-
-// Design "tiles": a block of kTileRows x kBlockX pixels.  In a strip with
-// q = 0 (and rx, Ry within the window) it stages its taps' window, rows
-// r0 - Ry .. r0 + kTileRows - 1 + Ry (clamped) and columns c0 - rx ..
-// c0 + kBlockX - 1 + rx (mod W), of u and v into shared memory by
-// cp.async, computes the backtrace while the copies fly, and sums the taps
-// there; a polar strip's block reads its taps through L1.
-constexpr int kTileRows = 4;
-constexpr int kMaxRx = 16, kMaxRy = 4;
-constexpr int kWinX = kBlockX + 2 * kMaxRx;
-constexpr int kWinY = kTileRows + 2 * kMaxRy;
-
-// the tap (ky, kx) of the pixel at window position `base`
-struct SharedTaps {
-  const float* su;
-  const float* sv;
-  int base;
-  __device__ __forceinline__ void operator()(int ky, int kx, float& tu,
-                                             float& tv) const {
-    const int j = base + ky * kWinX + kx;
-    tu = su[j];
-    tv = sv[j];
-  }
-};
-
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-
-__global__ void __launch_bounds__(kBlockX * kTileRows)
-    advect_stage_tiles(const float* __restrict__ u,
-                       const float* __restrict__ v,
-                       const float* __restrict__ terrain,
-                       const float* __restrict__ tab, const StripTable meta,
-                       const StageScalars sc, int strip_rows,
-                       float* __restrict__ ou, float* __restrict__ ov, int H,
-                       int W, int Ry, int Rf, int stride) {
-  __shared__ float su_w[kWinY * kWinX], sv_w[kWinY * kWinX];
-  const int c0 = blockIdx.x * kBlockX, r0 = blockIdx.y * kTileRows;
-  const int c = c0 + threadIdx.x, r = r0 + threadIdx.y;
-  const int s = r0 / strip_rows;   // the tile lies in one strip
-  const int rx = meta.rx[s];
-  const int q = meta.q[s];
-  const bool staged = q == 0 && rx <= kMaxRx && Ry <= kMaxRy;
-  if (staged) {
-    const int wr = kTileRows + 2 * Ry, wc = kBlockX + 2 * rx;
-    for (int k = threadIdx.y * kBlockX + threadIdx.x; k < wr * wc;
-         k += kBlockX * kTileRows) {
-      const int j = k / wc, ii = k % wc;
-      int rr = r0 - Ry + j;
-      rr = rr < 0 ? 0 : (rr > H - 1 ? H - 1 : rr);
-      int cc = (c0 - rx + ii) % W;
-      if (cc < 0) cc += W;
-      const long g = (long)rr * W + cc;
-      copy_async(su_w + j * kWinX + ii, u + g);
-      copy_async(sv_w + j * kWinX + ii, v + g);
-    }
-  }
-  const bool live = r < H && c < W;
-  const long i = (long)r * W + c;
-  Departure d;
-  if (live) d = departure(u[i], v[i], tab, sc, r, c, H, W, rx, Ry);
-  if (staged) {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-  }
-  if (!live) return;
-  float su, sv;
-  if (staged) {
-    const int base = ((int)threadIdx.y + Ry) * kWinX + (int)threadIdx.x + rx;
-    const SharedTaps taps{su_w, sv_w, base};
-    tap_sum(taps, d.ddx, d.ddy, rx, q, Ry, Rf, stride, su, sv);
-  } else {
-    const GlobalTaps taps{u, v, r, c, H, W};
-    tap_sum(taps, d.ddx, d.ddy, rx, q, Ry, Rf, stride, su, sv);
-  }
-  finish(d, su, sv, __ldg(tab + 2 * W + 2 * H + r),
-         __ldg(tab + 2 * W + 3 * H + r), terrain[i], sc, ou[i], ov[i]);
 }
 
 bool fill_table(const int* meta, int nstrips, int strip_rows, int H,
@@ -434,34 +358,23 @@ int demiurge_advect_sample(const float* u, const float* v, const float* dx,
 
 // The whole advect stage.  tables: device, 2W + 4H floats (layout above);
 // scalars: host, nscalars floats in StageScalars' order; meta as above,
-// and rx of a strip is also its clamp of dx, Ry the clamp of dy; design 0
-// = "gather", 1 = "tiles" (whose tiles must lie in one strip each).
+// and rx of a strip is also its clamp of dx, Ry the clamp of dy.
 int demiurge_advect_stage(const float* u, const float* v,
                           const float* terrain, const float* tables,
                           const int* meta, int nstrips, int strip_rows,
                           const float* scalars, int nscalars, float* ou,
                           float* ov, int H, int W, int Ry, int Rf,
-                          int stride, int design, void* stream) {
+                          int stride, void* stream) {
   StripTable table;
   if (!fill_table(meta, nstrips, strip_rows, H, &table) ||
-      nscalars != kNumScalars || design < 0 || design > 1 ||
-      (design == 1 && nstrips > 1 && strip_rows % kTileRows != 0))
+      nscalars != kNumScalars)
     return (int)cudaErrorInvalidValue;
   StageScalars sc;
   memcpy(&sc, scalars, sizeof(sc));
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (design == 0) {
-    const dim3 grid((W + kBlockX - 1) / kBlockX, H);
-    advect_kernel<true><<<grid, kBlockX, 0, st>>>(
-        u, v, terrain, nullptr, tables, table, sc, strip_rows, ou, ov, H, W,
-        Ry, Rf, stride);
-  } else {
-    const dim3 grid((W + kBlockX - 1) / kBlockX,
-                    (H + kTileRows - 1) / kTileRows);
-    advect_stage_tiles<<<grid, dim3(kBlockX, kTileRows), 0, st>>>(
-        u, v, terrain, tables, table, sc, strip_rows, ou, ov, H, W, Ry, Rf,
-        stride);
-  }
+  const dim3 grid((W + kBlockX - 1) / kBlockX, H);
+  advect_kernel<true><<<grid, kBlockX, 0, (cudaStream_t)stream>>>(
+      u, v, terrain, nullptr, tables, table, sc, strip_rows, ou, ov, H, W,
+      Ry, Rf, stride);
   return (int)cudaGetLastError();
 }
 

@@ -40,12 +40,6 @@ LAUNCHES = 0
 LAUNCHES_ONE_ROW = 0
 LAUNCHES_STAGE = 0
 
-# the stage kernel's designs (csrc/advect.cu): one thread a pixel with its
-# taps gathered through L1, or row tiles whose tap window is staged in
-# shared memory; STAGE_DESIGN is the one the stage runs
-STAGE_DESIGNS = ("gather", "tiles")
-STAGE_DESIGN = "gather"
-
 
 def strip_radii(grid, vmax: float, timestep: float, strip: int = STRIP,
                 rx_cap: int = 256) -> list:
@@ -159,12 +153,11 @@ def advect_stage_plain(u, v, terrain, grid, cfg):
     return advect_plain(u, v, terrain, grid, cfg)
 
 
-def advect_stage_cuda(u, v, terrain, grid, cfg, design=None):
+def advect_stage_cuda(u, v, terrain, grid, cfg):
     """The whole single-card advect stage on the card: one launch on the
     current stream, no synchronisation.  The table is the tiered one where
     H is a whole number of strips, else the one-row one, as the twin takes
-    them on the card.  ``design``: one of STAGE_DESIGNS (default
-    STAGE_DESIGN)."""
+    them on the card."""
     global LAUNCHES, LAUNCHES_ONE_ROW, LAUNCHES_STAGE
     from ..ops import ocean
 
@@ -186,7 +179,7 @@ def advect_stage_cuda(u, v, terrain, grid, cfg, design=None):
         u.data_ptr(), v.data_ptr(), terrain.data_ptr(), tables.data_ptr(),
         meta.ctypes.data, meta.shape[0], rows, scalars.ctypes.data,
         scalars.size, ou.data_ptr(), ov.data_ptr(), H, W, ry, RF, STRIDE,
-        STAGE_DESIGNS.index(design or STAGE_DESIGN), stream)
+        stream)
     build.check(err, "demiurge_advect_stage")
     LAUNCHES += 1
     LAUNCHES_ONE_ROW += int(meta.shape[0] == 1)

@@ -47,9 +47,9 @@ SIGNATURES = {
     "demiurge_advect_sample": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 5
     + [_P],
     # u v terrain tables meta(host), nstrips strip_rows, scalars(host)
-    # nscalars, ou ov, H W Ry Rf stride design, stream
+    # nscalars, ou ov, H W Ry Rf stride, stream
     "demiurge_advect_stage": [_P] * 5 + [_I] * 2 + [_P, _I] + [_P] * 2
-    + [_I] * 6 + [_P],
+    + [_I] * 5 + [_P],
     # T cinv asr shifts out, H W wrap_s wrap_n pole_shift steps cluster seg
     # th, diff_scale olr_coef, stream
     "demiurge_climate_band": [_P] * 5 + [_I] * 9 + [_F] * 2 + [_P],

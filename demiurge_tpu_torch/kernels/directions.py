@@ -46,6 +46,7 @@ LAUNCHES = 0
 LAUNCHES_PACKED = 0
 
 TILE = (16, 128)   # a block's tile, rows x columns: csrc/directions.cu's
+                   # build, which refuses any other
 
 _TABLES: dict = {}
 

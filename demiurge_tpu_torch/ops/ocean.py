@@ -201,16 +201,13 @@ def sampler_tiered(grid: Grid, on_card: bool) -> bool:
     return on_card and grid.height % ka.STRIP == 0
 
 
-def _advect_sample_fast(u, v, s2, t2, grid: Grid, cfg: OceanConfig,
-                        tiered: Optional[bool] = None):
+def _advect_sample_fast(u, v, s2, t2, grid: Grid, cfg: OceanConfig):
     """Bilinear fetch of (u, v) at backtraced tex coords (s2, t2) through
-    the tap sampler, with ``sampler_plan``'s table and clamps; ``tiered``
-    None = ``sampler_tiered`` (on the card the tiered form; otherwise the
-    single-radius form, on the card the same kernel with a one-row
-    table)."""
+    the tap sampler, with ``sampler_plan``'s table and clamps: on the card
+    the tiered form where ``sampler_tiered``, otherwise the single-radius
+    form (on the card the same kernel with a one-row table)."""
     H, W = u.shape
-    if tiered is None:
-        tiered = sampler_tiered(grid, use_cuda_kernels(u, v, s2, t2))
+    tiered = sampler_tiered(grid, use_cuda_kernels(u, v, s2, t2))
     meta, rows, ry, rx = sampler_plan(grid, cfg, tiered, u.device)
     c, r = _row_col(grid, u.device)
     dx = torch.clamp(s2 * W - 0.5 - c, -rx, rx)
@@ -310,13 +307,11 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
     return _advect_finish(nu, nv, dep, wx, wy, terrain, cfg)
 
 
-def advect_plain(u, v, terrain, grid: Grid, cfg: OceanConfig,
-                 tiered: Optional[bool] = None):
+def advect_plain(u, v, terrain, grid: Grid, cfg: OceanConfig):
     """The single-card advect stage as plain torch ops around the sampler:
-    the stage kernel's twin (``tiered`` as ``_advect_sample_fast`` takes
-    it)."""
+    the stage kernel's twin."""
     dep = _departure(u, v, grid, cfg)
-    nu, nv = _advect_sample_fast(u, v, dep[0], dep[1], grid, cfg, tiered)
+    nu, nv = _advect_sample_fast(u, v, dep[0], dep[1], grid, cfg)
     tab = stage_tables(grid, u.device)
     return _advect_finish(nu, nv, dep, tab.wx, tab.wy, terrain, cfg)
 

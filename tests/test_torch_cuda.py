@@ -164,18 +164,17 @@ def _stage_case(W, H, dev, quirks):
     return grid, (h - 0.05) * 20, u * 80, v * 80, cfg
 
 
-@pytest.mark.parametrize("design", ka.STAGE_DESIGNS)
 @pytest.mark.parametrize("quirks", [False, True],
                          ids=["coriolis", "exact_quirks"])
 @pytest.mark.parametrize("shape", [(256, 128), (256, 120)],
                          ids=["tiered", "one-row"])
-def test_advect_stage_kernel_equals_twin(dev, shape, quirks, design):
+def test_advect_stage_kernel_equals_twin(dev, shape, quirks):
     """The fused advect stage against its twin (the torch ops around the
     sampler kernel) on the card, bit for bit, NaN-free; one launch, on
     the tiered table at H = 128 and the one-row table at H = 120."""
     grid, h, u, v, cfg = _stage_case(*shape, dev, quirks)
     before = (ka.LAUNCHES_STAGE, ka.LAUNCHES_ONE_ROW)
-    gu, gv = ka.advect_stage_cuda(u, v, h, grid, cfg, design=design)
+    gu, gv = ka.advect_stage_cuda(u, v, h, grid, cfg)
     assert ka.LAUNCHES_STAGE - before[0] == 1
     assert ka.LAUNCHES_ONE_ROW - before[1] == int(shape[1] % ka.STRIP != 0)
     wu, wv = ka.advect_stage_plain(u, v, h, grid, cfg)
