@@ -16,11 +16,11 @@
    there (atol 1e-5); the sampler at 2048x1024 (atol 1e-5) and, at
    2048x1000 (H not a whole number of 32-row strips), the same kernel with
    a one-row table (K4b, atol 1e-5); the fused advect stage (K4's stage
-   form) against its twin, the torch ops around the sampler
-   kernel, at 2048x1024, 8192x4096 and 2048x1000 (the one-row table):
-   within 1e-6 of max|u| with NaN and inf where the twin's are, the count
-   of differing values printed; the fused kernels timed on the device
-   with their launches queued ahead of the host (``device_ms``);
+   form) against its twin, the torch ops around the plain tap sum, at
+   2048x1024, 8192x4096 and 2048x1000 (the one-row table): within 1e-6
+   of max|u| with NaN and inf where the twin's are, the count of
+   differing values printed; the fused kernels timed on the device with
+   their launches queued ahead of the host (``tools.timing.device_ms``);
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
    at --jacobi 1000, 5 at --jacobi 200, 1 at 2048x1000, which takes the
    one-row table) and 5 ``ocean_step``s at the coupled model's solver
@@ -62,10 +62,8 @@
    pixels; and a per-stage device profile of one step (CUDA events; the
    rows sum to the step; the climate's insolation table and heat-capacity
    build apart from K1, the ocean's coefficient builds apart from the
-   Jacobi sweeps; each row's kernel launches), the same profile with the
-   advect and flow-mask stages as the tree before their fused kernels ran
-   them, and torch.profiler's count of device kernels in one step, each
-   way;
+   Jacobi sweeps; each kernel form's launches in the row), and
+   torch.profiler's count of device kernels in one step;
 8. the sharded path on a 1x1 mesh, in this process, in a world-size-1
    NCCL group: the two-level flow kernels (K10a cold with exit ids and
    warm without, K10b with a zero and a nonzero seed) on the coupled
@@ -93,8 +91,10 @@
    and v), bit for bit against its twin and within phase 3's bounds of K2
    and K3, timed beside them; at 8192x4096, K7+K8 with their rounds and
    tile visits, and K11a-d against them without twins, one call each;
-10. prints the kernels' JSON line, the card line and, last, the result line
-   ``{"ok": true, "device": {...}}``.
+10. prints the kernels' JSON line (each kernel form's own launches on the
+   path that runs it: the stage and packed forms are not counted again
+   under the sampler and codes forms), the card line and, last, the
+   result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is non-zero.  Without a card, or
 without the package beside this script, it exits non-zero at once.
@@ -152,26 +152,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int):
-    """(mean device milliseconds of ``fn`` over ``reps`` calls, whether
-    the host kept ahead): the calls are queued behind a sleep kernel of
-    about 0.1 s, so a kernel shorter than its wrapper's host time is timed
-    back to back on the device, without the host's gaps."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    ahead = time.perf_counter() - t0 < 0.05
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, ahead
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -214,6 +194,7 @@ def main() -> int:
     from demiurge_tpu_torch.ops import flow as of
     from demiurge_tpu_torch.tools import flow_tune as ft
     from demiurge_tpu_torch.tools import serpentine
+    from demiurge_tpu_torch.tools.timing import device_ms
 
     # -- 1. setup ------------------------------------------------------------
     card = card_line()
@@ -250,13 +231,13 @@ def main() -> int:
                 "flow_banded_rounds": (kx, "LAUNCHES_BANDED"),
                 "jacobi_packed": (kp, "LAUNCHES"),
                 "advect_stage": (ka, "LAUNCHES_STAGE"),
+                "advect_stage_one_row": (ka, "LAUNCHES_STAGE_ONE_ROW"),
                 "flow_directions_packed": (kd, "LAUNCHES_PACKED")}
     # the kernels of the single-card coupled path; the mesh path's are
-    # phase 8's, K4b's phase 4's, K11's phase 9's
-    single_card = ["jacobi_pressure", "jacobi_diffusion",
-                   "advect_sample_tiered", "climate", "blur",
-                   "flow_directions", "flow_solve", "flow_vis",
-                   "advect_stage", "flow_directions_packed"]
+    # phase 8's, the one-row table's phase 4's, K11's phase 9's
+    single_card = ["jacobi_pressure", "jacobi_diffusion", "climate", "blur",
+                   "flow_solve", "flow_vis", "advect_stage",
+                   "flow_directions_packed"]
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -264,6 +245,19 @@ def main() -> int:
 
     def read_counts(names):
         return {n: getattr(*counters[n]) for n in names}
+
+    def own_forms(c):
+        """Each form's own launches from every counter's reading: the
+        sampler's and the codes form's counters (LAUNCHES,
+        LAUNCHES_ONE_ROW) count the stage and packed forms' launches too,
+        and the stage's counts its one-row launches."""
+        c = dict(c)
+        c["advect_sample_pallas"] -= c["advect_stage_one_row"]
+        c["advect_sample_tiered"] -= (c["advect_stage"]
+                                      + c["advect_sample_pallas"])
+        c["advect_stage"] -= c["advect_stage_one_row"]
+        c["flow_directions"] -= c["flow_directions_packed"]
+        return c
 
     @contextlib.contextmanager
     def plain_twins():
@@ -409,10 +403,13 @@ def main() -> int:
     assert torch.equal(gu, wu) and torch.equal(gv, wv), \
         max(max_err(gu, wu), max_err(gv, wv))
     def stage_against_twin(label, u_, v_, t_, g_):
-        """The fused advect stage against its twin: within 1e-6 of max|u|,
-        NaN and inf where the twin's are, one launch.  Returns the
-        differing values, in words."""
-        wu, wv = ka.advect_stage_plain(u_, v_, t_, g_, cfg)
+        """The fused advect stage against its twin with the plain tap sum
+        in place of the sampler kernel (so the two share no kernel code):
+        within 1e-6 of max|u|, NaN and inf where the twin's are, one
+        launch.  Returns (max error, the differing values in words)."""
+        with mock.patch.object(ka, "advect_sample",
+                               ka.advect_sample_tiered_plain):
+            wu, wv = ka.advect_stage_plain(u_, v_, t_, g_, cfg)
         scale = float(torch.maximum(wu.abs().max(), wv.abs().max()))
         n0 = ka.LAUNCHES_STAGE
         gu, gv = ka.advect_stage_cuda(u_, v_, t_, g_, cfg)
@@ -428,11 +425,11 @@ def main() -> int:
         assert scale > 0 and err <= 1e-6 * scale, (label, err)
         note = (f"{differ} of {2 * u_.numel()} values differ, max err "
                 f"{err:.3e}")
-        print(f"  fused advect stage at {label} against its twin (max|u|, "
-              f"|v| {scale:.4g}): {note}")
-        return note
+        print(f"  fused advect stage at {label} against its twin with the "
+              f"plain tap sum (max|u|, |v| {scale:.4g}): {note}")
+        return err, note
 
-    stage_notes = {f"{BIG[0]}x{BIG[1]}": stage_against_twin(
+    stage_checks = {f"{BIG[0]}x{BIG[1]}": stage_against_twin(
         f"{BIG[0]}x{BIG[1]}", u_big, v_big, t_big, big_grid)}
     dx, dy, meta, ry = sampler_inputs(u_big, v_big, big_grid)
     gu, gv = ka.advect_sample_cuda(u_big, v_big, dx, dy, meta, ka.STRIP, ry)
@@ -463,7 +460,9 @@ def main() -> int:
         u, v, dx, dy, meta, ka.STRIP, ry), 3)
     record("advect_sample_tiered", "demiurge_tpu_torch/csrc/advect.cu",
            "demiurge_tpu/pallas_kernels/advect.py:235", err, ms, plain_ms,
-           6 * plane, 40 * N, "real clamped (dx, dy), atol 1e-5")
+           6 * plane, 40 * N,
+           "the sampler form on real clamped (dx, dy), atol 1e-5; no main "
+           "path launches it (the stage form runs the advect there)")
 
     # K4b: the single-radius form (one-row table), which the ocean takes on
     # the card when H is not a whole number of 32-row strips
@@ -489,42 +488,54 @@ def main() -> int:
     record("advect_sample_pallas", "demiurge_tpu_torch/csrc/advect.cu",
            "demiurge_tpu/pallas_kernels/advect.py:297", err, ms, plain_ms,
            6 * 4.0 * nb_, 40 * nb_,
-           f"K4b at {W}x{HB}: one-row table (Rx {rx1}, Ry {ry1}), atol "
-           f"1e-5")
+           f"K4b's sampler form at {W}x{HB}: one-row table (Rx {rx1}, Ry "
+           f"{ry1}), atol 1e-5; no main path launches it (the stage form "
+           f"with this table does: advect_stage_one_row)")
 
     # the fused stage: at 2048x1000 (the one-row table) and 2048x1024
     terrain_b = terrain[:HB].contiguous()
-    stage_notes[f"{W}x{HB}"] = stage_against_twin(f"{W}x{HB}", ub, vb,
-                                                  terrain_b, grid_b)
-    stage_b_ms, _ = device_ms(lambda: ka.advect_stage_cuda(
+    stage_checks[f"{W}x{HB}"] = stage_against_twin(f"{W}x{HB}", ub, vb,
+                                                   terrain_b, grid_b)
+    stage_b_ms = device_ms(lambda: ka.advect_stage_cuda(
         ub, vb, terrain_b, grid_b, cfg), 20)
-    stage_notes[f"{W}x{H}"] = stage_against_twin(f"{W}x{H}", u, v, terrain,
-                                                 grid)
-    ms, ahead = device_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid,
-                                                       cfg), 20)
+    stage_b_plain_ms = cuda_ms(lambda: ka.advect_stage_plain(
+        ub, vb, terrain_b, grid_b, cfg), 5)
+    stage_checks[f"{W}x{H}"] = stage_against_twin(f"{W}x{H}", u, v, terrain,
+                                                  grid)
+    ms = device_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid, cfg),
+                   20)
     call_ms = cuda_ms(lambda: ka.advect_stage_cuda(u, v, terrain, grid,
                                                    cfg), 20)
-    sampler_ms, _ = device_ms(lambda: ka.advect_sample_cuda(
+    sampler_ms = device_ms(lambda: ka.advect_sample_cuda(
         u, v, dx, dy, meta, ka.STRIP, ry), 20)
     plain_ms = cuda_ms(lambda: ka.advect_stage_plain(u, v, terrain, grid,
                                                      cfg), 5)
     print(f"  fused advect stage at {W}x{H}: {ms:.4f} device ms "
-          f"(launches queued ahead; host ahead: {ahead}), a call on the "
-          f"host's clock {call_ms:.4f} ms; "
-          f"the sampler form alone {sampler_ms:.4f} ms; twin {plain_ms:.3f} "
-          f"ms; at {W}x{HB} (one-row table) {stage_b_ms:.4f} ms ({card})")
+          f"(launches queued ahead of the host), a call on the host's "
+          f"clock {call_ms:.4f} ms; the sampler form alone {sampler_ms:.4f} "
+          f"ms; twin {plain_ms:.3f} ms; at {W}x{HB} (one-row table) "
+          f"{stage_b_ms:.4f} ms, twin {stage_b_plain_ms:.3f} ms ({card})")
     # per pixel: ~300 float operations (backtrace, taps, transport back,
     # forcing) and 7 libm calls
+    tiered_checks = [stage_checks[k] for k in (f"{W}x{H}",
+                                               f"{BIG[0]}x{BIG[1]}")]
     record("advect_stage", "demiurge_tpu_torch/csrc/advect.cu",
-           "demiurge_tpu/pallas_kernels/advect.py:235", err, ms, plain_ms,
-           5 * plane, 300 * N,
-           f"the whole single-card advect stage in one launch (device "
-           f"time, launches queued ahead; a call on the host's clock "
-           f"{call_ms:.4f} ms; the sampler form {sampler_ms:.4f}); against "
-           f"the twin "
-           f"(torch ops around the sampler kernel): " + " | ".join(
-               f"{k}: {v}" for k, v in stage_notes.items())
-           + f"; one-row table at {W}x{HB} {stage_b_ms:.4f} ms")
+           "demiurge_tpu/pallas_kernels/advect.py:235",
+           max(e for e, _ in tiered_checks), ms, plain_ms, 5 * plane,
+           300 * N,
+           f"the whole single-card advect stage in one launch, tiered "
+           f"table (device time, launches queued ahead; a call on the "
+           f"host's clock {call_ms:.4f} ms; the sampler form "
+           f"{sampler_ms:.4f}); against the twin (torch ops around the "
+           f"plain tap sum): {W}x{H}: {tiered_checks[0][1]} | "
+           f"{BIG[0]}x{BIG[1]}: {tiered_checks[1][1]}")
+    err_b, note_b = stage_checks[f"{W}x{HB}"]
+    record("advect_stage_one_row", "demiurge_tpu_torch/csrc/advect.cu",
+           "demiurge_tpu/pallas_kernels/advect.py:297", err_b, stage_b_ms,
+           stage_b_plain_ms, 5 * 4.0 * nb_, 300 * nb_,
+           f"the stage form with the one-row table at {W}x{HB} (device "
+           f"time, launches queued ahead); against the twin (torch ops "
+           f"around the plain tap sum): {note_b}")
     del terrain_b
 
     # -- 4. the ocean path, counted ------------------------------------------
@@ -544,7 +555,9 @@ def main() -> int:
     step_ms = (time.perf_counter() - t0) * 1e3 / 5
     ocean_launches = read_counts(["jacobi_pressure", "jacobi_diffusion",
                                   "advect_sample_tiered",
-                                  "advect_sample_pallas", "advect_stage"])
+                                  "advect_sample_pallas", "advect_stage",
+                                  "advect_stage_one_row"])
+    ocean_forms = own_forms(read_counts(list(counters)))
     records = [json.loads(line) for line in log_text.getvalue().splitlines()
                if line.startswith("{")]
     for rec in records:
@@ -558,6 +571,7 @@ def main() -> int:
     assert ocean_launches["advect_stage"] == 12, ocean_launches
     assert ocean_launches["advect_sample_tiered"] == 12, ocean_launches
     assert ocean_launches["advect_sample_pallas"] == 1, ocean_launches
+    assert ocean_launches["advect_stage_one_row"] == 1, ocean_launches
     for f in (u, v, p, d):
         assert f.shape == (H, W) and bool(torch.isfinite(f).all())
     u_ref, v_ref = u0, v0
@@ -574,7 +588,10 @@ def main() -> int:
           f"{plain_step_ms:.2f} ms/step ({card}); max|u| {scale:.4g}, "
           f"kernel vs plain err/max {err / scale:.3e}")
     assert scale > 0 and err <= 1e-5 * scale, (err, scale)
-    print(f"launches on the ocean path: {ocean_launches}")
+    print(f"launches on the ocean path: {ocean_launches}; each advect "
+          f"form's own: " + json.dumps({n: ocean_forms[n] for n in (
+              "advect_sample_tiered", "advect_sample_pallas",
+              "advect_stage", "advect_stage_one_row")}))
 
     # -- 5. the coupled step's kernels against their twins at 2048x1024 ---
     ccfg = model.CoupledConfig()
@@ -703,8 +720,8 @@ def main() -> int:
     def packed_against_twin(label, hb_, sel_, g_):
         """K6's packed form in one launch: its codes against the plain
         twin (ties at most 1 per 10^4 pixels) and its packed masks exactly
-        pack_masks of its own codes and their mouths.  Returns the
-        ties."""
+        pack_masks of its own codes and their mouths.  Returns the ties
+        and the max error of the codes and of the packed field."""
         n0 = kd.LAUNCHES_PACKED
         code_k, packed_k = kd.directions_packed_cuda(hb_, sel_, g_)
         assert kd.LAUNCHES_PACKED - n0 == 1
@@ -713,15 +730,17 @@ def main() -> int:
         want_packed = kf.pack_masks(code_k, mouth_k, g_)
         torch.cuda.synchronize()
         ties_ = int((code_k != want_code).sum())
+        err_ = max(max_err(code_k, want_code),
+                   max_err(packed_k, want_packed))
         assert ties_ <= hb_.numel() // 10000, (label, ties_)
         assert torch.equal(packed_k, want_packed), label
         print(f"  packed directions at {label}: {ties_} ties of "
               f"{hb_.numel()} pixels; packed masks equal pack_masks of its "
               f"codes ({int(((packed_k >> 16) & 1).sum())} mouths)")
-        return ties_
+        return ties_, err_
 
-    packed_ties = {f"{W}x{H}": packed_against_twin(f"{W}x{H}", hb, sel,
-                                                   grid)}
+    packed_checks = {f"{W}x{H}": packed_against_twin(f"{W}x{H}", hb, sel,
+                                                     grid)}
 
     def parent_masks(hb_, sel_, g_):
         """The codes and masks as the tree before the packed form made
@@ -730,18 +749,17 @@ def main() -> int:
         _, mouth_, _ = of.incoming_mask(code_, g_)
         return code_, kf.pack_masks(code_, mouth_, g_)
 
-    packed_ms, packed_ahead = device_ms(
-        lambda: kd.directions_packed_cuda(hb, sel, grid), 20)
+    packed_ms = device_ms(lambda: kd.directions_packed_cuda(hb, sel, grid),
+                          20)
     packed_call_ms = cuda_ms(lambda: kd.directions_packed_cuda(hb, sel, grid),
                              20)
-    codes_ms, _ = device_ms(lambda: kd.flow_directions_cuda(hb, sel, grid),
-                            20)
+    codes_ms = device_ms(lambda: kd.flow_directions_cuda(hb, sel, grid), 20)
     parent_ms = cuda_ms(lambda: parent_masks(hb, sel, grid), 5)
     packed_plain_ms = cuda_ms(
         lambda: kd.directions_packed_plain(hb, sel, grid), 3)
     print(f"  packed directions at {W}x{H}: {packed_ms:.4f} device ms "
-          f"(launches queued ahead; host ahead: {packed_ahead}), a call on "
-          f"the host's clock {packed_call_ms:.4f} ms; the codes-only form "
+          f"(launches queued ahead of the host), a call on the host's "
+          f"clock {packed_call_ms:.4f} ms; the codes-only form "
           f"{codes_ms:.4f} device ms; the parent's codes kernel + "
           f"incoming_mask + pack_masks {parent_ms:.3f} ms ({card})")
 
@@ -790,21 +808,24 @@ def main() -> int:
     # tiles do not divide, against their twins
     g_r = Grid(*RAGGED)
     hb_r = ob.blur(cli._terrain(g_r, SEED, dev), g_r, ccfg.flow_preblur)
-    packed_ties[f"{RAGGED[0]}x{RAGGED[1]}"] = packed_against_twin(
+    packed_checks[f"{RAGGED[0]}x{RAGGED[1]}"] = packed_against_twin(
         f"{RAGGED[0]}x{RAGGED[1]}", hb_r, torch.ones_like(hb_r), g_r)
     g_b = Grid(*BIG)
     hb_b = ob.blur(cli._terrain(g_b, SEED, dev), g_b, ccfg.flow_preblur)
-    packed_ties[f"{BIG[0]}x{BIG[1]}"] = packed_against_twin(
+    packed_checks[f"{BIG[0]}x{BIG[1]}"] = packed_against_twin(
         f"{BIG[0]}x{BIG[1]}", hb_b, torch.ones_like(hb_b), g_b)
     del hb_b
     torch.cuda.empty_cache()
     record("flow_directions_packed", "demiurge_tpu_torch/csrc/directions.cu",
-           "demiurge_tpu/pallas_kernels/directions.py:152", 0.0, packed_ms,
+           "demiurge_tpu/pallas_kernels/directions.py:152",
+           max(e for _, e in packed_checks.values()), packed_ms,
            packed_plain_ms, 5 * plane, 103 * N,
            f"codes and packed masks in one launch (device time, launches "
            f"queued ahead; a call on the host's clock {packed_call_ms:.4f} "
            f"ms; the codes-only form {codes_ms:.4f}); ties against the "
-           f"plain codes {json.dumps(packed_ties)}, packed masks exact; "
+           f"plain codes "
+           f"{json.dumps({k: t for k, (t, _) in packed_checks.items()})}, "
+           f"packed masks exact; "
            f"the parent's codes kernel + incoming_mask + pack_masks "
            f"{parent_ms:.3f} ms")
     code_r = of.flow_directions(hb_r, torch.ones_like(hb_r), g_r)
@@ -860,7 +881,9 @@ def main() -> int:
         clim = band_run(f"climate {CLIMATE[0]}x{CLIMATE[1]}, 500 substeps "
                         f"(2 dispatches)", ["climate", "--steps", "500"])
     torch.cuda.synchronize()
-    launches = read_counts(single_card)
+    totals = read_counts(list(counters))
+    launches = {n: totals[n] for n in single_card}
+    coupled_forms = own_forms(totals)
     print(f"K1 and K5 launches by run: {json.dumps(band_counts)}")
     per_step = band_counts[f"coupled {W}x{H}, 3 steps"]
     assert per_step["climate"] <= 2 * 3 and per_step["blur"] <= 2 * 3
@@ -874,10 +897,10 @@ def main() -> int:
     for name, n in launches.items():
         assert n > 0, f"{name} was never launched on the coupled path"
     # 4 coupled steps: one fused advect and one packed directions launch
-    # each, and neither stage's other form
+    # each, and neither stage's other form (the totals count both forms)
     for fused, every in (("advect_stage", "advect_sample_tiered"),
                          ("flow_directions_packed", "flow_directions")):
-        assert launches[fused] == launches[every] == 4, launches
+        assert totals[fused] == totals[every] == 4, totals
     assert len(records) == 3 + 1 + 2, log_text.getvalue()
     assert not climate_unstable(grid)
     for rec in records[:4]:
@@ -1000,32 +1023,6 @@ def main() -> int:
                                   u=uu, v=vv, temperature=T, t_index=ti,
                                   flow_acc=acc)
 
-    @contextlib.contextmanager
-    def parent_stages():
-        """The advect and flow-mask stages as the tree before their fused
-        kernels ran them: torch ops around the sampler kernel; the codes
-        kernel, then incoming_mask and pack_masks; the per-grid tables
-        rebuilt every call."""
-        def rebuilt(fn, cache):
-            def call(*args):
-                cache.clear()
-                return fn(*args)
-            return call
-
-        with contextlib.ExitStack() as stack:
-            for mod, name, fn in (
-                    (ka, "advect_stage", ka.advect_stage_plain),
-                    (kd, "directions_packed", parent_masks),
-                    (of, "cell_area_lower_edge",
-                     lambda g, d, scale=1e-5: of._cell_area_build(g, d,
-                                                                  scale)),
-                    (ocean, "stage_tables",
-                     rebuilt(ocean.stage_tables, ocean._TABLES)),
-                    (ocean, "sampler_plan",
-                     rebuilt(ocean.sampler_plan, ocean._PLANS))):
-                stack.enter_context(mock.patch.object(mod, name, fn))
-            yield
-
     from demiurge_tpu_torch.kernels import launch_counts
 
     prev = model.coupled_step(start, grid, ccfg)  # a warm flow_acc
@@ -1036,39 +1033,6 @@ def main() -> int:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((name, ev, launch_counts()))
-
-    def profile_rows(label, exact=True):
-        """One staged step, timed between stages; its rows and launches.
-        Equal to coupled_step, or (``exact`` false: the stages as the tree
-        before the fused kernels ran them) u and v within 1e-6 of max,
-        the rest equal."""
-        events.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mark("start")
-        got = staged_step(prev, mark)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        for name in ("height", "u", "v", "temperature", "flow_acc"):
-            a, b = getattr(got, name), getattr(want, name)
-            if exact or name not in ("u", "v"):
-                assert torch.equal(a, b), (label, name)
-            else:
-                assert max_err(a, b) <= 1e-6 * float(b.abs().max()), name
-        rows = []
-        for (_, ev0, n0), (name, ev, n1) in zip(events, events[1:]):
-            fired = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
-            rows.append((name, ev0.elapsed_time(ev), fired))
-        total = events[0][1].elapsed_time(events[-1][1])
-        print(f"profile of one warm coupled step at {W}x{H}, {label} (CUDA "
-              f"events on the stream; device-timeline ms, gaps included; "
-              f"kernel launches of the row; {card}):")
-        for name, t, fired in rows:
-            print(f"  {name:40s} {t:9.3f} ms  {100 * t / total:5.1f}%  "
-                  f"{json.dumps(fired)}")
-        print(f"  {'sum of rows':40s} {sum(t for _, t, _ in rows):9.3f} ms; "
-              f"first-to-last event {total:.3f} ms; host clock "
-              f"{host_ms:.3f} ms")
 
     def device_kernels():
         """Device kernels, and copies and fills, of one coupled_step
@@ -1086,15 +1050,32 @@ def main() -> int:
                     ("Memcpy", "Memset")) else "kernels"] += 1
         return kinds
 
-    profile_rows("fused advect and flow masks")
-    with parent_stages():
-        profile_rows("advect and flow masks as the tree before them ran "
-                     "them", exact=False)
-        before_kernels = device_kernels()
-    after_kernels = device_kernels()
-    print(f"device kernels in one coupled step (torch.profiler): before the "
-          f"fused stages {json.dumps(before_kernels)}, after "
-          f"{json.dumps(after_kernels)}")
+    # one staged step, timed between stages, equal to coupled_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mark("start")
+    got = staged_step(prev, mark)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    for name in ("height", "u", "v", "temperature", "flow_acc"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    rows = []
+    for (_, ev0, n0), (name, ev, n1) in zip(events, events[1:]):
+        n0, n1 = own_forms(n0), own_forms(n1)
+        fired = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+        rows.append((name, ev0.elapsed_time(ev), fired))
+    total = events[0][1].elapsed_time(events[-1][1])
+    print(f"profile of one warm coupled step at {W}x{H} (CUDA events on "
+          f"the stream; device-timeline ms, gaps included; each kernel "
+          f"form's launches in the row; {card}):")
+    for name, t, fired in rows:
+        print(f"  {name:40s} {t:9.3f} ms  {100 * t / total:5.1f}%  "
+              f"{json.dumps(fired)}")
+    print(f"  {'sum of rows':40s} {sum(t for _, t, _ in rows):9.3f} ms; "
+          f"first-to-last event {total:.3f} ms; host clock "
+          f"{host_ms:.3f} ms")
+    print(f"device kernels in one coupled step (torch.profiler): "
+          f"{json.dumps(device_kernels())}")
 
     # -- 8. the sharded path on a 1x1 mesh (NCCL, world size 1) -----------
     import torch.distributed as tdist
@@ -1539,11 +1520,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 10. results ---------------------------------------------------------
-    main_launches = {**launches,
-                     **{n: mesh_launches[n] for n in ("flow_local_solve",
-                                                      "flow_local_vis")},
-                     "advect_sample_pallas":
-                         ocean_launches["advect_sample_pallas"],
+    # each form's own launches on the path that runs it: the single-card
+    # coupled CLI (phase 6; the sampler form is on no path and counts 0
+    # there), the ocean CLI's one-row table (phase 4), the mesh step's
+    # codes form and K10 (phase 8), K11's tools (phase 9)
+    mesh_forms = own_forms(mesh_launches)
+    main_launches = {**coupled_forms,
+                     **{n: mesh_forms[n] for n in ("flow_directions",
+                                                   "flow_local_solve",
+                                                   "flow_local_vis")},
+                     **{n: ocean_forms[n] for n in ("advect_sample_pallas",
+                                                    "advect_stage_one_row")},
                      **k11_launches}
     for k in kernels:
         k["launches"] = main_launches[k["name"]]

@@ -28,4 +28,5 @@ def launch_counts() -> dict:
             "flow_banded_rounds": flow_deadends.LAUNCHES_BANDED,
             "jacobi_packed": jacobi_packed.LAUNCHES,
             "advect_stage": advect.LAUNCHES_STAGE,
+            "advect_stage_one_row": advect.LAUNCHES_STAGE_ONE_ROW,
             "flow_directions_packed": directions.LAUNCHES_PACKED}

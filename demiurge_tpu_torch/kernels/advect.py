@@ -19,7 +19,8 @@ twin ``advect_stage_plain`` is ``ops.ocean.advect_plain``, the torch ops
 around the sampler.  ``LAUNCHES`` counts kernel launches of both forms;
 ``LAUNCHES_ONE_ROW`` counts those of them with a one-row table, the
 single-radius form that replaces the reference's ``advect_sample_pallas``;
-``LAUNCHES_STAGE`` counts the stage form's.
+``LAUNCHES_STAGE`` counts the stage form's, ``LAUNCHES_STAGE_ONE_ROW``
+those of them with a one-row table.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ STRIDE = 8     # lattice stride of a polar strip's coarse taps
 LAUNCHES = 0
 LAUNCHES_ONE_ROW = 0
 LAUNCHES_STAGE = 0
+LAUNCHES_STAGE_ONE_ROW = 0
 
 
 def strip_radii(grid, vmax: float, timestep: float, strip: int = STRIP,
@@ -158,7 +160,7 @@ def advect_stage_cuda(u, v, terrain, grid, cfg):
     current stream, no synchronisation.  The table is the tiered one where
     H is a whole number of strips, else the one-row one, as the twin takes
     them on the card."""
-    global LAUNCHES, LAUNCHES_ONE_ROW, LAUNCHES_STAGE
+    global LAUNCHES, LAUNCHES_ONE_ROW, LAUNCHES_STAGE, LAUNCHES_STAGE_ONE_ROW
     from ..ops import ocean
 
     check_kernel_inputs(("u", "v", "terrain"), (u, v, terrain),
@@ -184,6 +186,7 @@ def advect_stage_cuda(u, v, terrain, grid, cfg):
     LAUNCHES += 1
     LAUNCHES_ONE_ROW += int(meta.shape[0] == 1)
     LAUNCHES_STAGE += 1
+    LAUNCHES_STAGE_ONE_ROW += int(meta.shape[0] == 1)
     return ou, ov
 
 

@@ -8,18 +8,18 @@ Imports ``demiurge_tpu_torch`` from ``DIR`` (default: the checkout that
 holds this file), builds its kernels and makes the ocean CLI's terrain
 (fBm, seed 7) at ``--width`` x ``--height`` and (u, v) after one ocean
 step from rest.  Then each call is held to its twin bit for bit and timed
-on the device over ``--reps`` calls queued behind a sleep kernel, so that
-the host's time in the wrappers stays out of the kernel's time:
+on the device over ``--reps`` calls queued behind a sleep kernel
+(``tools.timing.device_ms``), so that the host's time in the wrappers
+stays out of the kernel's time:
 
-- "advect <design>": the whole advect stage (``advect_stage_cuda``), once
-  for each design the tree offers (``kernels.advect.STAGE_DESIGNS``,
-  where it defines them);
+- "advect stage": the whole advect stage (``advect_stage_cuda``);
 - "directions packed": the codes and packed flow masks
   (``directions_packed_cuda``) on the pre-blurred terrain;
 - "directions codes": the codes-only form (``flow_directions_cuda``).
 
 Prints one JSON line: the tree, the card, and each call's ms.  Two
-checkouts are raced alternately on one card (order A B B A).
+checkouts that both have these entry points are raced alternately on one
+card (order A B B A).
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ import json
 import pathlib
 import subprocess
 import sys
-import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 
@@ -58,6 +57,7 @@ def main(argv=None) -> int:
     from demiurge_tpu_torch.ops import ocean
     from demiurge_tpu_torch.ops.blur import blur
     from demiurge_tpu_torch.ops.flow import incoming_mask
+    from demiurge_tpu_torch.tools.timing import device_ms
 
     pkg = pathlib.Path(demiurge_tpu_torch.__file__).resolve().parent
     if pkg.parent != tree:
@@ -77,40 +77,25 @@ def main(argv=None) -> int:
     hb = blur(terrain, grid, 0.5).contiguous()
     sel = torch.ones_like(hb)
 
-    def device_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)   # about 0.1 s: the host runs ahead
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(args.reps):
-            fn()
-        if time.perf_counter() - t0 > 0.05:
-            raise RuntimeError("the host fell behind the sleep kernel")
-        end.record()
-        end.synchronize()
-        return round(start.elapsed_time(end) / args.reps, 5)
+    def ms_of(fn):
+        return round(device_ms(fn, args.reps), 5)
 
     ms = {}
+    got = ka.advect_stage_cuda(u, v, terrain, grid, cfg)
     want = ka.advect_stage_plain(u, v, terrain, grid, cfg)
-    for design in getattr(ka, "STAGE_DESIGNS", [None]):
-        kw = {} if design is None else {"design": design}
-        got = ka.advect_stage_cuda(u, v, terrain, grid, cfg, **kw)
-        if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise RuntimeError(f"advect {design} differs from its twin")
-        ms[f"advect {design or 'stage'}"] = device_ms(
-            lambda: ka.advect_stage_cuda(u, v, terrain, grid, cfg, **kw))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError("the advect stage differs from its twin")
+    ms["advect stage"] = ms_of(
+        lambda: ka.advect_stage_cuda(u, v, terrain, grid, cfg))
     code, packed = kd.directions_packed_cuda(hb, sel, grid)
     _, mouth, _ = incoming_mask(code, grid)
     if not (torch.equal(code, kd.flow_directions_cuda(hb, sel, grid))
             and torch.equal(packed, pack_masks(code, mouth, grid))):
         raise RuntimeError("the packed form differs from the codes form "
                            "or from pack_masks of its codes")
-    ms["directions packed"] = device_ms(
+    ms["directions packed"] = ms_of(
         lambda: kd.directions_packed_cuda(hb, sel, grid))
-    ms["directions codes"] = device_ms(
+    ms["directions codes"] = ms_of(
         lambda: kd.flow_directions_cuda(hb, sel, grid))
     print(json.dumps({"tree": str(tree), "card": card,
                       "grid": f"{args.width}x{args.height}", "ms": ms}))

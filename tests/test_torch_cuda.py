@@ -168,15 +168,20 @@ def _stage_case(W, H, dev, quirks):
                          ids=["coriolis", "exact_quirks"])
 @pytest.mark.parametrize("shape", [(256, 128), (256, 120)],
                          ids=["tiered", "one-row"])
-def test_advect_stage_kernel_equals_twin(dev, shape, quirks):
-    """The fused advect stage against its twin (the torch ops around the
-    sampler kernel) on the card, bit for bit, NaN-free; one launch, on
-    the tiered table at H = 128 and the one-row table at H = 120."""
+def test_advect_stage_kernel_equals_twin(dev, shape, quirks, monkeypatch):
+    """The fused advect stage against its twin on the card, bit for bit,
+    NaN-free; one launch, on the tiered table at H = 128 and the one-row
+    table at H = 120.  The twin takes the plain tap sum in place of the
+    sampler kernel, so the two share no kernel code."""
     grid, h, u, v, cfg = _stage_case(*shape, dev, quirks)
-    before = (ka.LAUNCHES_STAGE, ka.LAUNCHES_ONE_ROW)
+    before = (ka.LAUNCHES_STAGE, ka.LAUNCHES_ONE_ROW,
+              ka.LAUNCHES_STAGE_ONE_ROW)
     gu, gv = ka.advect_stage_cuda(u, v, h, grid, cfg)
+    one_row = int(shape[1] % ka.STRIP != 0)
     assert ka.LAUNCHES_STAGE - before[0] == 1
-    assert ka.LAUNCHES_ONE_ROW - before[1] == int(shape[1] % ka.STRIP != 0)
+    assert ka.LAUNCHES_ONE_ROW - before[1] == one_row
+    assert ka.LAUNCHES_STAGE_ONE_ROW - before[2] == one_row
+    monkeypatch.setattr(ka, "advect_sample", ka.advect_sample_tiered_plain)
     wu, wv = ka.advect_stage_plain(u, v, h, grid, cfg)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(wu).all() and torch.isfinite(wv).all())

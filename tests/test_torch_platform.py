@@ -175,8 +175,9 @@ def test_launch_counts_name_every_counter():
     names = set(launch_counts())
     assert {"advect_sample_pallas", "flow_solve_2d", "flow_solve_fused",
             "flow_solve_wave", "flow_banded_rounds", "jacobi_packed",
-            "advect_stage", "flow_directions_packed"} <= names
-    assert len(names) == 18
+            "advect_stage", "advect_stage_one_row",
+            "flow_directions_packed"} <= names
+    assert len(names) == 19
 
 
 def test_interop_round_trip_and_config():
