@@ -91,10 +91,22 @@
    and v), bit for bit against its twin and within phase 3's bounds of K2
    and K3, timed beside them; at 8192x4096, K7+K8 with their rounds and
    tile visits, and K11a-d against them without twins, one call each;
-10. prints the kernels' JSON line (each kernel form's own launches on the
+10. BASELINE config 1 with every launch counter at 0: the ``erosion`` CLI
+   at its default 1024x512 for 5 steps (the full flow filter with lakes,
+   then the erosion pass); fails unless K5 and K6's codes form launched
+   once a step (and the packed form never), the native lake solver ran
+   once a step, and every logged mass and the field are finite; held to
+   the same 5 iterations through the plain twins (the height beyond 1e-5
+   of max at no more than 1e-3 of the pixels, direction ties counted);
+   then 5 iterations written out stage by stage (equal to the CLI's
+   field), each stage timed on the host clock around a synchronize:
+   pre-blur + directions + masks, the host lake solve with its copies,
+   the lake-aware relaxation with its sweeps, the flow map + erosion pass;
+11. prints the kernels' JSON line (each kernel form's own launches on the
    path that runs it: the stage and packed forms are not counted again
-   under the sampler and codes forms), the card line and, last, the
-   result line ``{"ok": true, "device": {...}}``.
+   under the sampler and codes forms; K5 and K6's codes form count the
+   erosion run too), the card line and, last, the result line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is non-zero.  Without a card, or
 without the package beside this script, it exits non-zero at once.
@@ -106,6 +118,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -113,6 +126,7 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -123,6 +137,7 @@ BIG = (8192, 4096)      # the coupled CLI's default size
 RAGGED = (2000, 1000)   # a grid K7/K8's 16x128 tiles do not divide
 HB = H - 24             # K4b's grid height: not a whole number of strips
 CLIMATE = (4096, 2048)  # the climate CLI's default size
+ERODE = (1024, 512)     # the erosion CLI's default size (BASELINE config 1)
 
 # published peaks of one H100 SXM (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1519,11 +1534,139 @@ def main() -> int:
     del A7b, vis8b, pk_big, area_big
     torch.cuda.empty_cache()
 
-    # -- 10. results ---------------------------------------------------------
+    # -- 10. BASELINE config 1: the erosion CLI, counted -------------------
+    from demiurge_tpu_torch.core.platform import host_to_device
+    from demiurge_tpu_torch.native import build as nbuild
+    from demiurge_tpu_torch.native import lakes as nlakes
+
+    t0 = time.perf_counter()
+    native_lib, gxx_s = nbuild.build()
+    nbuild.library()
+    print(f"built {native_lib.name}: g++ {gxx_s:.1f} s, build+load "
+          f"{time.perf_counter() - t0:.1f} s")
+    ESTEPS = 5
+    egrid = Grid(*ERODE)
+    zero_counts()
+    native0 = nlakes.CALLS
+    log_text = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(log_text):
+        ero = cli.main(["erosion", "--steps", str(ESTEPS)])
+    torch.cuda.synchronize()
+    ero_cli_s = time.perf_counter() - t0
+    erosion_forms = own_forms(read_counts(list(counters)))
+    native_calls = nlakes.CALLS - native0
+    records = [json.loads(line) for line in log_text.getvalue().splitlines()
+               if line.startswith("{")]
+    for rec in records:
+        print("cli:", json.dumps(rec))
+    fired = {k: v for k, v in erosion_forms.items() if v}
+    print(f"launches on the erosion path ({ESTEPS} steps at "
+          f"{ERODE[0]}x{ERODE[1]}): {json.dumps(fired)}; native lake "
+          f"solves {native_calls}; {ero_cli_s:.2f} s with the terrain")
+    assert [r["step"] for r in records] == list(range(ESTEPS)), \
+        log_text.getvalue()
+    for rec in records:
+        assert isinstance(rec["mass"], float) and math.isfinite(rec["mass"])
+    assert fired == {"blur": ESTEPS, "flow_directions": ESTEPS}, fired
+    assert native_calls == ESTEPS, native_calls
+    h_ero = ero["terrain"]
+    assert tuple(h_ero.shape) == egrid.shape
+    assert bool(torch.isfinite(h_ero).all())
+
+    e_terrain = cli._terrain(egrid, SEED, dev)
+    e_sel = torch.ones(egrid.shape, device=dev)
+    ecfg = erosion.ErosionConfig(lakes=True)
+    e_ties = []
+
+    def count_ties(i, hh):
+        hbk = kb.blur_cuda(hh, egrid, ob.sigma_list(0.5))
+        e_ties.append(int((kd.flow_directions_cuda(hbk, e_sel, egrid)
+                           != kd.flow_directions_plain(hbk, e_sel, egrid))
+                          .sum()))
+
+    with plain_twins():
+        h_ref = erosion.landscape_evolution(e_terrain, e_sel, egrid, ecfg,
+                                            iterations=ESTEPS,
+                                            callback=count_ties)
+    torch.cuda.synchronize()
+    dh = (h_ero - h_ref).abs() / h_ref.abs().max()
+    share = float((dh > 1e-5).float().mean())
+    print(f"  {ESTEPS} erosion steps, height: kernel path against the plain "
+          f"twins err/max {float(dh.max()):.3e}, share beyond 1e-5 of max "
+          f"{share:.3e} (bound 1e-3); direction ties per step on the twins' "
+          f"heights {e_ties}")
+    assert share <= 1e-3, share
+
+    # the same iterations stage by stage, each timed on the host clock
+    # around a synchronize (the lake solve and the relaxation's checks
+    # wait for the device anyway)
+    uplift, h_s = erosion.init_uplift(e_terrain, ecfg)
+    fcfg = of.FlowConfig(preblur=0.5, exponent=ecfg.exponent, lakes=True)
+    stages = ["pre-blur + directions + masks (K5, K6 codes form)",
+              "host lake solve (copies, native solver)",
+              "lake-aware relaxation (plain torch)",
+              "flow map + erosion pass"]
+    split = {k: [] for k in stages}
+    sweeps, n_conn = [], []
+    for _ in range(ESTEPS):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        hbs = ob.blur(h_s, egrid, fcfg.preblur)
+        code = of.flow_directions(hbs, e_sel, egrid)
+        mask, mouth, _ = of.incoming_mask(code, egrid)
+        parent = of.parent_pointers(code, egrid)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        sol = nlakes.solve_lakes_native(
+            mask.cpu().numpy().reshape(-1), mouth.cpu().numpy().reshape(-1),
+            h_s.cpu().numpy().reshape(-1), parent.cpu().numpy(), egrid)
+        cfrom = host_to_device(sol.conn_from, dev)
+        cto = host_to_device(sol.conn_to, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        acc, vis, root = of.flow_solve_stencil(
+            code, of.cell_area_lower_edge(egrid, dev, fcfg.area_scale),
+            mouth, egrid, conn_from=cfrom, conn_to=cto, want_root=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        sweeps.append(of.LAST_SOLVE["sweeps"])
+        n_conn.append(int(sol.conn_from.size))
+        fm = torch.where(vis, torch.pow(acc, fcfg.exponent), -1.0)
+        wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf), dev)
+        cell_wh = torch.where(root >= 0, wh[torch.clamp(root, min=0)],
+                              -math.inf)
+        fm = torch.where(vis & (h_s <= cell_wh), 0.0, fm)
+        h_s = erosion.erosion_pass(h_s, fm, uplift, egrid, ecfg.factor,
+                                   ecfg.slope_exponent)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, b in zip(stages, t, t[1:]):
+            split[k].append((b - a) * 1e3)
+    assert torch.equal(h_s, h_ero), "the staged iterations left the CLI's"
+    iter_ms = sum(sum(v) for v in split.values()) / ESTEPS
+    print(f"erosion iteration at {ERODE[0]}x{ERODE[1]} (BASELINE config 1; "
+          f"{ESTEPS} iterations stage by stage, host clock around a "
+          f"synchronize; equal to the CLI's field; {card}): {iter_ms:.2f} "
+          f"ms an iteration; the CLI {ero_cli_s * 1e3 / ESTEPS:.2f} ms a "
+          f"step with its terrain")
+    for k, v in split.items():
+        m = sum(v) / len(v)
+        print(f"  {k:52s} {m:9.2f} ms  {100 * m / iter_ms:5.1f}%  "
+              f"{json.dumps([round(x, 2) for x in v])}")
+    print(f"  relaxation sweeps a step {sweeps}, "
+          f"{split[stages[2]][-1] / sweeps[-1]:.3f} ms a sweep in the last; "
+          f"lake connections a step {n_conn}")
+    del ero, h_ero, h_ref, h_s, e_terrain, acc, vis, root, fm
+    torch.cuda.empty_cache()
+
+    # -- 11. results ---------------------------------------------------------
     # each form's own launches on the path that runs it: the single-card
     # coupled CLI (phase 6; the sampler form is on no path and counts 0
     # there), the ocean CLI's one-row table (phase 4), the mesh step's
-    # codes form and K10 (phase 8), K11's tools (phase 9)
+    # codes form and K10 (phase 8), K11's tools (phase 9), and K5 and K6's
+    # codes form on the erosion CLI too (phase 10)
     mesh_forms = own_forms(mesh_launches)
     main_launches = {**coupled_forms,
                      **{n: mesh_forms[n] for n in ("flow_directions",
@@ -1532,6 +1675,8 @@ def main() -> int:
                      **{n: ocean_forms[n] for n in ("advect_sample_pallas",
                                                     "advect_stage_one_row")},
                      **k11_launches}
+    for n in ("blur", "flow_directions"):
+        main_launches[n] += erosion_forms[n]
     for k in kernels:
         k["launches"] = main_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,11 @@ wrapper in ``kernels/``; the twin runs when the tensors lie on the CPU.
 
 Ported so far: the grid, its wrap topology and stencils, default-mode fBm
 noise, the ocean step (``ops.ocean``), the climate (``ops.temperature``),
-the blur, the device flow path (``ops.flow.flow_filter_device``), the
-erosion pass, and the coupled step (``model.coupled_step``), with the
-``ocean``, ``climate`` and ``coupled`` CLI commands.
+the blur, the device flow path (``ops.flow.flow_filter_device``), the full
+flow filter with lakes (``ops.flow.flow_filter``, its host lake solver in
+``native``), the erosion pass and loop (``ops.erosion``), and the coupled
+step (``model.coupled_step``), with the ``erosion``, ``ocean``,
+``climate`` and ``coupled`` CLI commands.
 """
 
 from .core import Grid

@@ -1,7 +1,9 @@
 """Command-line runner of the port.
 
-  python -m demiurge_tpu_torch.api.cli ocean     # BASELINE config 3:
-                                                 # 2048x1024 + Coriolis
+  python -m demiurge_tpu_torch.api.cli erosion   # BASELINE config 1:
+                                                 # 1024x512, 100 steps
+  python -m demiurge_tpu_torch.api.cli ocean     # config 3: 2048x1024
+                                                 # + Coriolis
   python -m demiurge_tpu_torch.api.cli climate   # config 4: 4096x2048,
                                                  # 15000 substeps (1 year)
   python -m demiurge_tpu_torch.api.cli coupled   # config 5: 8192x4096
@@ -12,9 +14,12 @@ fBm seed, --jacobi the ocean command's pressure sweeps, --save out.npz,
 --log metrics.jsonl, --device (default ``cuda``; ``--device cpu`` runs the
 kernels' plain twins), --mesh NYxNX (the fields split over NY*NX
 processes, started by torchrun, ``--nproc-per-node NY*NX``; NCCL on
-``cuda``, gloo on ``cpu``).  --checkpoint/--resume and --png are not
-ported yet and are refused.  The reference's erosion and tectonic-erosion
-commands are not ported yet.
+``cuda``, gloo on ``cpu``).  ``erosion`` is the reference's fluvial
+erosion loop with lakes (``ops.erosion.landscape_evolution``; the lake
+solve runs on the host, the mass is logged every step) and runs on one
+device: it refuses --mesh (the reference builds a mesh and never uses
+it).  --checkpoint/--resume and --png are not ported yet and are refused,
+as is the reference's tectonic-erosion command (BASELINE config 2).
 
 At the end the CLI prints one JSON line to stdout, the kernel launches of
 the run.  Under a mesh, rank 0 logs and saves the gathered fields.
@@ -53,6 +58,12 @@ def _build_parser():
             sp.add_argument(flag, nargs="?", const=True, default=None,
                             help=f"not ported yet ({queue}); refused")
 
+    common(sub.add_parser("erosion", help="fluvial erosion (BASELINE 1)"),
+           1024, 512, 100)
+    sp = sub.add_parser("tectonic-erosion",
+                        help="tectonic uplift + erosion (BASELINE 2); not "
+                             f"ported yet ({_TECTONICS}), refused")
+    common(sp, 2048, 1024, 70)
     sp = sub.add_parser("ocean", help="ocean currents + Coriolis (BASELINE 3)")
     common(sp, 2048, 1024, 50)
     sp.add_argument("--jacobi", type=int, default=1000)
@@ -71,10 +82,18 @@ _NOT_PORTED = {"--checkpoint": "checkpoints, ROADMAP queue 1 item 8",
                "--png": "the PNG render, ROADMAP queue 1 item 8"}
 
 
+_TECTONICS = "tectonics, ROADMAP queue 1 item 7"
+
+
 def _refuse_unported(parser, args) -> None:
+    if args.cmd == "tectonic-erosion":
+        parser.error(f"tectonic-erosion is not ported yet ({_TECTONICS})")
     for flag, queue in _NOT_PORTED.items():
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported yet ({queue})")
+    if args.cmd == "erosion" and args.mesh:
+        parser.error("erosion runs on one device: --mesh is not supported "
+                     "(the reference builds a mesh and never uses it)")
 
 
 def _terrain(grid, seed, device):
@@ -166,6 +185,22 @@ def main(argv=None):
     device, mesh = lay.device, lay.mesh
     grid = Grid(args.width, args.height)
     logger = M.StepLogger(grid, path=args.log if lay.lead else None)
+
+    if args.cmd == "erosion":
+        from ..ops import erosion
+
+        h = _terrain(grid, args.seed, device)
+        sel = torch.ones(grid.shape, device=device)
+        cfg = erosion.ErosionConfig(lakes=True)
+
+        def log_mass(i, hh):
+            logger.log(i, mass=M.mass(hh, grid))
+
+        h = erosion.landscape_evolution(h, sel, grid, cfg,
+                                        iterations=args.steps,
+                                        callback=log_mass)
+        _finish(args, grid, h, logger, lay)
+        return {"terrain": h}
 
     if args.cmd == "ocean":
         from ..ops import ocean

@@ -10,9 +10,11 @@ after the reference 'cpufilter' (src/filter/cpufilter.cpp):
   cap, and stream-power incision factor*4*A*S^m/0.1^m*0.1 against the
   uplift, on land only.
 
-Plain PyTorch: the reference package has no kernel here.  The erosion
-loops (``landscape_evolution``, ``coupled_tectonic_erosion``) need the
-full flow filter with lakes and are not ported yet.
+The loop (``landscape_evolution``, BASELINE config 1): per iteration the
+full flow filter with lakes (``ops.flow.flow_filter``: K5 and K6 on the
+card, the lake solve on the host), then the erosion pass.  The pass is
+plain PyTorch: the reference package has no kernel here.
+``coupled_tectonic_erosion`` waits for the tectonics.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from ..core.grid import Grid
 from ..core.topology import NEIGHBORS_FLOW_ORDER, shift
+from .flow import FlowConfig, flow_filter
 
 PI = math.pi
 
@@ -67,3 +70,27 @@ def erosion_pass(h, flow_map, uplift, grid: Grid, factor: float,
         / (0.1 ** slope_exponent) * 0.1
     hnew = h + torch.minimum(hdiff, torch.clamp(uplift - eros, min=0.0))
     return torch.where(h <= 0, h, hnew)
+
+
+def landscape_evolution(height, sel, grid: Grid,
+                        cfg: ErosionConfig = ErosionConfig(),
+                        iterations: int = None, callback=None, progress=None):
+    """The whole cpufilter loop (cpufilter.cpp:41-222): flow_filter, then
+    erosion_pass, ``iterations`` times (default ``cfg.iterations``).  The
+    flow filter has a host stage (the lake graph), so the loop is a Python
+    loop.  ``callback(i, h)`` after each iteration; ``progress(i,
+    iterations)`` returning false stops the loop (the last completed state
+    is returned).  Returns the evolved heightfield."""
+    if iterations is None:
+        iterations = cfg.iterations
+    uplift, h = init_uplift(height, cfg)
+    fcfg = FlowConfig(preblur=0.5, exponent=cfg.exponent, lakes=cfg.lakes)
+    for i in range(iterations):
+        flow_map = flow_filter(h, sel, grid, fcfg)
+        h = erosion_pass(h, flow_map, uplift, grid, cfg.factor,
+                         cfg.slope_exponent)
+        if callback is not None:
+            callback(i, h)
+        if progress is not None and not progress(i, iterations):
+            break  # cancelled: return the last completed state
+    return h

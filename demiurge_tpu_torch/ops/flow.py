@@ -1,7 +1,7 @@
-"""Flow routing and upstream flow accumulation: the device path.
+"""Flow routing, lake solving and upstream flow accumulation.
 
-Counterpart of the device part of ``demiurge_tpu/ops/flow.py``, after the
-reference FlowFilter (src/filter/FlowFilter.cpp):
+Counterpart of ``demiurge_tpu/ops/flow.py``, after the reference
+FlowFilter (src/filter/FlowFilter.cpp):
 
   1. pre-blur the heights (radius 0.5, ``ops.blur``);
   2. the "magic numbers" pass: a D8 direction per pixel, the aspect
@@ -12,29 +12,42 @@ reference FlowFilter (src/filter/FlowFilter.cpp):
      (``incoming_mask``); on one card 2 and 3 are one launch of the
      direction kernel's packed form (``kernels.directions``
      ``directions_packed``), which writes the packed masks of step 4;
-  4. the upstream area accumulation and the mouth reachability, as the
-     fixpoint of an 8-neighbour relaxation (``flow_solve_stencil``; the
-     kernels in ``kernels.flow``).
+  4. the lakes, on the host (``flow_filter`` only): basin flood fill,
+     lowest passes between basins, their merge into a drainage forest and
+     the lake water heights (``solve_lakes_numpy``, and the C++ solver of
+     ``native``, ``default_lake_solver``);
+  5. the upstream area accumulation and the mouth reachability, as the
+     fixpoint of an 8-neighbour relaxation (``flow_solve_stencil``, with
+     the lake connections and the basin roots; the kernels of the
+     lake-free path in ``kernels.flow``).  Pointer doubling
+     (``accumulate``, ``resolve_roots``) reaches the same sums on the
+     parent pointers.
 
-``flow_filter_device`` is the path of the coupled step: endorheic basins
-do not drain (their cells keep -1).  Lakes, pointer doubling and the full
-``flow_filter`` are not ported yet.
+``flow_filter_device`` is the path of the coupled step: no lakes, so
+endorheic basins do not drain (their cells keep -1).  ``flow_filter`` is
+the full filter of the erosion loop: connections through the lakes, and
+flooded cells zeroed.
 
 Faithful quirks kept: the direction pass runs on the reference's
 "coordsMod" grid (corner coords shrunk by 1e-3, so the poles clamp); the
 accumulation drops pole-crossing and out-of-range neighbours as the CPU
-traversal does; the cell area uses the latitude of the row's lower edge.
+traversal does; the cell area uses the latitude of the row's lower edge;
+the lake merge's seed loop skips passes whose source lake's *pixel index*
+has bit 10 set (``Nthbit(c.from,10)``, FlowFilter.cpp:544).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..core.grid import Grid
+from ..core.platform import host_to_device
 from ..core.topology import CODE_DIR, DIR_CODE, NEIGHBORS_FLOW_ORDER, shift
 from ..kernels import directions as kd
 from ..kernels import flow as kf
@@ -44,6 +57,17 @@ PI = math.pi
 
 #: scan order of the steepest-descent fallback (FlowFilter.cpp:181-236)
 _SCAN_ORDER = NEIGHBORS_FLOW_ORDER
+
+#: the last ``flow_solve_stencil``'s sweeps, to its certifying check
+LAST_SOLVE: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowConfig:
+    preblur: float = 0.5          # FlowfilterMenu default / cpufilter value
+    exponent: float = 0.5         # FlowfilterMenu 'Exponent'
+    lakes: bool = True            # lakeflag
+    area_scale: float = 1e-5      # FlowFilter.cpp:613
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +146,105 @@ def incoming_mask(code, grid: Grid):
     return mask, mouth & interesting, interesting
 
 
+# ---------------------------------------------------------------------------
+# parent pointers + pointer-doubling accumulation
+# ---------------------------------------------------------------------------
+
+
+def _wraps_x(grid: Grid) -> bool:
+    """Whether the CPU traversal wraps x (FlowFilter.cpp:39-75): the grid
+    spans the full globe."""
+    return abs(grid.lam1 - grid.lam0) > 2 * PI - 1e-4
+
+
+def _parent_from_code(code_np: np.ndarray, grid: Grid) -> np.ndarray:
+    """Flattened downstream-parent index per cell; -1 = no parent (sink,
+    uninteresting, or target out of range, matching the CPU neighbours()
+    clipping, FlowFilter.cpp:39-75: x wraps iff full globe, y clips)."""
+    H, W = code_np.shape
+    wrap = _wraps_x(grid)
+    r, c = np.mgrid[0:H, 0:W]
+    parent = np.full((H, W), -1, np.int64)
+    for codeval, (dx, dy) in CODE_DIR.items():
+        if codeval == 5:
+            continue
+        m = code_np == codeval
+        nc = c + dx
+        nr = r + dy
+        if wrap:
+            nc = (nc + W) % W
+            okx = np.ones_like(m)
+        else:
+            okx = (nc >= 0) & (nc < W)
+        oky = (nr >= 0) & (nr < H)
+        ok = m & okx & oky
+        parent[ok] = (nr[ok] * W + np.clip(nc[ok], 0, W - 1))
+    return parent.reshape(-1)
+
+
+def parent_pointers(code, grid: Grid) -> torch.Tensor:
+    """Downstream parent index (-1 none) per flattened cell, int64."""
+    H, W = grid.shape
+    wrap = _wraps_x(grid)
+    r = torch.arange(H, device=code.device).reshape(-1, 1)
+    c = torch.arange(W, device=code.device).reshape(1, -1)
+    parent = torch.full(grid.shape, -1, dtype=torch.int64, device=code.device)
+    for codeval, (dx, dy) in CODE_DIR.items():
+        if codeval == 5:
+            continue
+        nc = c + dx
+        nr = r + dy
+        if wrap:
+            nc = (nc + W) % W
+            ok = (nr >= 0) & (nr < H)
+        else:
+            ok = (nc >= 0) & (nc < W) & (nr >= 0) & (nr < H)
+        tgt = nr * W + torch.clamp(nc, 0, W - 1)
+        parent = torch.where((code == codeval) & ok, tgt, parent)
+    return parent.reshape(-1)
+
+
+def _doubling_rounds(n: int) -> int:
+    return max(1, int(math.ceil(math.log2(max(n, 2)))))
+
+
+def accumulate(parent, area_flat, nrounds: int) -> torch.Tensor:
+    """Exact upstream accumulation by pointer doubling.
+
+    parent: (N,) int64, -1 = root/no parent.  area_flat: (N,) float32.
+    Returns acc (N,): acc[p] = area[p] + the area of every cell whose
+    downstream path reaches p.  At round k, A[q] sums the cells within
+    graph distance 2^k - 1 upstream of q, and ptr[q] is q's 2^k-th
+    downstream ancestor where ``alive`` says it exists; each round
+    scatters A over ptr (index N is the drop bucket), then squares the
+    pointers.  ceil(log2(N)) rounds cover any path."""
+    N = parent.shape[0]
+    A = area_flat
+    has = parent >= 0
+    ptr = torch.where(has, parent, 0)
+    alive = has
+    for _ in range(nrounds):
+        contrib = torch.where(alive, A, 0.0)
+        tgt = torch.where(alive, ptr, N)
+        A = A + torch.zeros(N + 1, dtype=A.dtype, device=A.device
+                            ).index_add_(0, tgt, contrib)[:N]
+        nxt_alive = alive & alive[ptr]
+        ptr = torch.where(nxt_alive, ptr[ptr], ptr)
+        alive = nxt_alive
+    return A
+
+
+def resolve_roots(parent, nrounds: int) -> torch.Tensor:
+    """Root (terminal downstream) index of every cell by pointer
+    doubling."""
+    idx = torch.arange(parent.shape[0], dtype=parent.dtype,
+                       device=parent.device)
+    ptr = torch.where(parent >= 0, parent, idx)
+    for _ in range(nrounds):
+        ptr = ptr[ptr]
+    return ptr
+
+
 _AREAS: dict = {}  # (grid, device, scale) -> cell_area_lower_edge
 
 
@@ -163,7 +286,7 @@ def _incoming_fields(code, grid: Grid):
     range rules (x wraps iff full globe, y edges drop —
     FlowFilter.cpp:39-75)."""
     H, W = grid.shape
-    wrap = abs(grid.lam1 - grid.lam0) > 2 * PI - 1e-4
+    wrap = _wraps_x(grid)
     cols = torch.arange(W, device=code.device).reshape(1, -1)
     fields = []
     for dx, dy in _SCAN_ORDER:
@@ -190,39 +313,62 @@ def _outgoing_masks(code, grid: Grid):
 def flow_solve_stencil(code, area2d, mouth, grid: Grid, conn_from=None,
                        conn_to=None, check_every: int = 64,
                        max_iters: int = 1 << 30, want_root: bool = False):
-    """Upstream accumulation A and mouth reachability vis, by relaxing
+    """Upstream accumulation A, mouth reachability vis and, with
+    ``want_root``, the basin root, by relaxing
 
-        A   <- area + sum_d incoming_d * shift(A, d)
-        vis <- mouth | OR_d (outgoing_d & shift(vis, d))
+        A    <- area + sum_d incoming_d * shift(A, d)
+        vis  <- mouth | OR_d (outgoing_d & shift(vis, d))
+        root <- the cell itself where a sink, else its downstream root
 
-    to their fixpoint (checked every ``check_every`` sweeps).  Returns
-    (A, vis).  The lake connections and the basin roots of the reference's
-    full filter are not ported yet and raise."""
-    if conn_from is not None or conn_to is not None or want_root:
-        raise NotImplementedError(
-            "lake connections and basin roots are not ported yet")
+    to their fixpoint, checked every ``check_every`` sweeps on A and vis
+    (root follows the same flow paths).  The lake connections (lake sink
+    ``conn_from`` -> attach pixel ``conn_to``, int64 flat indices from the
+    host solver, each side unique) extend the sweep, after the taps:
+    ``A[conn_to] += A_prev[conn_from]`` and ``vis[conn_from] |=
+    vis_prev[conn_to]``.  Returns (A, vis, root): root an int64 flat
+    index, -1 where the cell reaches no sink, None without
+    ``want_root``.  ``LAST_SOLVE["sweeps"]`` counts the sweeps run."""
+    H, W = grid.shape
     inc = _incoming_fields(code, grid)
     outs = _outgoing_masks(code, grid)
+    has_conns = conn_from is not None and conn_from.numel() > 0
+    root0 = None
+    if want_root:
+        idx = torch.arange(H * W, device=code.device).reshape(H, W)
+        root0 = torch.where(code == 5, idx, -1)
 
-    def sweep(A, vis):
+    def sweep(A, vis, root):
         newA = area2d
         for (dx, dy), ok in inc:
             newA = newA + torch.where(
                 ok, shift(A, dx, dy, grid, pole_wrap=False), 0.0)
+        # vis and root flow downstream -> upstream: take the value of the
+        # cell the code points to
         newvis = mouth
+        newroot = root0
         for (dx, dy), m in outs:
             newvis = newvis | (m & shift(vis, dx, dy, grid, pole_wrap=False))
-        return newA, newvis
+            if want_root:
+                newroot = torch.where(
+                    m, shift(root, dx, dy, grid, pole_wrap=False), newroot)
+        if has_conns:
+            newA = newA.reshape(-1).index_add(
+                0, conn_to, A.reshape(-1)[conn_from]).reshape(H, W)
+            fv = newvis.reshape(-1).clone()
+            fv[conn_from] = fv[conn_from] | vis.reshape(-1)[conn_to]
+            newvis = fv.reshape(H, W)
+        return newA, newvis, newroot
 
-    A, vis, it = area2d, mouth, 0
+    A, vis, root, it = area2d, mouth, root0, 0
     while it < max_iters:
         prev, prev_v = A, vis
         for _ in range(check_every):
-            A, vis = sweep(A, vis)
+            A, vis, root = sweep(A, vis, root)
         it += check_every
         if torch.equal(A, prev) and torch.equal(vis, prev_v):
             break
-    return A, vis
+    LAST_SOLVE["sweeps"] = it
+    return A, vis, root
 
 
 def _codes_and_mouths(height, sel, grid: Grid, preblur: float):
@@ -280,3 +426,233 @@ def _flow_filter_sharded(height, sel, grid: Grid, exponent, preblur, acc0,
         acc, vis = flow_solve_sharded(code, area, mouth, grid, mesh)
     out = torch.where(vis, torch.pow(acc, exponent), -1.0)
     return (out, acc) if return_acc else out
+
+
+# ---------------------------------------------------------------------------
+# host lake-graph solver (steps 4-6 of the reference), numpy
+# ---------------------------------------------------------------------------
+
+
+class LakeSolution(NamedTuple):
+    conn_from: np.ndarray   # (C,) int64 lake sink index
+    conn_to: np.ndarray     # (C,) int64 attach pixel index (pass location)
+    conn_h: np.ndarray      # (C,) float32 pass height
+    lake_wh: np.ndarray     # (N,) float32 water height keyed by sink index
+    #                         (NaN where not a sink / not flooded)
+
+
+_NEIGHBOR_BITS = [  # (bit value, offset) of incoming-mask bits 1..9 but 5
+    (1, (-1, -1)),
+    (2, (0, -1)),
+    (4, (1, -1)),
+    (8, (-1, 0)),
+    (32, (1, 0)),
+    (64, (-1, 1)),
+    (128, (0, 1)),
+    (256, (1, 1)),
+]
+
+
+def _upstream_neighbors(i, mask, W, H, wrap):
+    """CPU neighbours() (FlowFilter.cpp:39-75): the cells flowing into i."""
+    out = []
+    m = int(mask[i])
+    x = i % W
+    y = i // W
+    for bit, (dx, dy) in _NEIGHBOR_BITS:
+        if not (m & bit):
+            continue
+        nx = x + dx
+        if wrap:
+            nx = (nx + W) % W
+        elif nx < 0 or nx >= W:
+            continue
+        ny = y + dy
+        if ny < 0 or ny >= H:
+            continue
+        out.append(ny * W + nx)
+    return out
+
+
+def solve_lakes_numpy(mask, mouth, height, parent, grid: Grid
+                      ) -> LakeSolution:
+    """Steps 4-6 of the reference pipeline on the host, in numpy: basin
+    flood fill (assignLakeIds, FlowFilter.cpp:360-398), the lowest pass out
+    of each basin to each neighbouring basin (findAllConnections,
+    400-531), their merge into a drainage forest from the river mouths
+    (solvingConnections, 533-595) and the lake water heights (lakefill,
+    651-695).
+
+    mask: (N,) int incoming bitmask; mouth: (N,) bool; height: (N,) the
+    unblurred heights; parent: (N,) downstream pointers (unused, as in the
+    reference's signature).  ``native.solve_lakes_native`` gives the same
+    arrays."""
+    H, W = grid.shape
+    N = H * W
+    wrap = _wraps_x(grid)
+
+    mask = np.asarray(mask).reshape(-1)
+    mouth = np.asarray(mouth).reshape(-1)
+    height = np.asarray(height).reshape(-1)
+
+    lake_sinks = np.nonzero((mask & 16) != 0)[0]  # mouths included
+
+    # --- basin flood fill
+    basin = np.full(N, -1, np.int64)
+    for s in lake_sinks:
+        stack = [s]
+        while stack:
+            p = stack.pop()
+            basin[p] = s
+            stack.extend(_upstream_neighbors(p, mask, W, H, wrap))
+
+    # --- border pixels + lowest passes: a neighbour in another basin
+    passes: dict = {}  # sink -> list of (h, from_sink, tolocation)
+    offs = [(dx, dy) for _, (dx, dy) in _NEIGHBOR_BITS]
+    for s in lake_sinks:
+        newpasses: dict = {}
+        stack = [s]
+        while stack:
+            p = stack.pop()
+            x, y = p % W, p // W
+            minpass = np.inf
+            nlake_pix = -1
+            for (dx, dy) in offs:
+                nx = x + dx
+                if wrap:
+                    nx = (nx + W) % W
+                elif nx < 0 or nx >= W:
+                    continue
+                ny = y + dy
+                if ny < 0 or ny >= H:
+                    continue
+                n = ny * W + nx
+                if basin[n] >= 0 and basin[n] != s:
+                    bd = height[n]
+                    if bd > 0 and bd < minpass:
+                        minpass = bd
+                        nlake_pix = n
+            if nlake_pix >= 0:
+                lid = basin[nlake_pix]
+                if not mouth[lid]:  # skip passes into river-mouth basins
+                    nheight = max(minpass, height[p])
+                    if lid not in newpasses or nheight < newpasses[lid][0]:
+                        newpasses[lid] = (nheight, lid, p)
+            stack.extend(_upstream_neighbors(p, mask, W, H, wrap))
+        passes[s] = sorted(newpasses.values())  # by h (set<pass, comp by h>)
+
+    # --- global merge
+    placed = set()
+    candidates: list = []  # heap of (h, from, to)
+    conns: dict = {}       # tolocation -> (h, from, to)
+
+    def push_next(lake):
+        lst = passes.get(lake)
+        if lst is None:
+            return
+        while lst:
+            c = lst.pop(0)
+            if c[1] in placed:
+                continue
+            heapq.heappush(candidates, c)
+            break
+
+    for s in lake_sinks:
+        if not mouth[s]:
+            continue
+        placed.add(s)
+        lst = passes.get(s, [])
+        while lst:
+            c = lst.pop(0)
+            if c[1] in placed:
+                continue
+            # the reference as written tests bit 10 of the *index* (cpp:544)
+            if int(c[1]) & (1 << 9):
+                continue
+            heapq.heappush(candidates, c)
+            break
+
+    while candidates:
+        h, frm, to = heapq.heappop(candidates)
+        if frm in placed:
+            push_next(basin[to])
+        else:
+            placed.add(frm)
+            conns[to] = (h, frm, to)
+            push_next(frm)
+            push_next(basin[to])
+
+    conn_to = np.array(sorted(conns.keys()), np.int64)
+    conn_from = np.array([conns[t][1] for t in conn_to], np.int64)
+    conn_h = np.array([conns[t][0] for t in conn_to], np.float32)
+
+    # --- lake water heights: one scalar a basin, down the placed passes
+    lake_wh = np.full(N, np.nan, np.float32)
+    by_basin: dict = {}  # the passes by the basin their attach pixel is in
+    for t in conns:
+        by_basin.setdefault(int(basin[t]), []).append(conns[t])
+    stack2 = [(int(s), 0.0) for s in lake_sinks if mouth[s]]
+    while stack2:
+        s, wh = stack2.pop()
+        lake_wh[s] = wh
+        for (h, frm, to) in by_basin.get(s, []):
+            nwh = wh if wh > h else h
+            stack2.append((int(frm), float(nwh)))
+
+    return LakeSolution(conn_from, conn_to, conn_h, lake_wh)
+
+
+def default_lake_solver():
+    """The port's C++ solver (``native``, built at its first call).  A
+    failed build raises there; the numpy solver runs only when a caller
+    passes it."""
+    from ..native import solve_lakes_native
+
+    return solve_lakes_native
+
+
+# ---------------------------------------------------------------------------
+# the full filter
+# ---------------------------------------------------------------------------
+
+
+def flow_filter(height, sel, grid: Grid, cfg: FlowConfig = FlowConfig(),
+                lake_solver=None) -> torch.Tensor:
+    """The full FlowFilter: the flow (discharge) map the reference writes
+    over the terrain (FlowFilter.cpp:719-786).
+
+    Cells never reached from a river mouth keep -1 (the reference's lakeID
+    initialization); flooded lake cells are 0 (``cfg.lakes``); everything
+    else is (upstream area sum)^exponent.  The pre-blur (K5) and the
+    direction pass (K6's codes form) run on the tensors' device; mask,
+    mouths, the unblurred height and the parent pointers are copied to the
+    host once for ``lake_solver`` (default: ``default_lake_solver()``),
+    and its connections copied back for the relaxation."""
+    if lake_solver is None:
+        lake_solver = default_lake_solver()
+    dev = height.device
+
+    hb = blur(height, grid, cfg.preblur)
+    code = flow_directions(hb, sel, grid)
+    mask, mouth, _ = incoming_mask(code, grid)
+    parent = parent_pointers(code, grid)
+
+    sol = lake_solver(mask.cpu().numpy().reshape(-1),
+                      mouth.cpu().numpy().reshape(-1),
+                      height.cpu().numpy().reshape(-1),
+                      parent.cpu().numpy(), grid)
+    conn_from = host_to_device(sol.conn_from.astype(np.int64), dev)
+    conn_to = host_to_device(sol.conn_to.astype(np.int64), dev)
+
+    area = cell_area_lower_edge(grid, dev, cfg.area_scale)
+    acc, vis, root = flow_solve_stencil(code, area, mouth, grid,
+                                        conn_from=conn_from, conn_to=conn_to,
+                                        want_root=cfg.lakes)
+    flow = torch.where(vis, torch.pow(acc, cfg.exponent), -1.0)
+
+    if cfg.lakes:
+        wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf), dev)
+        cell_wh = torch.where(root >= 0, wh[torch.clamp(root, min=0)],
+                              -math.inf)
+        flow = torch.where(vis & (height <= cell_wh), 0.0, flow)
+    return flow

@@ -10,7 +10,10 @@ from ``dataclasses.asdict`` of the reference's, and
 ``CoupledState``, and ``coupled_state_blocks_from_numpy`` /
 ``coupled_state_blocks_to_numpy`` one split over a ``dist.mesh.Mesh``;
 ``packed_jacobi_from_reference`` cuts the packed Jacobi's padded tables
-down to the port's unpadded ones.
+down to the port's unpadded ones; ``flow_config_from_dict`` /
+``erosion_config_from_dict`` rebuild the flow filter's and the erosion
+loop's configs, and ``lake_solution_from_numpy`` the host lake solver's
+result.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from ..model import CoupledConfig, CoupledState
+from ..ops.erosion import ErosionConfig
+from ..ops.flow import FlowConfig, LakeSolution
 from ..ops.ocean import OceanConfig
 
 
@@ -38,27 +43,54 @@ def fields_to_numpy(tensors: Mapping[str, torch.Tensor]) -> dict:
             for k, t in tensors.items()}
 
 
-def ocean_config_from_dict(d: Mapping) -> OceanConfig:
-    """The port's OceanConfig from the reference's, as a dict; unknown
-    keys raise, so a field added on one side is not silently dropped."""
-    names = {f.name for f in dataclasses.fields(OceanConfig)}
+def _config_from_dict(cls, d: Mapping):
+    """``cls(**d)``; unknown keys raise, so a field added on one side is
+    not silently dropped."""
+    names = {f.name for f in dataclasses.fields(cls)}
     unknown = set(d) - names
     if unknown:
-        raise ValueError(f"OceanConfig has no field(s) {sorted(unknown)}")
-    return OceanConfig(**dict(d))
+        raise ValueError(f"{cls.__name__} has no field(s) "
+                         f"{sorted(unknown)}")
+    return cls(**dict(d))
+
+
+def ocean_config_from_dict(d: Mapping) -> OceanConfig:
+    """The port's OceanConfig from the reference's, as a dict."""
+    return _config_from_dict(OceanConfig, d)
+
+
+def flow_config_from_dict(d: Mapping) -> FlowConfig:
+    """The port's FlowConfig from the reference's, as a dict."""
+    return _config_from_dict(FlowConfig, d)
+
+
+def erosion_config_from_dict(d: Mapping) -> ErosionConfig:
+    """The port's ErosionConfig from the reference's, as a dict."""
+    return _config_from_dict(ErosionConfig, d)
+
+
+def lake_solution_from_numpy(sol) -> LakeSolution:
+    """The port's LakeSolution from the reference's (any object with its
+    four arrays as attributes): connections int64, heights float32; the
+    three connection arrays must have one length."""
+    out = LakeSolution(
+        conn_from=np.array(sol.conn_from, dtype=np.int64).reshape(-1),
+        conn_to=np.array(sol.conn_to, dtype=np.int64).reshape(-1),
+        conn_h=np.array(sol.conn_h, dtype=np.float32).reshape(-1),
+        lake_wh=np.array(sol.lake_wh, dtype=np.float32).reshape(-1))
+    if not out.conn_from.size == out.conn_to.size == out.conn_h.size:
+        raise ValueError(f"connection arrays of {out.conn_from.size}, "
+                         f"{out.conn_to.size} and {out.conn_h.size} entries")
+    return out
 
 
 def coupled_config_from_dict(d: Mapping) -> CoupledConfig:
     """The port's CoupledConfig from the reference's, as a dict (its
     ``ocean`` entry a dict too); unknown keys raise."""
-    names = {f.name for f in dataclasses.fields(CoupledConfig)}
-    unknown = set(d) - names
-    if unknown:
-        raise ValueError(f"CoupledConfig has no field(s) {sorted(unknown)}")
     d = dict(d)
     if "ocean" in d and not isinstance(d["ocean"], OceanConfig):
         d["ocean"] = ocean_config_from_dict(d["ocean"])
-    return CoupledConfig(**d)
+    return _config_from_dict(CoupledConfig, d)
 
 
 def coupled_state_from_numpy(arrays: Mapping[str, np.ndarray], device

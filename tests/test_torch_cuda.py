@@ -519,6 +519,31 @@ def test_coupled_step_on_the_card_matches_the_cpu(dev):
     assert float((dh > 1e-4).float().mean()) <= 1e-2
 
 
+def test_erosion_loop_on_the_card_matches_the_cpu(dev):
+    """Three iterations of the erosion loop with lakes (BASELINE config 1's
+    path: K5, K6's codes form, the native lake solver, the relaxation) at
+    256x128 on the card against the CPU: the height wherever the
+    direction codes agree, as the coupled step's test allows."""
+    from demiurge_tpu_torch.kernels import blur as kb
+    from demiurge_tpu_torch.kernels import directions as kd
+    from demiurge_tpu_torch.native import lakes as nlakes
+    from demiurge_tpu_torch.ops import erosion
+
+    grid, h = _terrain(256, 128, dev)
+    cfg = erosion.ErosionConfig(lakes=True)
+    before = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS)
+    got = erosion.landscape_evolution(h, torch.ones_like(h), grid, cfg,
+                                      iterations=3)
+    after = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS)
+    assert [b - a for a, b in zip(before, after)] == [3, 3, 0, 3]
+    want = erosion.landscape_evolution(h.cpu(), torch.ones(grid.shape),
+                                       grid, cfg, iterations=3)
+    got = got.cpu()
+    assert bool(torch.isfinite(got).all())
+    dh = (got - want).abs() / want.abs().max()
+    assert float((dh > 1e-4).float().mean()) <= 1e-2
+
+
 # ---------------------------------------------------------------------------
 # the two-level flow solve's band-local kernels (K10)
 # ---------------------------------------------------------------------------

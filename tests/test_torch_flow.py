@@ -141,7 +141,8 @@ def test_flow_solve_exact_cold_and_warm(case):
                                         jnp.asarray(area.numpy()),
                                         jnp.asarray(mouth.numpy()), jg)
     jA, jvis = np.asarray(jA), np.asarray(jvis)
-    A, vis = tf.flow_solve_stencil(code, area, mouth, tg)
+    A, vis, root = tf.flow_solve_stencil(code, area, mouth, tg)
+    assert root is None
     np.testing.assert_array_equal(A.numpy(), jA)
     np.testing.assert_array_equal(vis.numpy(), jvis)
     assert jA.max() > 20 * area.numpy().max() and jvis.any()
@@ -154,8 +155,15 @@ def test_flow_solve_exact_cold_and_warm(case):
         np.testing.assert_array_equal(got.numpy(), jA)
     np.testing.assert_array_equal(kf.vis_solve_plain(packed, tg).numpy(),
                                   jvis)
-    with pytest.raises(NotImplementedError):
-        tf.flow_solve_stencil(code, area, mouth, tg, want_root=True)
+    # the basin roots (tests/test_torch_flow_lakes.py adds the lakes)
+    _, _, jroot = jf.flow_solve_stencil(jnp.asarray(code.numpy()),
+                                        jnp.asarray(area.numpy()),
+                                        jnp.asarray(mouth.numpy()), jg,
+                                        want_root=True)
+    A, vis, root = tf.flow_solve_stencil(code, area, mouth, tg,
+                                         want_root=True)
+    np.testing.assert_array_equal(A.numpy(), jA)
+    np.testing.assert_array_equal(root.numpy(), np.asarray(jroot))
 
 
 def _in_place_sweeps(packed, area, a0, order_seed):

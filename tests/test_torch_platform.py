@@ -43,7 +43,8 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "dist/climate.py", "dist/advect.py", "kernels/flow_deadends.py",
           "kernels/jacobi_packed.py", "tools/__init__.py",
           "tools/flow_rounds.py", "tools/flow_tune.py",
-          "tools/jacobi_race.py")
+          "tools/jacobi_race.py", "native/__init__.py", "native/build.py",
+          "native/lakes.py", "api/cli.py", "utils/interop.py")
 
 
 def test_grep_tests_cover_the_ported_modules():
