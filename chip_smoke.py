@@ -102,10 +102,18 @@
    field), each stage timed on the host clock around a synchronize:
    pre-blur + directions + masks, the host lake solve with its copies,
    the lake-aware relaxation with its sweeps, the flow map + erosion pass;
+10b. BASELINE config 2 with every launch counter at 0: the
+   ``tectonic-erosion`` CLI at its default 2048x1024 for 6 steps (the
+   tectonic uplift refreshed at steps 0 and 5, then phase 10's iteration);
+   the same checks and twin bound as phase 10, 6 native lake solves; then
+   the 6 iterations stage by stage (equal to the CLI's field), the
+   tectonic uplift timed in the iterations that run it, and
+   torch.profiler's count of device kernels in one tectonic step;
 11. prints the kernels' JSON line (each kernel form's own launches on the
    path that runs it: the stage and packed forms are not counted again
    under the sampler and codes forms; K5 and K6's codes form count the
-   erosion run too), the card line and, last, the result line
+   erosion and tectonic-erosion runs too), the card line and, last, the
+   result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is non-zero.  Without a card, or
@@ -138,6 +146,7 @@ RAGGED = (2000, 1000)   # a grid K7/K8's 16x128 tiles do not divide
 HB = H - 24             # K4b's grid height: not a whole number of strips
 CLIMATE = (4096, 2048)  # the climate CLI's default size
 ERODE = (1024, 512)     # the erosion CLI's default size (BASELINE config 1)
+TECTO = (2048, 1024)    # the tectonic-erosion CLI's (BASELINE config 2)
 
 # published peaks of one H100 SXM (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1538,127 +1547,206 @@ def main() -> int:
     from demiurge_tpu_torch.core.platform import host_to_device
     from demiurge_tpu_torch.native import build as nbuild
     from demiurge_tpu_torch.native import lakes as nlakes
+    from demiurge_tpu_torch.ops import tectonics as ot
 
     t0 = time.perf_counter()
     native_lib, gxx_s = nbuild.build()
     nbuild.library()
     print(f"built {native_lib.name}: g++ {gxx_s:.1f} s, build+load "
           f"{time.perf_counter() - t0:.1f} s")
+
+    def erosion_cli(cmd, size, steps):
+        """The erosion command ``cmd`` at ``size`` for ``steps`` with every
+        counter at 0; fails unless K5 and K6's codes form launched once a
+        step (the packed form never), the native solver ran once a step,
+        and every logged mass and the field are finite.  Returns (field,
+        each form's launches, seconds with the terrain)."""
+        zero_counts()
+        native0 = nlakes.CALLS
+        log_text = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log_text):
+            out = cli.main([cmd, "--steps", str(steps)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        forms = own_forms(read_counts(list(counters)))
+        native_calls = nlakes.CALLS - native0
+        records = [json.loads(line)
+                   for line in log_text.getvalue().splitlines()
+                   if line.startswith("{")]
+        for rec in records:
+            print("cli:", json.dumps(rec))
+        fired = {k: v for k, v in forms.items() if v}
+        print(f"launches on the {cmd} path ({steps} steps at "
+              f"{size[0]}x{size[1]}): {json.dumps(fired)}; native lake "
+              f"solves {native_calls}; {secs:.2f} s with the terrain")
+        assert [r["step"] for r in records] == list(range(steps)), \
+            log_text.getvalue()
+        for rec in records:
+            assert isinstance(rec["mass"], float) and \
+                math.isfinite(rec["mass"])
+        assert fired == {"blur": steps, "flow_directions": steps}, fired
+        assert native_calls == steps, native_calls
+        h = out["terrain"]
+        assert tuple(h.shape) == (size[1], size[0])
+        assert bool(torch.isfinite(h).all())
+        return h, forms, secs
+
+    def against_twins(name, h, loop, egrid, sel, steps):
+        """``loop(callback)`` through the plain twins: the height beyond
+        1e-5 of max at no more than 1e-3 of the pixels; direction ties
+        counted a step on the twins' heights."""
+        ties = []
+
+        def count_ties(i, hh):
+            hbk = kb.blur_cuda(hh, egrid, ob.sigma_list(0.5))
+            ties.append(int((kd.flow_directions_cuda(hbk, sel, egrid)
+                             != kd.flow_directions_plain(hbk, sel, egrid))
+                            .sum()))
+
+        with plain_twins():
+            h_ref = loop(count_ties)
+        torch.cuda.synchronize()
+        dh = (h - h_ref).abs() / h_ref.abs().max()
+        share = float((dh > 1e-5).float().mean())
+        print(f"  {steps} {name} steps, height: kernel path against the "
+              f"plain twins err/max {float(dh.max()):.3e}, share beyond "
+              f"1e-5 of max {share:.3e} (bound 1e-3); direction ties per "
+              f"step on the twins' heights {ties}")
+        assert share <= 1e-3, share
+
+    FLOW_STAGES = ["pre-blur + directions + masks (K5, K6 codes form)",
+                   "host lake solve (copies, native solver)",
+                   "lake-aware relaxation (plain torch)",
+                   "flow map + erosion pass"]
+    TECTO_STAGE = "tectonic uplift (plain torch; steps 0 and 5)"
+
+    def staged(egrid, terrain, sel, ecfg, steps, tectonic_every=None):
+        """The erosion loop written out stage by stage, each stage timed
+        on the host clock around a synchronize (the lake solve and the
+        relaxation's checks wait for the device anyway); with
+        ``tectonic_every``, config 2's tectonic uplift first where it
+        refreshes.  Returns (h, {stage: [ms]}, sweeps, connections)."""
+        uplift0, h = erosion.init_uplift(terrain, ecfg)
+        uplift = uplift0
+        fcfg = of.FlowConfig(preblur=0.5, exponent=ecfg.exponent,
+                             lakes=True)
+        split = {k: [] for k in FLOW_STAGES}
+        if tectonic_every:
+            stack = ot.init_plate_stack(terrain, egrid)
+            split = {TECTO_STAGE: [], **split}
+        sweeps, n_conn = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            if tectonic_every and i % tectonic_every == 0:
+                stack, tup = ot.tectonic_uplift(stack, egrid)
+                uplift = uplift0 + tup
+                torch.cuda.synchronize()
+                split[TECTO_STAGE].append((time.perf_counter() - t[0]) * 1e3)
+                t = [time.perf_counter()]
+            hbs = ob.blur(h, egrid, fcfg.preblur)
+            code = of.flow_directions(hbs, sel, egrid)
+            mask, mouth, _ = of.incoming_mask(code, egrid)
+            parent = of.parent_pointers(code, egrid)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            sol = nlakes.solve_lakes_native(
+                mask.cpu().numpy().reshape(-1),
+                mouth.cpu().numpy().reshape(-1),
+                h.cpu().numpy().reshape(-1), parent.cpu().numpy(), egrid)
+            cfrom = host_to_device(sol.conn_from, dev)
+            cto = host_to_device(sol.conn_to, dev)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            acc, vis, root = of.flow_solve_stencil(
+                code, of.cell_area_lower_edge(egrid, dev, fcfg.area_scale),
+                mouth, egrid, conn_from=cfrom, conn_to=cto, want_root=True)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            sweeps.append(of.LAST_SOLVE["sweeps"])
+            n_conn.append(int(sol.conn_from.size))
+            fm = torch.where(vis, torch.pow(acc, fcfg.exponent), -1.0)
+            wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf),
+                                dev)
+            cell_wh = torch.where(root >= 0, wh[torch.clamp(root, min=0)],
+                                  -math.inf)
+            fm = torch.where(vis & (h <= cell_wh), 0.0, fm)
+            h = erosion.erosion_pass(h, fm, uplift, egrid, ecfg.factor,
+                                     ecfg.slope_exponent)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for k, t0_, t1_ in zip(FLOW_STAGES, t, t[1:]):
+                split[k].append((t1_ - t0_) * 1e3)
+        return h, split, sweeps, n_conn
+
+    def print_split(title, split, steps, sweeps, n_conn, cli_s):
+        """Each stage's mean ms an iteration (a stage that runs on some
+        iterations only is spread over all) and its share."""
+        iter_ms = sum(sum(v) for v in split.values()) / steps
+        print(f"{title} ({steps} iterations stage by stage, host clock "
+              f"around a synchronize; equal to the CLI's field; {card}): "
+              f"{iter_ms:.2f} ms an iteration; the CLI "
+              f"{cli_s * 1e3 / steps:.2f} ms a step with its terrain")
+        for k, v in split.items():
+            m = sum(v) / steps
+            print(f"  {k:52s} {m:9.2f} ms  {100 * m / iter_ms:5.1f}%  "
+                  f"{json.dumps([round(x, 2) for x in v])}")
+        print(f"  relaxation sweeps a step {sweeps}, "
+              f"{split[FLOW_STAGES[2]][-1] / sweeps[-1]:.3f} ms a sweep in "
+              f"the last; lake connections a step {n_conn}")
+
     ESTEPS = 5
     egrid = Grid(*ERODE)
-    zero_counts()
-    native0 = nlakes.CALLS
-    log_text = io.StringIO()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(log_text):
-        ero = cli.main(["erosion", "--steps", str(ESTEPS)])
-    torch.cuda.synchronize()
-    ero_cli_s = time.perf_counter() - t0
-    erosion_forms = own_forms(read_counts(list(counters)))
-    native_calls = nlakes.CALLS - native0
-    records = [json.loads(line) for line in log_text.getvalue().splitlines()
-               if line.startswith("{")]
-    for rec in records:
-        print("cli:", json.dumps(rec))
-    fired = {k: v for k, v in erosion_forms.items() if v}
-    print(f"launches on the erosion path ({ESTEPS} steps at "
-          f"{ERODE[0]}x{ERODE[1]}): {json.dumps(fired)}; native lake "
-          f"solves {native_calls}; {ero_cli_s:.2f} s with the terrain")
-    assert [r["step"] for r in records] == list(range(ESTEPS)), \
-        log_text.getvalue()
-    for rec in records:
-        assert isinstance(rec["mass"], float) and math.isfinite(rec["mass"])
-    assert fired == {"blur": ESTEPS, "flow_directions": ESTEPS}, fired
-    assert native_calls == ESTEPS, native_calls
-    h_ero = ero["terrain"]
-    assert tuple(h_ero.shape) == egrid.shape
-    assert bool(torch.isfinite(h_ero).all())
-
+    h_ero, erosion_forms, ero_cli_s = erosion_cli("erosion", ERODE, ESTEPS)
     e_terrain = cli._terrain(egrid, SEED, dev)
     e_sel = torch.ones(egrid.shape, device=dev)
     ecfg = erosion.ErosionConfig(lakes=True)
-    e_ties = []
-
-    def count_ties(i, hh):
-        hbk = kb.blur_cuda(hh, egrid, ob.sigma_list(0.5))
-        e_ties.append(int((kd.flow_directions_cuda(hbk, e_sel, egrid)
-                           != kd.flow_directions_plain(hbk, e_sel, egrid))
-                          .sum()))
-
-    with plain_twins():
-        h_ref = erosion.landscape_evolution(e_terrain, e_sel, egrid, ecfg,
-                                            iterations=ESTEPS,
-                                            callback=count_ties)
-    torch.cuda.synchronize()
-    dh = (h_ero - h_ref).abs() / h_ref.abs().max()
-    share = float((dh > 1e-5).float().mean())
-    print(f"  {ESTEPS} erosion steps, height: kernel path against the plain "
-          f"twins err/max {float(dh.max()):.3e}, share beyond 1e-5 of max "
-          f"{share:.3e} (bound 1e-3); direction ties per step on the twins' "
-          f"heights {e_ties}")
-    assert share <= 1e-3, share
-
-    # the same iterations stage by stage, each timed on the host clock
-    # around a synchronize (the lake solve and the relaxation's checks
-    # wait for the device anyway)
-    uplift, h_s = erosion.init_uplift(e_terrain, ecfg)
-    fcfg = of.FlowConfig(preblur=0.5, exponent=ecfg.exponent, lakes=True)
-    stages = ["pre-blur + directions + masks (K5, K6 codes form)",
-              "host lake solve (copies, native solver)",
-              "lake-aware relaxation (plain torch)",
-              "flow map + erosion pass"]
-    split = {k: [] for k in stages}
-    sweeps, n_conn = [], []
-    for _ in range(ESTEPS):
-        torch.cuda.synchronize()
-        t = [time.perf_counter()]
-        hbs = ob.blur(h_s, egrid, fcfg.preblur)
-        code = of.flow_directions(hbs, e_sel, egrid)
-        mask, mouth, _ = of.incoming_mask(code, egrid)
-        parent = of.parent_pointers(code, egrid)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        sol = nlakes.solve_lakes_native(
-            mask.cpu().numpy().reshape(-1), mouth.cpu().numpy().reshape(-1),
-            h_s.cpu().numpy().reshape(-1), parent.cpu().numpy(), egrid)
-        cfrom = host_to_device(sol.conn_from, dev)
-        cto = host_to_device(sol.conn_to, dev)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        acc, vis, root = of.flow_solve_stencil(
-            code, of.cell_area_lower_edge(egrid, dev, fcfg.area_scale),
-            mouth, egrid, conn_from=cfrom, conn_to=cto, want_root=True)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        sweeps.append(of.LAST_SOLVE["sweeps"])
-        n_conn.append(int(sol.conn_from.size))
-        fm = torch.where(vis, torch.pow(acc, fcfg.exponent), -1.0)
-        wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf), dev)
-        cell_wh = torch.where(root >= 0, wh[torch.clamp(root, min=0)],
-                              -math.inf)
-        fm = torch.where(vis & (h_s <= cell_wh), 0.0, fm)
-        h_s = erosion.erosion_pass(h_s, fm, uplift, egrid, ecfg.factor,
-                                   ecfg.slope_exponent)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        for k, a, b in zip(stages, t, t[1:]):
-            split[k].append((b - a) * 1e3)
+    against_twins("erosion", h_ero, lambda cb: erosion.landscape_evolution(
+        e_terrain, e_sel, egrid, ecfg, iterations=ESTEPS, callback=cb),
+        egrid, e_sel, ESTEPS)
+    h_s, split, sweeps, n_conn = staged(egrid, e_terrain, e_sel, ecfg,
+                                        ESTEPS)
     assert torch.equal(h_s, h_ero), "the staged iterations left the CLI's"
-    iter_ms = sum(sum(v) for v in split.values()) / ESTEPS
-    print(f"erosion iteration at {ERODE[0]}x{ERODE[1]} (BASELINE config 1; "
-          f"{ESTEPS} iterations stage by stage, host clock around a "
-          f"synchronize; equal to the CLI's field; {card}): {iter_ms:.2f} "
-          f"ms an iteration; the CLI {ero_cli_s * 1e3 / ESTEPS:.2f} ms a "
-          f"step with its terrain")
-    for k, v in split.items():
-        m = sum(v) / len(v)
-        print(f"  {k:52s} {m:9.2f} ms  {100 * m / iter_ms:5.1f}%  "
-              f"{json.dumps([round(x, 2) for x in v])}")
-    print(f"  relaxation sweeps a step {sweeps}, "
-          f"{split[stages[2]][-1] / sweeps[-1]:.3f} ms a sweep in the last; "
-          f"lake connections a step {n_conn}")
-    del ero, h_ero, h_ref, h_s, e_terrain, acc, vis, root, fm
+    print_split(f"erosion iteration at {ERODE[0]}x{ERODE[1]}, BASELINE "
+                f"config 1", split, ESTEPS, sweeps, n_conn, ero_cli_s)
+    del h_ero, h_s, e_terrain
+    torch.cuda.empty_cache()
+
+    # -- 10b. BASELINE config 2: the tectonic-erosion CLI, counted ------
+    TSTEPS = 6          # the uplift refreshes at steps 0 and 5
+    TEVERY = 5          # the CLI's tectonic_every
+    tgrid = Grid(*TECTO)
+    h_tec, tecto_forms, tec_cli_s = erosion_cli("tectonic-erosion", TECTO,
+                                                TSTEPS)
+    t_terrain = cli._terrain(tgrid, SEED, dev)
+    t_sel = torch.ones(tgrid.shape, device=dev)
+    against_twins("tectonic-erosion", h_tec,
+                  lambda cb: erosion.coupled_tectonic_erosion(
+                      t_terrain, t_sel, tgrid, ecfg, iterations=TSTEPS,
+                      tectonic_every=TEVERY, callback=cb),
+                  tgrid, t_sel, TSTEPS)
+    h_s, split, sweeps, n_conn = staged(tgrid, t_terrain, t_sel, ecfg,
+                                        TSTEPS, tectonic_every=TEVERY)
+    assert torch.equal(h_s, h_tec), "the staged iterations left the CLI's"
+    print_split(f"tectonic-erosion iteration at {TECTO[0]}x{TECTO[1]}, "
+                f"BASELINE config 2", split, TSTEPS, sweeps, n_conn,
+                tec_cli_s)
+    tec_ms = split[TECTO_STAGE]
+    stack = ot.init_plate_stack(t_terrain, tgrid)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ot.tectonic_uplift(stack, tgrid)
+        torch.cuda.synchronize()
+    tec_kernels = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"a tectonic step {sum(tec_ms) / len(tec_ms):.2f} ms (host clock, "
+          f"mean of {len(tec_ms)}); device kernels, copies and fills in one "
+          f"(torch.profiler): {tec_kernels}")
+    del h_tec, h_s, t_terrain, stack
     torch.cuda.empty_cache()
 
     # -- 11. results ---------------------------------------------------------
@@ -1666,7 +1754,8 @@ def main() -> int:
     # coupled CLI (phase 6; the sampler form is on no path and counts 0
     # there), the ocean CLI's one-row table (phase 4), the mesh step's
     # codes form and K10 (phase 8), K11's tools (phase 9), and K5 and K6's
-    # codes form on the erosion CLI too (phase 10)
+    # codes form on the erosion and tectonic-erosion CLIs too (phases 10
+    # and 10b)
     mesh_forms = own_forms(mesh_launches)
     main_launches = {**coupled_forms,
                      **{n: mesh_forms[n] for n in ("flow_directions",
@@ -1676,7 +1765,7 @@ def main() -> int:
                                                     "advect_stage_one_row")},
                      **k11_launches}
     for n in ("blur", "flow_directions"):
-        main_launches[n] += erosion_forms[n]
+        main_launches[n] += erosion_forms[n] + tecto_forms[n]
     for k in kernels:
         k["launches"] = main_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

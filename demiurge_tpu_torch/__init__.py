@@ -8,13 +8,16 @@ explicit ``device``.  The TPU's Pallas kernels are replaced by CUDA kernels
 written for Hopper (``csrc/*.cu``), each with a plain PyTorch twin beside its
 wrapper in ``kernels/``; the twin runs when the tensors lie on the CPU.
 
-Ported so far: the grid, its wrap topology and stencils, default-mode fBm
-noise, the ocean step (``ops.ocean``), the climate (``ops.temperature``),
-the blur, the device flow path (``ops.flow.flow_filter_device``), the full
-flow filter with lakes (``ops.flow.flow_filter``, its host lake solver in
-``native``), the erosion pass and loop (``ops.erosion``), and the coupled
-step (``model.coupled_step``), with the ``erosion``, ``ocean``,
-``climate`` and ``coupled`` CLI commands.
+Ported so far: the whole of ``core`` (the grid with its vector helpers,
+the wrap topology and the gather samplers, the stencils, the state),
+default-mode fBm noise, the ocean step (``ops.ocean``), the climate
+(``ops.temperature``), the blur, the device flow path
+(``ops.flow.flow_filter_device``), the full flow filter with lakes
+(``ops.flow.flow_filter``, its host lake solver in ``native``), the plate
+tectonics (``ops.tectonics``), the erosion pass and loops
+(``ops.erosion``), and the coupled step (``model.coupled_step``), with the
+``erosion``, ``tectonic-erosion``, ``ocean``, ``climate`` and ``coupled``
+CLI commands.
 """
 
 from .core import Grid

@@ -2,6 +2,8 @@
 
   python -m demiurge_tpu_torch.api.cli erosion   # BASELINE config 1:
                                                  # 1024x512, 100 steps
+  python -m demiurge_tpu_torch.api.cli tectonic-erosion  # config 2:
+                                                 # 2048x1024, 70 steps
   python -m demiurge_tpu_torch.api.cli ocean     # config 3: 2048x1024
                                                  # + Coriolis
   python -m demiurge_tpu_torch.api.cli climate   # config 4: 4096x2048,
@@ -16,10 +18,11 @@ kernels' plain twins), --mesh NYxNX (the fields split over NY*NX
 processes, started by torchrun, ``--nproc-per-node NY*NX``; NCCL on
 ``cuda``, gloo on ``cpu``).  ``erosion`` is the reference's fluvial
 erosion loop with lakes (``ops.erosion.landscape_evolution``; the lake
-solve runs on the host, the mass is logged every step) and runs on one
-device: it refuses --mesh (the reference builds a mesh and never uses
-it).  --checkpoint/--resume and --png are not ported yet and are refused,
-as is the reference's tectonic-erosion command (BASELINE config 2).
+solve runs on the host, the mass is logged every step); ``tectonic-erosion``
+is the same loop with the plate tectonics' uplift refreshed every 5th
+step (``ops.erosion.coupled_tectonic_erosion``).  Both run on one device:
+they refuse --mesh (the reference builds a mesh and never uses it).
+--checkpoint/--resume and --png are not ported yet and are refused.
 
 At the end the CLI prints one JSON line to stdout, the kernel launches of
 the run.  Under a mesh, rank 0 logs and saves the gathered fields.
@@ -60,10 +63,9 @@ def _build_parser():
 
     common(sub.add_parser("erosion", help="fluvial erosion (BASELINE 1)"),
            1024, 512, 100)
-    sp = sub.add_parser("tectonic-erosion",
-                        help="tectonic uplift + erosion (BASELINE 2); not "
-                             f"ported yet ({_TECTONICS}), refused")
-    common(sp, 2048, 1024, 70)
+    common(sub.add_parser("tectonic-erosion",
+                          help="tectonic uplift + erosion (BASELINE 2)"),
+           2048, 1024, 70)
     sp = sub.add_parser("ocean", help="ocean currents + Coriolis (BASELINE 3)")
     common(sp, 2048, 1024, 50)
     sp.add_argument("--jacobi", type=int, default=1000)
@@ -82,18 +84,14 @@ _NOT_PORTED = {"--checkpoint": "checkpoints, ROADMAP queue 1 item 8",
                "--png": "the PNG render, ROADMAP queue 1 item 8"}
 
 
-_TECTONICS = "tectonics, ROADMAP queue 1 item 7"
-
-
 def _refuse_unported(parser, args) -> None:
-    if args.cmd == "tectonic-erosion":
-        parser.error(f"tectonic-erosion is not ported yet ({_TECTONICS})")
     for flag, queue in _NOT_PORTED.items():
         if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported yet ({queue})")
-    if args.cmd == "erosion" and args.mesh:
-        parser.error("erosion runs on one device: --mesh is not supported "
-                     "(the reference builds a mesh and never uses it)")
+    if args.cmd in ("erosion", "tectonic-erosion") and args.mesh:
+        parser.error(f"{args.cmd} runs on one device: --mesh is not "
+                     "supported (the reference builds a mesh and never uses "
+                     "it)")
 
 
 def _terrain(grid, seed, device):
@@ -186,7 +184,7 @@ def main(argv=None):
     grid = Grid(args.width, args.height)
     logger = M.StepLogger(grid, path=args.log if lay.lead else None)
 
-    if args.cmd == "erosion":
+    if args.cmd in ("erosion", "tectonic-erosion"):
         from ..ops import erosion
 
         h = _terrain(grid, args.seed, device)
@@ -196,9 +194,16 @@ def main(argv=None):
         def log_mass(i, hh):
             logger.log(i, mass=M.mass(hh, grid))
 
-        h = erosion.landscape_evolution(h, sel, grid, cfg,
-                                        iterations=args.steps,
-                                        callback=log_mass)
+        if args.cmd == "erosion":
+            h = erosion.landscape_evolution(h, sel, grid, cfg,
+                                            iterations=args.steps,
+                                            callback=log_mass)
+        else:
+            # live coupling: the tectonic uplift forcing refreshed during
+            # the evolution (not the reference's sequential chain)
+            h = erosion.coupled_tectonic_erosion(
+                h, sel, grid, cfg, iterations=args.steps, tectonic_every=5,
+                callback=log_mass)
         _finish(args, grid, h, logger, lay)
         return {"terrain": h}
 

@@ -1,4 +1,6 @@
 from .grid import Grid
-from . import fastroll, platform, stencils, topology
+from .state import State, new_state
+from . import fastroll, platform, state, stencils, topology
 
-__all__ = ["Grid", "fastroll", "platform", "stencils", "topology"]
+__all__ = ["Grid", "State", "new_state", "fastroll", "platform", "state",
+           "stencils", "topology"]

@@ -4,7 +4,8 @@ Counterpart of ``demiurge_tpu/core/grid.py``: a static (hashable) grid spec.
 Fields are ``(H, W)`` float32 tensors with row 0 = southernmost row and
 column 0 at the west edge; pixel centers sit at ((c+0.5)/W, (r+0.5)/H) in
 tex coords.  The grid itself holds no tensors: each method that returns one
-takes the ``device`` to build it on.
+takes the ``device`` to build it on.  The vector helpers at the end work
+on tuples of tensors (or of anything torch's elementwise ops take).
 """
 
 from __future__ import annotations
@@ -64,6 +65,16 @@ class Grid:
         """North pole included -> rows above row H-1 reflect."""
         return self.phi1 > PI / 2 - 1e-4
 
+    @property
+    def radius(self) -> float:
+        return self.circumference / (2 * PI)
+
+    def tex_to_spheric(self, s, t):
+        """(s, t) in [0,1]^2 -> (lambda, phi) radians."""
+        lam = s * (self.lam1 - self.lam0) + self.lam0
+        phi = t * (self.phi1 - self.phi0) + self.phi0
+        return lam, phi
+
     def spheric_to_tex(self, lam, phi):
         s = (lam - self.lam0) / (self.lam1 - self.lam0)
         t = (phi - self.phi0) / (self.phi1 - self.phi0)
@@ -112,3 +123,97 @@ class Grid:
         """Per-row pixel area dx*dy, shape (H, 1)."""
         dx, dy = self.pixelsize_rows(device)
         return dx * dy
+
+    def geodistance_tex(self, p1, p2) -> torch.Tensor:
+        """Haversine distance between two tex-coord points (pairs of
+        tensors), in x-pixel units (the GLSL ``geodistance``, which scales
+        by size.x/(lam1-lam0))."""
+        l1, f1 = self.tex_to_spheric(p1[0], p1[1])
+        l2, f2 = self.tex_to_spheric(p2[0], p2[1])
+        inner = (torch.sin(torch.abs(f2 - f1) / 2) ** 2
+                 + torch.cos(f1) * torch.cos(f2)
+                 * torch.sin((l1 - l2) / 2) ** 2)
+        delta_sigma = 2 * torch.asin(torch.sqrt(inner))
+        return delta_sigma / (self.lam1 - self.lam0) * self.width
+
+
+def spheric_to_cartesian(lam, phi):
+    """(lambda, phi) -> unit vector (x, y, z) (src/Shader.h:61-63)."""
+    return (torch.cos(phi) * torch.cos(lam), torch.cos(phi) * torch.sin(lam),
+            torch.sin(phi))
+
+
+def cartesian_to_spheric(x, y, z):
+    """Unit vector -> (lambda, phi) (src/Shader.h:65-67)."""
+    return torch.atan2(y, x), torch.asin(torch.clamp(z, -1.0, 1.0))
+
+
+def rotation_matrix(theta, u):
+    """Axis-angle rotation matrix (src/Shader.h:33-41) as nested row
+    tuples, so that ``apply_rotation(R, v)`` is the GLSL
+    ``rotation_matrix(theta, u) * v``.  ``theta`` a tensor or a number
+    (taken as float32); ``u`` three components."""
+    ux, uy, uz = u
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    omc = 1.0 - c
+    return (
+        (c + ux * ux * omc, ux * uy * omc - uz * s, ux * uz * omc + uy * s),
+        (uy * ux * omc + uz * s, c + uy * uy * omc, uy * uz * omc - ux * s),
+        (uz * ux * omc - uy * s, uz * uy * omc + ux * s, c + uz * uz * omc),
+    )
+
+
+def apply_rotation(R, v):
+    """R @ v for the nested-tuple layout of ``rotation_matrix``."""
+    vx, vy, vz = v
+    return (R[0][0] * vx + R[0][1] * vy + R[0][2] * vz,
+            R[1][0] * vx + R[1][1] * vy + R[1][2] * vz,
+            R[2][0] * vx + R[2][1] * vy + R[2][2] * vz)
+
+
+def normalize3(v, eps: float = 0.0):
+    vx, vy, vz = v
+    n = torch.sqrt(vx * vx + vy * vy + vz * vz + eps)
+    return (vx / n, vy / n, vz / n)
+
+
+def cross3(a, b):
+    ax, ay, az = a
+    bx, by, bz = b
+    return (ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx)
+
+
+def dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def tangent_basis(lam, phi):
+    """East and north unit tangent vectors at (lambda, phi), the
+    reference's ``cartesian_to_v`` basis (src/Shader.h:101-117)."""
+    east = (-torch.sin(lam), torch.cos(lam),
+            torch.zeros_like(lam) * torch.ones_like(phi))
+    north = (-torch.sin(phi) * torch.cos(lam),
+             -torch.sin(phi) * torch.sin(lam),
+             torch.cos(phi) * torch.ones_like(lam))
+    return east, north
+
+
+def v_to_cartesian(vx, vy, lam, phi):
+    """Tangent (east, north) components -> 3D vector
+    (OceanCurrents.cpp:251-258)."""
+    east, north = tangent_basis(lam, phi)
+    return (vx * east[0] + vy * north[0], vx * east[1] + vy * north[1],
+            vx * east[2] + vy * north[2])
+
+
+def cartesian_to_v(v, lam, phi, subtract_radial: bool = False):
+    """3D vector -> tangent (east, north) components; with
+    ``subtract_radial`` the radial component is projected out first, as
+    src/Shader.h:104-116 does."""
+    if subtract_radial:
+        r = spheric_to_cartesian(lam, phi)
+        v = tuple(vi - dot3(v, r) / dot3(r, r) * ri for vi, ri in zip(v, r))
+    east, north = tangent_basis(lam, phi)
+    return dot3(v, east), dot3(v, north)

@@ -4,8 +4,11 @@ Counterpart of ``demiurge_tpu/core/platform.py``.  The device is the
 caller's choice, made when it creates its tensors: this module never asks
 whether a card exists and never moves data.  Tensors on a CUDA device go to
 the hand-written kernels; tensors on the CPU go to the kernels' plain
-PyTorch twins.  A grep test (tests/test_torch_platform.py) keeps every other
-module from testing the device itself.
+PyTorch twins.  The kernels that take a grid serve x-periodic grids only:
+a regional grid goes to their twins on either device, as the reference
+routes such grids to its XLA path by the grid's shape.  A grep test
+(tests/test_torch_platform.py) keeps every other module from testing the
+device itself.
 """
 
 from __future__ import annotations
@@ -16,8 +19,11 @@ import numpy as np
 import torch
 
 
-def use_cuda_kernels(*tensors: torch.Tensor) -> bool:
-    """True iff every tensor lies on a CUDA device."""
+def use_cuda_kernels(*tensors: torch.Tensor, grid=None) -> bool:
+    """True iff every tensor lies on a CUDA device and ``grid``, where
+    given, is x-periodic (the only grids the kernels serve)."""
+    if grid is not None and not grid.wrap_x:
+        return False
     return bool(tensors) and all(t.is_cuda for t in tensors)
 
 

@@ -189,7 +189,8 @@ def blur_cuda(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:
 
 
 def blur(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
-    if use_cuda_kernels(field):
+    """The CUDA kernel for CUDA tensors on an x-periodic grid, the plain
+    twin otherwise."""
+    if use_cuda_kernels(field, grid=grid):
         return blur_cuda(field, grid, rlist)
     return blur_plain(field, grid, rlist)

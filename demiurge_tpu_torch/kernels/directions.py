@@ -143,8 +143,9 @@ def flow_directions_cuda(hb, sel, grid: Grid) -> torch.Tensor:
 
 
 def flow_directions(hb, sel, grid: Grid) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
-    if use_cuda_kernels(hb, sel):
+    """The CUDA kernel for CUDA tensors on an x-periodic grid, the plain
+    twin otherwise."""
+    if use_cuda_kernels(hb, sel, grid=grid):
         return flow_directions_cuda(hb, sel, grid)
     return flow_directions_plain(hb, sel, grid)
 
@@ -198,8 +199,8 @@ def directions_packed_cuda(hb, sel, grid: Grid):
 
 
 def directions_packed(hb, sel, grid: Grid):
-    """The packed kernel for CUDA tensors, the plain passes for CPU
-    tensors."""
-    if use_cuda_kernels(hb, sel):
+    """The packed kernel for CUDA tensors on an x-periodic grid, the
+    plain passes otherwise."""
+    if use_cuda_kernels(hb, sel, grid=grid):
         return directions_packed_cuda(hb, sel, grid)
     return directions_packed_plain(hb, sel, grid)

@@ -229,15 +229,17 @@ def vis_solve_cuda(packed, grid: Grid) -> torch.Tensor:
 
 
 def flow_solve_area(packed, area, grid: Grid, a0=None) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    """The CUDA kernel for CUDA tensors on an x-periodic grid, the plain
+    twin otherwise."""
     start = area if a0 is None else a0
-    if use_cuda_kernels(packed, area, start):
+    if use_cuda_kernels(packed, area, start, grid=grid):
         return flow_solve_area_cuda(packed, area, grid, a0)
     return flow_solve_area_plain(packed, area, grid, a0)
 
 
 def vis_solve(packed, grid: Grid) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
-    if use_cuda_kernels(packed):
+    """The CUDA kernel for CUDA tensors on an x-periodic grid, the plain
+    twin otherwise."""
+    if use_cuda_kernels(packed, grid=grid):
         return vis_solve_cuda(packed, grid)
     return vis_solve_plain(packed, grid)

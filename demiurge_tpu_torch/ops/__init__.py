@@ -1,3 +1,4 @@
-from . import blur, erosion, flow, noise, ocean, temperature
+from . import blur, erosion, flow, noise, ocean, tectonics, temperature
 
-__all__ = ["blur", "erosion", "flow", "noise", "ocean", "temperature"]
+__all__ = ["blur", "erosion", "flow", "noise", "ocean", "tectonics",
+           "temperature"]

@@ -9,14 +9,16 @@ Blur filter (src/filter/BlurMenu.cpp:24-117):
 - each iteration runs a 13-tap linearly sampled Gaussian vertically, then
   horizontally, with the horizontal offsets stretched by 1/cos(phi).
 
-Only the reference's x-periodic fast path is ported: the vertical taps are
-row lerps through the wrap-aware shift, so they interpolate through the
-poles where the GL reference clamps the last subpixel at the texture seam
-(the reference package's documented "seam-quality" deviation, kept here);
-the horizontal taps are per-row fractional column fetches, periodic across
-the dateline.  A regional grid raises.  ``blur`` runs every iteration
-through ``kernels.blur`` (the CUDA kernel for CUDA tensors, its plain twin
-— the ``blur13_pass`` sequence — for CPU tensors).
+On an x-periodic grid the passes take the reference's fast path: the
+vertical taps are row lerps through the wrap-aware shift, so they
+interpolate through the poles where the GL reference clamps the last
+subpixel at the texture seam (the reference package's documented
+"seam-quality" deviation, kept here); the horizontal taps are per-row
+fractional column fetches, periodic across the dateline.  Any other grid
+takes the exact GL-clamp path: every tap a bilinear gather at
+``offset()``.  ``blur`` runs every iteration through ``kernels.blur``
+(the CUDA kernel for CUDA tensors on an x-periodic grid, its plain twin —
+the ``blur13_pass`` sequence — otherwise).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from ..core.fastroll import const_sample_bilinear_y, \
     row_sample_bilinear_x_static
 from ..core.grid import Grid
+from ..core.topology import grid_st, offset_coords, sample_bilinear
 from ..kernels import blur as kb
 
 # 13-tap Gaussian with the linear-sampling optimization (BlurMenu.cpp:45-60)
@@ -61,13 +64,6 @@ def sigma_list(radius: float) -> list:
     return rlist
 
 
-def _check_grid(grid: Grid) -> None:
-    if not grid.wrap_x:
-        raise NotImplementedError(
-            "the blur on a grid that is not x-periodic (the GL-clamp gather "
-            "path) is not ported yet")
-
-
 def vertical_taps(step: float):
     """The six vertical taps of one pass as row offsets, in the pass's
     order (offset magnitude ascending, + before -)."""
@@ -93,7 +89,8 @@ def blur13_pass(field: torch.Tensor, grid: Grid, direction, *,
                 stretch_x: bool = True) -> torch.Tensor:
     """One blur13 pass (BlurMenu.cpp:41-62); ``direction`` = (dx, dy) is
     the pixel step, one of them zero."""
-    _check_grid(grid)
+    if not grid.wrap_x:
+        return _blur13_pass_gather(field, grid, direction, stretch_x)
     weights = [w for w in _WEIGHTS for _ in (1.0, -1.0)]
     out = field * _W0
     if direction[0] != 0.0:
@@ -106,10 +103,30 @@ def blur13_pass(field: torch.Tensor, grid: Grid, direction, *,
     return out
 
 
+def _blur13_pass_gather(field: torch.Tensor, grid: Grid, direction,
+                        stretch_x: bool) -> torch.Tensor:
+    """The pass as the GL reference samples it: each tap a GL_LINEAR +
+    GL_CLAMP_TO_EDGE fetch at ``offset(st, +-offset * direction)``, the x
+    offset stretched by 1/cos|phi|."""
+    phifactor = torch.cos(torch.abs(grid.row_phi(field.device)))  # (H, 1)
+    s, t = grid_st(grid, field.device)
+    out = field * _W0
+    for off_mag, w in zip(_OFFSETS, _WEIGHTS):
+        ox = off_mag * direction[0]
+        oy = off_mag * direction[1]
+        if stretch_x:
+            # a float32 division, as the reference's (a Python number over
+            # a tensor would be a reciprocal and a product in torch)
+            ox = torch.full_like(phifactor, ox) / phifactor
+        for sign in (1.0, -1.0):
+            s2, t2 = offset_coords(s, t, sign * ox, sign * oy, grid)
+            out = out + sample_bilinear(field, s2, t2) * w
+    return out
+
+
 def blur(field: torch.Tensor, grid: Grid, radius: float) -> torch.Tensor:
     """Full separable spherical Gaussian blur of the given radius (pixels):
     per ``sigma_list`` iteration a vertical pass, then a horizontal one."""
-    _check_grid(grid)
     rlist = sigma_list(radius)
     if not rlist:
         return field

@@ -14,7 +14,9 @@ The loop (``landscape_evolution``, BASELINE config 1): per iteration the
 full flow filter with lakes (``ops.flow.flow_filter``: K5 and K6 on the
 card, the lake solve on the host), then the erosion pass.  The pass is
 plain PyTorch: the reference package has no kernel here.
-``coupled_tectonic_erosion`` waits for the tectonics.
+``coupled_tectonic_erosion`` (BASELINE config 2) is the same loop with the
+uplift refreshed from the plate tectonics (``ops.tectonics``) every few
+iterations.
 """
 
 from __future__ import annotations
@@ -70,6 +72,45 @@ def erosion_pass(h, flow_map, uplift, grid: Grid, factor: float,
         / (0.1 ** slope_exponent) * 0.1
     hnew = h + torch.minimum(hdiff, torch.clamp(uplift - eros, min=0.0))
     return torch.where(h <= 0, h, hnew)
+
+
+def coupled_tectonic_erosion(height, sel, grid: Grid,
+                             cfg: ErosionConfig = None, tcfg=None,
+                             iterations: int = None, tectonic_every: int = 5,
+                             callback=None, progress=None):
+    """Config 2's coupling: tectonic uplift forcing live during the
+    landscape evolution.  Every ``tectonic_every`` iterations (from the
+    first) the plate stack advances one step and its collision uplift
+    plus the stream-power base uplift U = max(h, 0)/50 becomes the
+    forcing (cpufilter.cpp:42-64); the reference's intent of "coupled
+    tectonic uplift + erosion", not its sequential 70-steps-then-erode
+    chain.  ``callback`` and ``progress`` as in ``landscape_evolution``.
+    Returns the evolved heightfield."""
+    from . import tectonics
+
+    if cfg is None:
+        cfg = ErosionConfig()
+    if tcfg is None:
+        tcfg = tectonics.TectonicsConfig()
+    if iterations is None:
+        iterations = cfg.iterations
+
+    stack = tectonics.init_plate_stack(height, grid)
+    uplift0, h = init_uplift(height, cfg)
+    uplift = uplift0
+    fcfg = FlowConfig(preblur=0.5, exponent=cfg.exponent, lakes=cfg.lakes)
+    for i in range(iterations):
+        if i % tectonic_every == 0:
+            stack, tup = tectonics.tectonic_uplift(stack, grid, tcfg)
+            uplift = uplift0 + tup
+        flow_map = flow_filter(h, sel, grid, fcfg)
+        h = erosion_pass(h, flow_map, uplift, grid, cfg.factor,
+                         cfg.slope_exponent)
+        if callback is not None:
+            callback(i, h)
+        if progress is not None and not progress(i, iterations):
+            break  # cancelled: return the last completed state
+    return h
 
 
 def landscape_evolution(height, sel, grid: Grid,

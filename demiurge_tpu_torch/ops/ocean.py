@@ -17,9 +17,10 @@ Counterpart of ``demiurge_tpu/ops/ocean.py`` (intent mode in full, and
 On CUDA tensors the three solves run on the hand-written kernels, and the
 whole single-card advect stage is one launch (``kernels.advect``'s stage
 form); on CPU tensors they run on their plain twins (``advect_plain`` for
-the stage).  Not ported yet (they raise):
-``pressure_method="cg"`` and ``advect_method="exact"`` (the gather
-sampler, also what a grid that is not x-periodic would use).
+the stage).  ``advect_method="exact"``, and any grid that is not
+x-periodic, samples by bilinear gathers instead (``advect_gather``), as
+the reference does on either device.  Not ported yet (it raises):
+``pressure_method="cg"``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 
 from ..core.grid import Grid
 from ..core.platform import host_to_device, use_cuda_kernels
-from ..core.topology import shift
+from ..core.topology import sample_bilinear, shift
 from ..kernels import advect as ka
 from ..kernels import jacobi as kj
 
@@ -289,11 +290,15 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
     ``mesh``: the fields are this rank's blocks; the departure points run
     on the gathered fields (``sharded_call``), the sampler on blocks with
     one halo exchange and one global radius (``dist.advect``), the rest
-    elementwise on the blocks."""
+    elementwise on the blocks.  ``advect_method="exact"`` or a grid that is
+    not x-periodic: ``advect_gather`` (on the gathered fields under a
+    mesh)."""
     if cfg.advect_method != "fast" or not grid.wrap_x:
-        raise NotImplementedError(
-            "the gather sampler (advect_method='exact', or a grid that is "
-            "not x-periodic) is not ported yet")
+        if mesh is None:
+            return advect_gather(u, v, terrain, grid, cfg)
+        from ..dist.mesh import sharded_call
+
+        return sharded_call(advect_gather, mesh)(u, v, terrain, grid, cfg)
     if mesh is None:
         return ka.advect_stage(u, v, terrain, grid, cfg)
     from ..dist.advect import advect_sample_sharded
@@ -312,6 +317,18 @@ def advect_plain(u, v, terrain, grid: Grid, cfg: OceanConfig):
     the stage kernel's twin."""
     dep = _departure(u, v, grid, cfg)
     nu, nv = _advect_sample_fast(u, v, dep[0], dep[1], grid, cfg)
+    tab = stage_tables(grid, u.device)
+    return _advect_finish(nu, nv, dep, tab.wx, tab.wy, terrain, cfg)
+
+
+def advect_gather(u, v, terrain, grid: Grid, cfg: OceanConfig):
+    """The advect with the exact sampler: (u, v) fetched by GL_LINEAR +
+    GL_CLAMP_TO_EDGE gathers at the backtraced coordinates (clamped at
+    the dateline seam, as in the reference), then the same transport and
+    forcing as the fast path."""
+    dep = _departure(u, v, grid, cfg)
+    nu = sample_bilinear(u, dep[0], dep[1])
+    nv = sample_bilinear(v, dep[0], dep[1])
     tab = stage_tables(grid, u.device)
     return _advect_finish(nu, nv, dep, tab.wx, tab.wy, terrain, cfg)
 

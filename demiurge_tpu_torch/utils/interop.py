@@ -13,7 +13,10 @@ from ``dataclasses.asdict`` of the reference's, and
 down to the port's unpadded ones; ``flow_config_from_dict`` /
 ``erosion_config_from_dict`` rebuild the flow filter's and the erosion
 loop's configs, and ``lake_solution_from_numpy`` the host lake solver's
-result.
+result; ``plates_from_numpy`` / ``plates_to_numpy`` and
+``plate_stack_from_numpy`` / ``plate_stack_to_numpy`` carry the
+tectonics' plates (fields in the reference's (..., H, W, 4) layout, the
+port's (..., 4, H, W)), and ``tectonics_config_from_dict`` its config.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from ..model import CoupledConfig, CoupledState
 from ..ops.erosion import ErosionConfig
 from ..ops.flow import FlowConfig, LakeSolution
 from ..ops.ocean import OceanConfig
+from ..ops.tectonics import Plate, PlateStack, TectonicsConfig
 
 
 def fields_from_numpy(arrays: Mapping[str, np.ndarray], device
@@ -143,3 +147,56 @@ def coupled_state_blocks_to_numpy(state: CoupledState, mesh) -> dict:
         f.name: (gather_field(x, mesh) if x.dim() == 2 else x)
         for f in dataclasses.fields(CoupledState)
         for x in [getattr(state, f.name)]})
+
+
+def tectonics_config_from_dict(d: Mapping) -> TectonicsConfig:
+    """The port's TectonicsConfig from the reference's, as a dict."""
+    return _config_from_dict(TectonicsConfig, d)
+
+
+def _channels_first(fields) -> np.ndarray:
+    """(..., H, W, 4) -> (..., 4, H, W) float32."""
+    return np.ascontiguousarray(np.moveaxis(
+        np.asarray(fields, dtype=np.float32), -1, -3))
+
+
+def _channels_last(fields: torch.Tensor) -> np.ndarray:
+    """(..., 4, H, W) tensor -> (..., H, W, 4) float32 numpy."""
+    return np.ascontiguousarray(np.moveaxis(
+        fields.detach().to("cpu", torch.float32).numpy(), -3, -1))
+
+
+def plates_from_numpy(fields, rotations, angvels, device) -> list:
+    """The port's ``Plate`` list from the reference's plates, given as one
+    (H, W, 4) field, (3, 3) rotation and (3,) angular velocity each."""
+    return [Plate(torch.from_numpy(_channels_first(f)).to(device),
+                  np.array(r, dtype=np.float32),
+                  np.array(w, dtype=np.float32))
+            for f, r, w in zip(fields, rotations, angvels, strict=True)]
+
+
+def plates_to_numpy(plates) -> tuple:
+    """(fields (P, H, W, 4), rotations (P, 3, 3), angular velocities
+    (P, 3)), float32, in the reference's layout."""
+    return (np.stack([_channels_last(p.field) for p in plates]),
+            np.stack([np.asarray(p.rotation, np.float32) for p in plates]),
+            np.stack([np.asarray(p.angular_velocity, np.float32)
+                      for p in plates]))
+
+
+def plate_stack_from_numpy(fields, rotations, angvel, device) -> PlateStack:
+    """The port's PlateStack on ``device`` from the reference's arrays:
+    fields (P, H, W, 4), rotations (P, 3, 3), angvel (P, 3)."""
+    return PlateStack(
+        fields=torch.from_numpy(_channels_first(fields)).to(device),
+        rotations=torch.from_numpy(
+            np.array(rotations, dtype=np.float32)).to(device),
+        angvel=torch.from_numpy(np.array(angvel, dtype=np.float32)).to(device))
+
+
+def plate_stack_to_numpy(stack: PlateStack) -> tuple:
+    """(fields (P, H, W, 4), rotations (P, 3, 3), angvel (P, 3)), float32,
+    in the reference's layout."""
+    return (_channels_last(stack.fields),
+            stack.rotations.detach().to("cpu", torch.float32).numpy(),
+            stack.angvel.detach().to("cpu", torch.float32).numpy())

@@ -144,6 +144,12 @@ def test_kernel_tables_reproduce_plain_twin(radius):
 
 
 def test_regional_grid_raises():
-    with pytest.raises(NotImplementedError):
-        tb.blur(torch.zeros(32, 64), TGrid(64, 32, (-1.0, 1.0, -2.0, 2.0)),
-                0.5)
+    """Ported since (the name is kept from when the port raised here): a
+    regional grid takes the GL-clamp gather path on the plain twin, never
+    the kernel, so a constant field stays constant and nothing launches
+    (tests/test_torch_core_samplers.py holds it to the reference)."""
+    launches = kb.LAUNCHES
+    out = tb.blur(torch.full((32, 64), 2.5),
+                  TGrid(64, 32, (-1.0, 1.0, -2.0, 2.0)), 0.5)
+    np.testing.assert_allclose(out.numpy(), 2.5, rtol=1e-6)
+    assert kb.LAUNCHES == launches

@@ -60,9 +60,13 @@ def test_texture_laplacian_matches_reference():
         scale = float(np.abs(np.asarray(want)).max())
         np.testing.assert_allclose(got.numpy() / scale,
                                    np.asarray(want) / scale, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tst.texture_laplacian(torch.from_numpy(T),
-                              TGrid(128, 64, (-1.0, 1.0, -2.0, 2.0)))
+    # a regional grid: the gather branch, exactly the reference's
+    regional = (-1.0, 1.0, -2.0, 2.0)
+    jx, jy = jst.texture_laplacian(jnp.asarray(T), JGrid(128, 64, regional))
+    tx, ty = tst.texture_laplacian(torch.from_numpy(T),
+                                   TGrid(128, 64, regional))
+    for got, want in ((tx, jx), (ty, jy)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_qday_and_init_temperature():

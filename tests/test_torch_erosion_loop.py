@@ -120,7 +120,7 @@ def test_cli_erosion_prints_its_launches(capsys):
 
 @pytest.mark.parametrize("argv, says", [
     (["erosion", "--mesh", "1x1"], "--mesh is not supported"),
-    (["tectonic-erosion"], "ROADMAP queue 1 item 7")])
+    (["tectonic-erosion", "--mesh", "1x1"], "--mesh is not supported")])
 def test_cli_refuses_erosion_mesh_and_tectonic_erosion(argv, says, capsys):
     import torch.distributed as dist
 

@@ -177,10 +177,6 @@ def test_unported_modes_raise(case):
         tocean.pressure_solve(t["u"], t["h"], tg,
                               dataclasses.replace(case["tcfg"],
                                                   pressure_method="cg"))
-    with pytest.raises(NotImplementedError):
-        tocean.advect(t["u"], t["v"], t["h"], tg,
-                      dataclasses.replace(case["tcfg"],
-                                          advect_method="exact"))
 
 
 def test_cli_ocean_save_matches_reference(tmp_path):

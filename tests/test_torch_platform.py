@@ -44,7 +44,8 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "kernels/jacobi_packed.py", "tools/__init__.py",
           "tools/flow_rounds.py", "tools/flow_tune.py",
           "tools/jacobi_race.py", "native/__init__.py", "native/build.py",
-          "native/lakes.py", "api/cli.py", "utils/interop.py")
+          "native/lakes.py", "api/cli.py", "utils/interop.py",
+          "core/state.py", "core/topology.py", "ops/tectonics.py")
 
 
 def test_grep_tests_cover_the_ported_modules():
