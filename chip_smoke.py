@@ -109,11 +109,29 @@
    the 6 iterations stage by stage (equal to the CLI's field), the
    tectonic uplift timed in the iterations that run it, and
    torch.profiler's count of device kernels in one tectonic step;
+12. the editor session (``api.Project``) at 2048x1024, the size of
+   BASELINE configs 2, 3 and 5, with every launch counter at 0: ridged
+   fBm (make_planet's parameters), the six other modes into layers, a
+   brush stroke across the dateline near the north pole, the selection
+   tools, blur, thermal erosion, morphology, offset and scale, DeTerrace
+   on the terrain quantised to steps of 0.25, the flow map and its undo,
+   2 erosion iterations, an ocean step with Jacobi and one with CG, 10
+   climate substeps, 2 tectonics steps, the PNG export and the npz save;
+   each step timed on the host clock around a synchronize.  Fails unless
+   K1, K2, K3, K4's stage form, K5 and K6's codes form launched, every
+   field is finite, the npz loads back exactly, the same session through
+   the plain twins matches step by step (within 1e-5 of max before the
+   flow map, beyond it at no more than 1e-3 of the pixels; direction
+   ties counted), undoing everything returns the terrain to 0 and the
+   selection to 1 and redoing everything returns the final terrain,
+   within the snapshot codec's accumulated accuracy; prints the undo
+   bytes and each step's device kernels (torch.profiler, on a replay
+   without the flow steps);
 11. prints the kernels' JSON line (each kernel form's own launches on the
    path that runs it: the stage and packed forms are not counted again
    under the sampler and codes forms; K5 and K6's codes form count the
-   erosion and tectonic-erosion runs too), the card line and, last, the
-   result line
+   erosion and tectonic-erosion runs too, and K1-K6 the editor session),
+   the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the exit code is non-zero.  Without a card, or
@@ -131,6 +149,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -1749,6 +1768,219 @@ def main() -> int:
     del h_tec, h_s, t_terrain, stack
     torch.cuda.empty_cache()
 
+    # -- 12. the editor session at 2048x1024, counted --------------------
+    from demiurge_tpu_torch.api import Project
+    from demiurge_tpu_torch.ops import noise as onoise
+    from demiurge_tpu_torch.ops import pressure_cg as ocg
+    from demiurge_tpu_torch.ops.brush import BrushParams
+
+    # the session's PNG and npz go to a directory of the checkout that is
+    # removed at the end of the phase
+    out_tmp = tempfile.TemporaryDirectory(dir=REPO, prefix=".phase12_")
+    out_dir = pathlib.Path(out_tmp.name)
+    OTHER_MODES = ("default", "billowy", "iq", "swiss", "jordan",
+                   "plateaus")
+    # ten points across the dateline, within 10 degrees of the north pole
+    STROKE = [(0.88, 0.80), (0.92, 0.86), (0.96, 0.91), (0.99, 0.945),
+              (0.02, 0.95), (0.05, 0.94), (0.08, 0.92), (0.11, 0.89),
+              (0.14, 0.86), (0.17, 0.83)]
+    LASSO = [(0.10, 0.20), (0.50, 0.30), (0.45, 0.80), (0.20, 0.70),
+             (0.15, 0.40)]
+
+    def noise_layers(p):
+        for i, mode in enumerate(OTHER_MODES):
+            p.add_layer(mode, onoise.gradient_noise(
+                p.terrain, p.sel, p.grid, onoise.NoiseParams(
+                    mode=mode, octaves=8, scale=2.0, min=-4.0, max=6.0,
+                    seed=11 + i, warp=0.5)))
+
+    # (name, step); from "flow map" on the steps depend on the flow routing
+    SESSION = [
+        ("ridged noise", lambda p: p.gradient_noise(onoise.NoiseParams(
+            mode="ridged", octaves=8, scale=1.5, min=-4.0, max=6.0,
+            seed=SEED))),
+        ("six other modes into layers", noise_layers),
+        ("brush stroke", lambda p: p.brush_stroke(STROKE, BrushParams(
+            size=40.0, value=0.8, hardness=0.3))),
+        ("select height", lambda p: p.select_height(0.0, 3.0)),
+        ("select lasso", lambda p: p.select_lasso(LASSO, "add")),
+        ("select grow 8", lambda p: p.select_grow(8)),
+        ("select border 4", lambda p: p.select_border(4)),
+        ("select blur 2", lambda p: p.select_blur(2)),
+        ("select all", lambda p: p.select_all()),
+        ("blur 2.0", lambda p: p.blur(2.0)),
+        ("thermal erosion 1", lambda p: p.thermal_erosion(1)),
+        ("morphology 5 max", lambda p: p.morphology(5, "max")),
+        ("offset -1.5", lambda p: p.offset(-1.5)),
+        ("scale 1.2", lambda p: p.scale(1.2)),
+        ("quantise to 0.25", lambda p: p._apply_terrain(
+            torch.round(p.terrain / 0.25) * 0.25)),
+        ("deterrace", lambda p: p.deterrace()),
+        ("flow map", lambda p: p.flow_map()),
+        ("undo flow map", lambda p: p.undo()),
+        ("landscape evolution 2", lambda p: p.landscape_evolution(
+            iterations=2)),
+        ("ocean (Jacobi 1000)", lambda p: p.ocean_currents(1)),
+        ("ocean (CG)", lambda p: p.ocean_currents(1, ocean.OceanConfig(
+            pressure_method="cg"))),
+        ("temperature 10", lambda p: p.temperature_sim(
+            10, write_terrain=False)),
+        ("tectonics 2", lambda p: p.tectonics(steps=2)),
+        ("export png", lambda p: p.export_png(out_dir / "session.png")),
+        ("save", lambda p: p.save(out_dir / "session.npz")),
+    ]
+    FLOW_FROM = [n for n, _ in SESSION].index("flow map")
+    IO_STEPS = ("export png", "save")
+
+    def run_session(io=True):
+        """The session forward (without the export and the save unless
+        ``io``); each step timed on the host clock around a synchronize.
+        Returns (project, [(name, ms, terrain, sel)], the CG
+        iterations)."""
+        p = Project(*TECTO, device=DEVICE)
+        rows = []
+        cg_iters = None
+        for name, step in SESSION:
+            if name in IO_STEPS and not io:
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(p)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if name == "ocean (CG)":
+                cg_iters = ocg.LAST_SOLVE["iterations"]
+            rows.append((name, ms, p.terrain.clone(), p.sel.clone()))
+        return p, rows, cg_iters
+
+    phase_t0 = time.perf_counter()
+    zero_counts()
+    p12, rows, cg_iters = run_session()
+    session_forms = own_forms(read_counts(list(counters)))
+    fired = {k: v for k, v in session_forms.items() if v}
+    sess_ms = sum(r[1] for r in rows)
+    print(f"editor session at {TECTO[0]}x{TECTO[1]} ({card}): "
+          f"{sess_ms:.1f} ms, host clock around a synchronize a step; "
+          f"launches {json.dumps(fired)}; CG iterations {cg_iters}")
+    for name, ms, _, _ in rows:
+        print(f"  {name:32s} {ms:10.2f} ms  {100 * ms / sess_ms:5.1f}%")
+    for name in ("climate", "jacobi_pressure", "jacobi_diffusion",
+                 "advect_stage", "blur", "flow_directions"):
+        assert session_forms[name] > 0, f"{name} never launched"
+    assert session_forms["flow_directions_packed"] == 0, session_forms
+
+    # finite fields; the saved checkpoint loads back exactly
+    for name, _, t, s in rows:
+        assert bool(torch.isfinite(t).all()) and bool(
+            torch.isfinite(s).all()), name
+    for f in (*p12.ocean_uv, p12.temperature,
+              *(l.data for l in p12.layers.values())):
+        assert bool(torch.isfinite(f).all())
+    q = Project.load(out_dir / "session.npz", device=DEVICE)
+    assert torch.equal(q.terrain, p12.terrain) and torch.equal(q.sel,
+                                                                p12.sel)
+    assert sorted(q.layers) == sorted(p12.layers)
+    for lid, layer in p12.layers.items():
+        assert q.layers[lid].name == layer.name
+        assert torch.equal(q.layers[lid].data, layer.data)
+    assert q.grid == p12.grid
+    npz_mb = (out_dir / "session.npz").stat().st_size / 1e6
+    print(f"  saved and loaded back exactly: {npz_mb:.1f} MB npz, "
+          f"{len(q.layers)} layers")
+    del q
+
+    # direction ties at the flow steps' inputs (K6 against its twin on the
+    # same blurred terrain), counted after the counters were read
+    ties = []
+    for k in (FLOW_FROM - 1, FLOW_FROM + 1):
+        hb = kb.blur_cuda(rows[k][2], p12.grid, ob.sigma_list(0.5))
+        ties.append(int((kd.flow_directions_cuda(hb, rows[k][3], p12.grid)
+                         != kd.flow_directions_plain(hb, rows[k][3],
+                                                     p12.grid)).sum()))
+
+    # the same session through the plain twins, step by step
+    twin_t0 = time.perf_counter()
+    with plain_twins():
+        p_twin, twin_rows, _ = run_session(io=False)
+    for k, ((name, _, t, s), (_, _, t_ref, s_ref)) in enumerate(
+            zip(rows, twin_rows)):
+        for field, got, want in (("terrain", t, t_ref), ("sel", s, s_ref)):
+            scale = max(float(want.abs().max()), 1e-30)
+            off = (got - want).abs() > 1e-5 * scale
+            share = float(off.float().mean())
+            if k < FLOW_FROM:
+                assert share == 0.0, (name, field, share)
+            else:
+                assert share <= 1e-3, (name, field, share)
+    for got, want in zip((*p12.ocean_uv, p12.temperature),
+                         (*p_twin.ocean_uv, p_twin.temperature)):
+        scale = float(want.abs().max())
+        share = float(((got - want).abs() > 1e-4 * scale).float().mean())
+        assert share <= 1e-3, share
+    dh = (rows[-1][2] - twin_rows[-1][2]).abs() / twin_rows[-1][2].abs().max()
+    print(f"  kernel session against the plain-twin session: before the "
+          f"flow map every step within 1e-5 of max; final terrain err/max "
+          f"{float(dh.max()):.3e}, share beyond 1e-5 of max "
+          f"{float((dh > 1e-5).float().mean()):.3e} (bound 1e-3); direction "
+          f"ties at the flow map's and the erosion's inputs {ties}")
+    del p_twin, twin_rows
+
+    # undo everything, redo everything: back to 0 (selection 1), then back
+    # to the final terrain, within the codec's accumulated accuracy
+    n_entries = len(p12.undo_stack)
+    undo_bytes = sum(e.nbytes for e in p12.undo_stack)
+    final_t, final_s = p12.terrain.clone(), p12.sel.clone()
+    scale = max(float(r[2].abs().max()) for r in rows)
+    tol = n_entries * (1e-6 + 4 * 1.2e-7 * max(scale, 1.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while p12.undo():
+        pass
+    torch.cuda.synchronize()
+    undo_s = time.perf_counter() - t0
+    undo_err = (float(p12.terrain.abs().max()),
+                float((p12.sel - 1).abs().max()))
+    t0 = time.perf_counter()
+    while p12.redo():
+        pass
+    torch.cuda.synchronize()
+    redo_s = time.perf_counter() - t0
+    redo_err = (float((p12.terrain - final_t).abs().max()),
+                float((p12.sel - final_s).abs().max()))
+    cells = p12.grid.width * p12.grid.height
+    print(f"  undo history: {n_entries} entries, {undo_bytes} bytes "
+          f"compressed ({undo_bytes / n_entries / cells:.4f} bytes a cell "
+          f"an entry, against 4 raw); undo all {undo_s:.2f} s, |terrain|, "
+          f"|sel - 1| after it {undo_err}; redo all {redo_s:.2f} s, off "
+          f"the final {redo_err} (bound {tol:.2e})")
+    assert max(undo_err) <= tol and max(redo_err) <= tol
+
+    # the session's device kernels: a replay under torch.profiler without
+    # the flow map, its undo and the erosion (the relaxation launches ~110
+    # kernels a sweep for ~1400 sweeps a filter, too many events to trace
+    # here) and without the export and the save (host work)
+    prof_t0 = time.perf_counter()
+    p_prof = Project(*TECTO, device=DEVICE)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for k, (name, step) in enumerate(SESSION):
+            if not (FLOW_FROM <= k <= FLOW_FROM + 2 or name in IO_STEPS):
+                step(p_prof)
+        torch.cuda.synchronize()
+    session_kernels = sum(1 for e in prof.events() if e.device_type
+                          == torch.autograd.DeviceType.CUDA)
+    print(f"  device kernels, copies and fills of the session without the "
+          f"flow map, its undo, the erosion, the export and the save "
+          f"(torch.profiler): {session_kernels}")
+    now = time.perf_counter()
+    print(f"phase 12 took {now - phase_t0:.1f} s: the kernel session, its "
+          f"checks and the ties {twin_t0 - phase_t0:.1f} s, the twin "
+          f"session, undo and redo {prof_t0 - twin_t0:.1f} s, the profiled "
+          f"replay {now - prof_t0:.1f} s")
+    del p12, p_prof, rows
+    out_tmp.cleanup()
+    torch.cuda.empty_cache()
+
     # -- 11. results ---------------------------------------------------------
     # each form's own launches on the path that runs it: the single-card
     # coupled CLI (phase 6; the sampler form is on no path and counts 0
@@ -1766,6 +1998,9 @@ def main() -> int:
                      **k11_launches}
     for n in ("blur", "flow_directions"):
         main_launches[n] += erosion_forms[n] + tecto_forms[n]
+    for n in ("climate", "jacobi_pressure", "jacobi_diffusion",
+              "advect_stage", "blur", "flow_directions"):
+        main_launches[n] += session_forms[n]
     for k in kernels:
         k["launches"] = main_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -10,14 +10,16 @@ wrapper in ``kernels/``; the twin runs when the tensors lie on the CPU.
 
 Ported so far: the whole of ``core`` (the grid with its vector helpers,
 the wrap topology and the gather samplers, the stencils, the state),
-default-mode fBm noise, the ocean step (``ops.ocean``), the climate
-(``ops.temperature``), the blur, the device flow path
-(``ops.flow.flow_filter_device``), the full flow filter with lakes
-(``ops.flow.flow_filter``, its host lake solver in ``native``), the plate
-tectonics (``ops.tectonics``), the erosion pass and loops
-(``ops.erosion``), and the coupled step (``model.coupled_step``), with the
+every op of ``ops`` (all seven fBm modes, the ocean with the Jacobi or
+the CG pressure, the climate, the blur, the flow filter with lakes and
+its host lake solver in ``native``, the plate tectonics, the erosion
+loops, thermal erosion, morphology, adjust, blend, the brush and
+DeTerrace), the selection tools (``select``), the coupled step
+(``model.coupled_step``), the editor session (``api.Project``, all but
+``render``, with undo through the snapshot codec in ``native``) and the
 ``erosion``, ``tectonic-erosion``, ``ocean``, ``climate`` and ``coupled``
-CLI commands.
+CLI commands.  Not yet: ``viz`` (map projections and appearance, so
+``Project.render``) and ``utils/checkpoint.py``.
 """
 
 from .core import Grid

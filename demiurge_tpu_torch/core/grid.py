@@ -137,6 +137,12 @@ class Grid:
         return delta_sigma / (self.lam1 - self.lam0) * self.width
 
 
+def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
+    """float32 ``num / t`` rounded once, as the reference divides (torch's
+    ``number / tensor`` is a reciprocal and a product)."""
+    return torch.full_like(t, num) / t
+
+
 def spheric_to_cartesian(lam, phi):
     """(lambda, phi) -> unit vector (x, y, z) (src/Shader.h:61-63)."""
     return (torch.cos(phi) * torch.cos(lam), torch.cos(phi) * torch.sin(lam),

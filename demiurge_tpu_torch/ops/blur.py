@@ -30,7 +30,7 @@ import torch
 
 from ..core.fastroll import const_sample_bilinear_y, \
     row_sample_bilinear_x_static
-from ..core.grid import Grid
+from ..core.grid import Grid, rdiv
 from ..core.topology import grid_st, offset_coords, sample_bilinear
 from ..kernels import blur as kb
 
@@ -115,9 +115,7 @@ def _blur13_pass_gather(field: torch.Tensor, grid: Grid, direction,
         ox = off_mag * direction[0]
         oy = off_mag * direction[1]
         if stretch_x:
-            # a float32 division, as the reference's (a Python number over
-            # a tensor would be a reciprocal and a product in torch)
-            ox = torch.full_like(phifactor, ox) / phifactor
+            ox = rdiv(ox, phifactor)
         for sign in (1.0, -1.0):
             s2, t2 = offset_coords(s, t, sign * ox, sign * oy, grid)
             out = out + sample_bilinear(field, s2, t2) * w

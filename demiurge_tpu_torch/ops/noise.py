@@ -1,8 +1,10 @@
 """Seamless spherical gradient noise (simplex fBm on the unit sphere).
 
 Counterpart of ``demiurge_tpu/ops/noise.py``: the Ashima 3D simplex noise
-with analytic gradient evaluated on the unit sphere, and the fBm variants.
-Only ``mode="default"`` is ported; the other six modes raise.
+with analytic gradient evaluated on the unit sphere, the seven fBm
+variants (default, ridged, billowy, iq, swiss, jordan, plateaus;
+GradientNoise.cpp:184-435) and ``gradient_noise``, the filter that blends
+the fBm into the terrain.
 
 Seed handling follows the reference package exactly: the three offsets come
 from JAX's ``jax.random.uniform(jax.random.PRNGKey(seed), (3,), float32,
@@ -19,7 +21,8 @@ import math
 import numpy as np
 import torch
 
-from ..core.grid import Grid
+from ..core.grid import Grid, rdiv
+from .blend import blend
 
 PI = math.pi
 
@@ -237,10 +240,10 @@ def _rotate(p, theta, u):
     return torch.cat([rx, ry, rz], -1)
 
 
-def _warp(p, warp_factor):
+def _warp(p, warp_factor, seed_off=None):
     """The shared domain warp: rotate p about (p + tangential gradient)
-    / |..|^2 by warp*0.1*|grad|."""
-    _, tmp = snoise_grad(p)
+    / |..|^2 by warp*0.1*|grad|, the gradient taken at p + seed_off."""
+    _, tmp = snoise_grad(p if seed_off is None else p + seed_off)
     tmp = tmp - _radial(tmp, p)
     u = p + tmp
     u = u / torch.sum(u * u, -1, keepdim=True)
@@ -258,29 +261,161 @@ def sphere_points(grid: Grid, device) -> torch.Tensor:
                         z.expand(grid.shape)], -1)
 
 
+def _cross(a, b):
+    """a x b over the last axis, each component a product difference
+    rounded as written (``torch.linalg.cross`` contracts them into fmas
+    on the CPU, where the reference's op-by-op form does not)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], -1)
+
+
+def _unit_axis(u):
+    """u / |u|^2, the reference's rotation axis scaling."""
+    return u / torch.sum(u * u, -1, keepdim=True)
+
+
 def fbm(grid: Grid, params: NoiseParams, device, seed_offset=None
         ) -> torch.Tensor:
     """Evaluate the configured fBm over the whole grid -> (H, W) noise
-    mapped into [min, max]."""
-    if params.mode != "default":
-        raise NotImplementedError(
-            f"noise mode {params.mode!r} is not ported yet")
+    mapped into [min, max].  Each mode keeps the reference's types: the
+    octave amplitude and total are Python floats except where the
+    reference makes them per-pixel tensors (iq, swiss, and jordan's
+    damped amplitude)."""
     if seed_offset is None:
         seed_offset = seed_offset_from(params.seed)
     seed_offset = torch.as_tensor(np.asarray(seed_offset, np.float32),
                                   device=device)
     p = sphere_points(grid, device)
     lo, hi = params.min, params.max
+    n_oct = params.octaves
+    lac, per = params.lacunarity, params.persistence
 
-    p = p * params.scale
-    p = _warp(p, params.warp)
-    fc = torch.zeros(grid.shape, dtype=torch.float32, device=device)
-    amp, total = 1.0, 0.0
-    for i in range(params.octaves):
-        v, _ = snoise_grad(p + seed_offset * (i + 1))
-        fc = fc + v * amp
-        p = p * params.lacunarity
-        total += amp
-        amp *= params.persistence
-    fc = fc / total
-    return (fc + 1) * 0.5 * (hi - lo) + lo
+    def zeros():
+        return torch.zeros(grid.shape, dtype=torch.float32, device=device)
+
+    if params.mode == "default":
+        p = p * params.scale
+        p = _warp(p, params.warp)
+        fc = zeros()
+        amp, total = 1.0, 0.0
+        for i in range(n_oct):
+            v, _ = snoise_grad(p + seed_offset * (i + 1))
+            fc = fc + v * amp
+            p = p * lac
+            total += amp
+            amp *= per
+        fc = fc / total
+        return (fc + 1) * 0.5 * (hi - lo) + lo
+
+    if params.mode in ("ridged", "billowy"):
+        ridged = params.mode == "ridged"
+        p = p * params.scale
+        fc = zeros()
+        amp, total = 1.0, 0.0
+        for _ in range(n_oct):
+            v, _ = snoise_grad(p + seed_offset)
+            fc = fc + ((1 - torch.abs(v)) if ridged else torch.abs(v)) * amp
+            p = p * lac
+            total += amp
+            amp *= per
+        return fc / total * (hi - lo) + lo
+
+    if params.mode == "iq":
+        p = p * params.scale
+        fc = zeros()
+        dsum = torch.zeros_like(p)
+        amp = 1.0
+        total = zeros()
+        for _ in range(n_oct):
+            v, tmp = snoise_grad(p + seed_offset)
+            dsum = dsum + (tmp - _radial(tmp, p))
+            d2 = torch.sum(dsum * dsum, -1)
+            fc = fc + v * amp / (1.0 + d2)
+            p = p * lac
+            total = total + rdiv(amp, 1.0 + d2)
+            amp *= per
+        fc = fc / total
+        return (fc + 1) * 0.5 * (hi - lo) + lo
+
+    if params.mode == "swiss":
+        freq = params.scale
+        p = _warp(p, params.warp)
+        fc = zeros()
+        dsum = torch.zeros_like(p)
+        amp = torch.ones(grid.shape, dtype=torch.float32, device=device)
+        total = zeros()
+        for _ in range(n_oct):
+            u = _unit_axis(p + _cross(p, dsum))
+            theta = 2 * 0.1 * _norm3(dsum).squeeze(-1)
+            p_ = _rotate(p, theta, u)
+            v, tmp = snoise_grad(freq * p_ + seed_offset)
+            dsum = dsum + (tmp - _radial(tmp, p)) * (-v[..., None]) \
+                * amp[..., None]
+            fc = fc + (1 - torch.abs(v)) * amp
+            freq *= lac
+            total = total + amp
+            # smoothstep(-1, 1, fc*fc)
+            tt = torch.clamp((fc * fc + 1) / 2, 0.0, 1.0)
+            amp = amp * per * (tt * tt * (3 - 2 * tt))
+        return fc / total * (hi - lo) + lo
+
+    if params.mode == "jordan":
+        freq = params.scale
+        p = _warp(p, params.warp, seed_offset)
+        v, tmp = snoise_grad(freq * p + seed_offset)
+        amp = 1.0
+        total = amp
+        fc = v * v * amp
+        tmp = tmp * v[..., None]
+        tang = tmp - _radial(tmp, p)
+        dsum_warp = 0.4 * tang
+        dsum_damp = 1.0 * tang
+        damped_amp = torch.full(grid.shape, amp * per, dtype=torch.float32,
+                                device=device)
+        for _ in range(1, n_oct):
+            u = _unit_axis(p + _cross(p, dsum_warp))
+            theta = 2 * 0.1 * _norm3(dsum_warp).squeeze(-1)
+            p_ = _rotate(p, theta, u)
+            v, tmp = snoise_grad(freq * p_ + seed_offset)
+            fc = fc + damped_amp * v * v
+            tmp = tmp * v[..., None]
+            tang = tmp - _radial(tmp, p)
+            dsum_warp = dsum_warp + 0.35 * tang
+            dsum_damp = dsum_damp + 0.8 * tang
+            freq *= lac
+            total += amp
+            amp *= per
+            d2 = torch.sum(dsum_damp * dsum_damp, -1)
+            damped_amp = amp * (1 - 1.0 / (1 + d2))
+        return fc / total * (hi - lo) + lo
+
+    if params.mode == "plateaus":
+        freq = params.scale
+        p = _warp(p, params.warp)
+        fc = zeros()
+        amp, total = 1.0, 0.0
+        for i in range(n_oct):
+            v, tmp = snoise_grad(freq * p + seed_offset * (i + 1))
+            dsum = (tmp - _radial(tmp, p)) \
+                * ((1 - torch.abs(v)) * v * 2)[..., None]
+            u = _unit_axis(p + _cross(p, dsum))
+            theta = 2 * 0.1 * _norm3(dsum).squeeze(-1)
+            p_ = _rotate(p, theta, u)
+            v, tmp = snoise_grad(freq * p_ + seed_offset * (i + 1))
+            fc = fc + v * amp / (1 + torch.abs(fc) * torch.abs(fc) * 5)
+            freq *= lac
+            total += amp
+            amp *= per
+        fc = fc / total
+        return (fc + 1) * 0.5 * (hi - lo) + lo
+
+    raise ValueError(f"unknown noise mode {params.mode!r}")
+
+
+def gradient_noise(height, sel, grid: Grid, params: NoiseParams,
+                   blend_mode: str = "replace"):
+    """The whole GradientNoise filter: the fBm blended into the terrain
+    through the selection (GradientNoise.cpp:453-455)."""
+    return blend(height, fbm(grid, params, height.device), sel, blend_mode)

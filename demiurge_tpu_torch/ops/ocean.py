@@ -19,8 +19,8 @@ whole single-card advect stage is one launch (``kernels.advect``'s stage
 form); on CPU tensors they run on their plain twins (``advect_plain`` for
 the stage).  ``advect_method="exact"``, and any grid that is not
 x-periodic, samples by bilinear gathers instead (``advect_gather``), as
-the reference does on either device.  Not ported yet (it raises):
-``pressure_method="cg"``.
+the reference does on either device.  ``pressure_method="cg"`` solves
+the pressure by preconditioned CG instead (``ops.pressure_cg``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from ..core.platform import host_to_device, use_cuda_kernels
 from ..core.topology import sample_bilinear, shift
 from ..kernels import advect as ka
 from ..kernels import jacobi as kj
+from .pressure_cg import pressure_solve_cg
 
 PI = math.pi
 REF_PI = 3.14159  # the reference's truncated pi literal, used where it does
@@ -69,8 +70,8 @@ class OceanConfig:
     # None = derived from the wind forcing (vmax_from_wind)
     vmax_hint: Optional[float] = None
     # 'auto', 'xla' and 'pallas' name the reference's Jacobi backends; here
-    # all three are the same Jacobi sweep (kernels.jacobi).  'cg' is not
-    # ported yet.
+    # all three are the same Jacobi sweep (kernels.jacobi); 'cg' is the
+    # preconditioned CG of ops.pressure_cg.
     pressure_method: str = "auto"
     cg_iters: int = 200
     cg_rtol: float = 1e-4
@@ -504,12 +505,15 @@ def divergence(u, v, terrain, grid: Grid, cfg: OceanConfig):
 def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None,
                    mesh=None):
     """Jacobi Poisson solve for pressure, from zero unless ``p0`` is
-    given (a warm start with the same fixpoint).  Under a ``mesh``
-    (blocks), from zero, the amortized halo-exchange solver
-    (``dist.halo.pressure_solve_sharded``)."""
-    if cfg.pressure_method == "cg":
-        raise NotImplementedError("pressure_method='cg' is not ported yet")
-    if cfg.pressure_method not in ("auto", "xla", "pallas"):
+    given (a warm start with the same fixpoint); with
+    ``pressure_method="cg"`` and no mesh, the preconditioned CG solve
+    (``ops.pressure_cg``).  Under a ``mesh`` (blocks), from zero, the
+    amortized halo-exchange solver (``dist.halo.pressure_solve_sharded``),
+    as the reference does for every method."""
+    if cfg.pressure_method == "cg" and mesh is None:
+        return pressure_solve_cg(divw, terrain, grid, iters=cfg.cg_iters,
+                                 rtol=cfg.cg_rtol, p0=p0)
+    if cfg.pressure_method not in ("auto", "xla", "pallas", "cg"):
         raise ValueError(f"unknown pressure_method {cfg.pressure_method!r}")
     if mesh is not None:
         from ..dist.halo import pressure_solve_sharded
@@ -518,8 +522,11 @@ def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None,
         if grid.wrap_x and p0 is None:
             return pressure_solve_sharded(divw, terrain, grid, mesh,
                                           iters=cfg.jacobi_iters)
-        return sharded_call(pressure_solve, mesh)(divw, terrain, grid, cfg,
-                                                  p0)
+        # the Jacobi on the gathered fields, for every method (the
+        # reference's CG never runs under a mesh)
+        jacobi = dataclasses.replace(cfg, pressure_method="auto")
+        return sharded_call(pressure_solve, mesh)(divw, terrain, grid,
+                                                  jacobi, p0)
     coeffs = kj.coefficients(divw, terrain, grid)
     p = torch.zeros_like(divw) if p0 is None else p0
     return kj.pressure_solve(*coeffs, p, grid, cfg.jacobi_iters)

@@ -43,15 +43,10 @@ import numpy as np
 import torch
 
 from ..core.fastroll import row_sample_nearest_x
-from ..core.grid import Grid
+from ..core.grid import Grid, rdiv
 from ..core.topology import grid_st, sample_nearest, shift
 
 REF_PI = 3.14159  # the reference's truncated pi of the circle taps
-
-
-def _rdiv(num: float, t: torch.Tensor) -> torch.Tensor:
-    """float32 ``num / t`` rounded once (the reference's division)."""
-    return torch.full_like(t, num) / t
 
 
 def _channels(*planes) -> torch.Tensor:
@@ -197,7 +192,7 @@ def _fold_impl(fields, rotations, grid: Grid) -> torch.Tensor:
 
 def _stretch(grid: Grid, device, numer: float) -> torch.Tensor:
     """numer / cos|phi| per row, (H, 1) float32."""
-    return _rdiv(numer, torch.cos(torch.abs(grid.row_phi(device))))
+    return rdiv(numer, torch.cos(torch.abs(grid.row_phi(device))))
 
 
 def _circle_sample4(field4: torch.Tensor, grid: Grid, radius: float, i: int,

@@ -172,11 +172,13 @@ def test_three_ocean_steps(case):
 
 
 def test_unported_modes_raise(case):
+    """Every pressure method of the reference is ported ("cg" in
+    tests/test_torch_pressure_cg.py); a method it does not have raises."""
     t, tg = case["t"], case["tg"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tocean.pressure_solve(t["u"], t["h"], tg,
                               dataclasses.replace(case["tcfg"],
-                                                  pressure_method="cg"))
+                                                  pressure_method="sor"))
 
 
 def test_cli_ocean_save_matches_reference(tmp_path):

@@ -45,7 +45,11 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "tools/flow_rounds.py", "tools/flow_tune.py",
           "tools/jacobi_race.py", "native/__init__.py", "native/build.py",
           "native/lakes.py", "api/cli.py", "utils/interop.py",
-          "core/state.py", "core/topology.py", "ops/tectonics.py")
+          "core/state.py", "core/topology.py", "ops/tectonics.py",
+          "ops/pressure_cg.py", "ops/adjust.py", "ops/blend.py",
+          "ops/thermal.py", "ops/morphological.py", "ops/brush.py",
+          "ops/deterrace.py", "select/selection.py", "utils/png.py",
+          "utils/progress.py", "native/snapc.py", "api/project.py")
 
 
 def test_grep_tests_cover_the_ported_modules():

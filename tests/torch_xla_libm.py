@@ -1,5 +1,5 @@
 """A test helper: run a module of the port with XLA's float32 sin, cos,
-asin, acos, atan2 and sqrt in place of torch's.
+asin, acos, atan2, sqrt, log, exp and pow in place of torch's.
 
 torch's and XLA's CPU implementations of these functions differ by an ulp
 at a few percent of their inputs (and torch's CPU sqrt is not always
@@ -17,13 +17,15 @@ import numpy as np
 import torch
 
 _XLA = {"sin": jnp.sin, "cos": jnp.cos, "asin": jnp.arcsin,
-        "acos": jnp.arccos, "atan2": jnp.arctan2, "sqrt": jnp.sqrt}
+        "acos": jnp.arccos, "atan2": jnp.arctan2, "sqrt": jnp.sqrt,
+        "log": jnp.log, "exp": jnp.exp, "pow": jnp.power}
 
 
 def _through_xla(fn):
     def call(*args):
         device = args[0].device
-        out = fn(*(jnp.asarray(a.detach().cpu().numpy()) for a in args))
+        out = fn(*(jnp.asarray(a.detach().cpu().numpy())
+                   if isinstance(a, torch.Tensor) else a for a in args))
         return torch.from_numpy(np.array(out)).to(device)
     return call
 
