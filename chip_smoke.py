@@ -127,10 +127,29 @@
    within the snapshot codec's accumulated accuracy; prints the undo
    bytes and each step's device kernels (torch.profiler, on a replay
    without the flow steps);
+13. render, checkpoints and the examples, with every launch counter at 0
+   before each counted run: phase 12's final session rendered at its
+   2048x1024 into 2048x1024 through every layer (the arrows on the
+   session's currents) in every projection, Goode with interrupted lobes
+   and the orthographic globe after a drag, each timed with CUDA events
+   and held to the same render on the host (a differing pixel must lie at
+   a texel edge within the measured |ds|, |dt|, on the rim, or on a texel
+   the chain renders apart, those at most 1e-3 of the texels); the
+   ``coupled`` CLI at 2048x1024, 3 steps with --png and 2 steps with a
+   checkpoint every 2 resumed to 3 (the resumed state against the
+   uninterrupted one: bit for bit or how far; within phase 7's twin
+   bounds), each save and load timed; ``coupled --mesh 1x1`` with a
+   checkpoint, resumed, held to the single-card run at phase 8's bounds,
+   and ``save_sharded``/``load_sharded`` round-tripped on the NCCL mesh;
+   both examples as subprocesses at their published defaults (in the
+   background from the renders on; exit 0 and the PNG's size). Fails
+   unless K1-K8 launched in the CLI runs and K5, K6 and K10 on the mesh;
+   prints the phase's time;
 11. prints the kernels' JSON line (each kernel form's own launches on the
    path that runs it: the stage and packed forms are not counted again
    under the sampler and codes forms; K5 and K6's codes form count the
-   erosion and tectonic-erosion runs too, and K1-K6 the editor session),
+   erosion and tectonic-erosion runs too, K1-K6 the editor session, and
+   every kernel phase 13's CLI runs launched),
    the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -150,6 +169,7 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -1977,8 +1997,261 @@ def main() -> int:
           f"checks and the ties {twin_t0 - phase_t0:.1f} s, the twin "
           f"session, undo and redo {prof_t0 - twin_t0:.1f} s, the profiled "
           f"replay {now - prof_t0:.1f} s")
-    del p12, p_prof, rows
+    del p_prof, rows
     out_tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # -- 13. render, checkpoints and the examples, counted ------------------
+    from demiurge_tpu_torch.model import CoupledState
+    from demiurge_tpu_torch.utils import checkpoint as ckpt
+    from demiurge_tpu_torch.utils.png import read_png
+    from demiurge_tpu_torch.viz import appearance as va
+    from demiurge_tpu_torch.viz import projections as vp
+
+    phase13_t0 = time.perf_counter()
+    out13 = tempfile.TemporaryDirectory(dir=REPO, prefix=".phase13_")
+    d13 = pathlib.Path(out13.name)
+    rgrid = p12.grid
+    rW, rH = rgrid.width, rgrid.height
+
+    # the chain: every layer, the outlines and the dimming on the land
+    # mask, the arrows on the session's currents
+    def chain(p, land):
+        return [va.ElevationMap(land="atlas", ocean="atlas"),
+                va.Hillshade(multidirectional=True), va.SlopeMap(),
+                va.AspectMap(), va.Graticules(),
+                va.BrushOutline(center=(0.3, 0.7), size=40.0),
+                va.SelectionOutline(sel=land, time=0.25),
+                va.UnselectedDim(sel=land), va.VectorField(spacing=16)]
+
+    LOBES = ((-180, -40, 180), (-100, 30), (-180, -100, -20, 80, 180),
+             (-160, -60, 20, 140))
+    globe = vp.orthographic_drag(
+        vp.CanvasParams(projection="orthographic", window_aspect=2.0),
+        rgrid, (0.45, 0.5), (0.6, 0.55))
+    views = [(n, {}) for n in vp.PROJECTIONS] + [
+        ("goode lobes", {"projection": "goode", "interruptions": LOBES}),
+        ("globe after a drag", {"projection": "orthographic",
+                                "ortho_state": globe.ortho_state})]
+
+    def view_kw(name, kw):
+        return {"projection": kw.get("projection", name),
+                "window_aspect": 2.0,
+                **{k: v for k, v in kw.items() if k != "projection"}}
+
+    land_card = (p12.terrain > 0).float()
+    layers_card = chain(p12, land_card)
+    renders, render_ms, proj_ms = {}, {}, {}
+    for name, kw in views:
+        args = view_kw(name, kw)
+        render_ms[name] = cuda_ms(lambda: p12.render(
+            layers_card, out_w=rW, out_h=rH, **args), 3)
+        renders[name] = p12.render(layers_card, out_w=rW, out_h=rH,
+                                   **args).cpu()
+    # the split: the chain alone, and each projection of its four channels
+    rgba_dev = va.render(p12.terrain, rgrid, layers_card, uv=p12.ocean_uv)
+    chain_ms = cuda_ms(lambda: va.render(p12.terrain, rgrid, layers_card,
+                                         uv=p12.ocean_uv), 3)
+    for name, kw in views:
+        params = vp.CanvasParams(**view_kw(name, kw))
+        proj_ms[name] = cuda_ms(lambda: vp.project_field(
+            rgba_dev.permute(2, 0, 1), params, rgrid, rW, rH), 3)
+    rgba_card = rgba_dev.cpu()
+    del rgba_dev
+
+    # the examples at their published defaults, in the background while
+    # the rest of the phase runs on the host and the card
+    ex_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    examples, ex_done = {}, {}
+
+    def run_example(name):
+        """Start the example, wait for it and keep (exit code, output,
+        seconds to its own exit)."""
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"demiurge_tpu_torch.examples.{name}",
+             "--out", str(d13 / f"{name}.png")], cwd=REPO, env=ex_env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        ex_done[name] = (proc.returncode, text, time.perf_counter() - t0)
+
+    for name in ("make_planet", "ocean_climate"):
+        examples[name] = threading.Thread(target=run_example, args=(name,))
+        examples[name].start()
+
+    # each render against the same render of the same session on the CPU:
+    # a pixel may differ where its source lies at a texel edge (the card's
+    # libm and the host's round an ulp apart), on the projection's rim, or
+    # on a texel the chain itself renders apart (a layer's threshold)
+    p_cpu = Project(rW, rH, device="cpu")
+    p_cpu.terrain = p12.terrain.cpu()
+    p_cpu.ocean_uv = tuple(x.cpu() for x in p12.ocean_uv)
+    land_cpu = (p_cpu.terrain > 0).float()
+    layers_cpu = chain(p_cpu, land_cpu)
+    rgba_cpu = va.render(p_cpu.terrain, rgrid, layers_cpu,
+                         uv=p_cpu.ocean_uv)
+    chain_off = (rgba_card - rgba_cpu).abs().amax(-1) > 1e-5
+    chain_share = float(chain_off.float().mean())
+    print(f"render at {rW}x{rH} ({card}): the chain of {len(layers_card)} "
+          f"layers {chain_ms:.3f} ms (CUDA events, 3 calls); on the card "
+          f"against the host: {int(chain_off.sum())} "
+          f"texels beyond 1e-5 (share {chain_share:.2e}, bound 1e-3), max "
+          f"{max_err(rgba_card, rgba_cpu):.3e}")
+    assert chain_share <= 1e-3
+
+    def near_edge(x, n, tol):
+        xn = x.double() * n
+        return (xn - torch.round(xn)).abs() <= n * tol
+
+    def on_rim(oob):
+        p = torch.nn.functional.pad(oob[None, None].float(), (1, 1, 1, 1),
+                                    mode="replicate")[0, 0].bool()
+        return ((p[1:-1, :-2] != oob) | (p[1:-1, 2:] != oob)
+                | (p[:-2, 1:-1] != oob) | (p[2:, 1:-1] != oob))
+
+    for name, kw in views:
+        args = view_kw(name, kw)
+        got = renders[name]
+        want = p_cpu.render(layers_cpu, out_w=rW, out_h=rH, **args)
+        assert got.shape == (rH, rW, 4) and bool(torch.isfinite(got).all())
+        params = vp.CanvasParams(**args)
+        sc, tc, oc = (x.cpu() for x in vp.screen_to_tex(params, rgrid, rW,
+                                                        rH, dev))
+        sh, th, oh = vp.screen_to_tex(params, rgrid, rW, rH, "cpu")
+        valid = ~oc & ~oh
+        tol = max(float((sc - sh).abs()[valid].max()),
+                  float((tc - th).abs()[valid].max()), 2.0 ** -23)
+        off = (got - want).abs().amax(-1) > 1e-5
+        col = torch.clamp(torch.floor(sh * rW).long(), 0, rW - 1)
+        row = torch.clamp(torch.floor(th * rH).long(), 0, rH - 1)
+        edge = near_edge(sh, rW, tol) | near_edge(th, rH, tol)
+        rim = on_rim(oh) & (oc != oh)
+        at_chain = chain_off[row, col]
+        unexplained = off & ~(edge | rim | at_chain)
+        print(f"  {name:22s} {render_ms[name]:8.3f} ms, the projection "
+              f"{proj_ms[name]:.3f} (CUDA events, 3 calls); against the "
+              f"host: {int(off.sum())} pixels beyond "
+              f"1e-5 (at texel edges {int((off & edge).sum())}, rim "
+              f"{int((off & rim).sum())}, chain {int((off & at_chain).sum())},"
+              f" unexplained {int(unexplained.sum())}), max "
+              f"{max_err(got, want):.3e}; |ds|,|dt| <= {tol:.2e}")
+        assert not bool(unexplained.any()), name
+    del renders, rgba_card, rgba_cpu, p_cpu, layers_cpu, layers_card
+
+    # the coupled CLI at W x H: 3 steps with --png; 2 steps with a
+    # checkpoint every 2, resumed to 3; each save and load timed
+    io_ms = {"save": [], "load": []}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            io_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    zero_counts()
+    png13 = d13 / "coupled.png"
+    ck13 = str(d13 / "coupled.ckpt.npz")
+    dims = ["--width", str(W), "--height", str(H)]
+    with contextlib.redirect_stderr(io.StringIO()), \
+            contextlib.redirect_stdout(io.StringIO()), \
+            mock.patch.object(ckpt, "save", timed(ckpt.save, "save")), \
+            mock.patch.object(ckpt, "load", timed(ckpt.load, "load")):
+        straight = cli.main(["coupled", *dims, "--steps", "3", "--png",
+                             str(png13)])
+        cli.main(["coupled", *dims, "--steps", "2", "--checkpoint", ck13,
+                  "--checkpoint-every", "2"])
+        resumed = cli.main(["coupled", *dims, "--steps", "3", "--checkpoint",
+                            ck13, "--checkpoint-every", "2", "--resume"])
+    torch.cuda.synchronize()
+    ckpt_forms = own_forms(read_counts(list(counters)))
+    for name in single_card:
+        assert ckpt_forms[name] > 0, f"{name} never launched in phase 13"
+    assert read_png(png13).shape == (H, W, 4)
+    assert ckpt.load(ck13, CoupledState, dev)[1] == 3
+    ck_mb = pathlib.Path(ck13).stat().st_size / 1e6
+    resume_err = {}
+    for f in dataclasses.fields(CoupledState):
+        a, b = getattr(resumed, f.name), getattr(straight, f.name)
+        resume_err[f.name] = "bit for bit" if torch.equal(a, b) else \
+            f"{max_err(a, b):.3e}"
+        assert bool(torch.isfinite(a).all()), f.name
+    for name in ("u", "v", "temperature"):
+        a, b = getattr(resumed, name), getattr(straight, name)
+        assert max_err(a, b) <= 1e-5 * float(b.abs().max()), name
+    dh = (resumed.height - straight.height).abs() / straight.height.abs().max()
+    assert float((dh > 1e-5).float().mean()) <= 1e-3
+    print(f"coupled CLI at {W}x{H}: 3 steps with --png, and 2 steps with "
+          f"--checkpoint-every 2 resumed to 3; resumed against "
+          f"uninterrupted: {json.dumps(resume_err)}; checkpoint {ck_mb:.1f} "
+          f"MB; saves {', '.join(f'{t:.1f}' for t in io_ms['save'])} ms, "
+          f"load {', '.join(f'{t:.1f}' for t in io_ms['load'])} ms (host "
+          f"clock, {card}); launches "
+          f"{json.dumps({k: v for k, v in ckpt_forms.items() if v})}")
+
+    # the 1x1 mesh: the CLI with a checkpoint, resumed; save_sharded and
+    # load_sharded round trip on the NCCL mesh
+    zero_counts()
+    ckm = str(d13 / "mesh.ckpt.npz")
+    with contextlib.redirect_stderr(io.StringIO()), \
+            contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["coupled", "--mesh", "1x1", *dims, "--steps", "2",
+                  "--checkpoint", ckm])
+        m_resumed = cli.main(["coupled", "--mesh", "1x1", *dims, "--steps",
+                              "3", "--checkpoint", ckm, "--resume"])
+    torch.cuda.synchronize()
+    mesh13_forms = own_forms(read_counts(list(counters)))
+    for name in ("flow_local_solve", "flow_local_vis", "blur",
+                 "flow_directions"):
+        assert mesh13_forms[name] > 0, f"{name} never launched on the mesh"
+    hold_to_single(m_resumed, straight,
+                   "mesh CLI resumed to 3 against 3 single-card CLI steps")
+    mdev = dmesh.initialize(DEVICE)
+    mesh = dmesh.make_mesh(shape=(1, 1), device=mdev)
+    sdir = str(d13 / "sharded")
+    t0 = time.perf_counter()
+    ckpt.save_sharded(sdir, m_resumed, 3, rgrid, mesh=mesh)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, step13 = ckpt.load_sharded(sdir, CoupledState, mesh=mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert step13 == 3
+    for f in dataclasses.fields(CoupledState):
+        assert torch.equal(getattr(back, f.name), getattr(m_resumed, f.name))
+    backend13 = tdist.get_backend()
+    tdist.destroy_process_group()
+    print(f"  mesh 1x1 ({backend13}): CLI 2 steps + "
+          f"checkpoint, resumed to 3, within the mesh bounds of the "
+          f"single-card run; save_sharded {save_s * 1e3:.1f} ms, "
+          f"load_sharded {load_s * 1e3:.1f} ms, bit for bit; launches "
+          f"{json.dumps({k: v for k, v in mesh13_forms.items() if v})}")
+    del straight, resumed, m_resumed, back
+
+    # the examples: exit 0, a PNG of 2W x W each; each timed to its own
+    # exit (they ran beside the rest of the phase)
+    for name, thread in examples.items():
+        thread.join()
+        assert name in ex_done, f"example {name} did not finish"
+        rc, text, took = ex_done[name]
+        assert rc == 0, (name, text[-3000:])
+        shape = read_png(d13 / f"{name}.png").shape
+        want_shape = {"make_planet": (512, 1024, 4),
+                      "ocean_climate": (360, 720, 4)}[name]
+        assert shape == want_shape, (name, shape)
+        print(f"  example {name} (published defaults): exit 0 in {took:.1f} "
+              f"s with start-up, beside the phase; PNG {shape[1]}x{shape[0]}; "
+              + "; ".join(l.strip() for l in text.splitlines()
+                          if "max current" in l or "mean T" in l))
+    print(f"phase 13 took {time.perf_counter() - phase13_t0:.1f} s")
+    del p12
+    out13.cleanup()
     torch.cuda.empty_cache()
 
     # -- 11. results ---------------------------------------------------------
@@ -2001,6 +2274,9 @@ def main() -> int:
     for n in ("climate", "jacobi_pressure", "jacobi_diffusion",
               "advect_stage", "blur", "flow_directions"):
         main_launches[n] += session_forms[n]
+    for forms in (ckpt_forms, mesh13_forms):
+        for n, v in forms.items():
+            main_launches[n] += v
     for k in kernels:
         k["launches"] = main_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

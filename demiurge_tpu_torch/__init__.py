@@ -15,11 +15,15 @@ the CG pressure, the climate, the blur, the flow filter with lakes and
 its host lake solver in ``native``, the plate tectonics, the erosion
 loops, thermal erosion, morphology, adjust, blend, the brush and
 DeTerrace), the selection tools (``select``), the coupled step
-(``model.coupled_step``), the editor session (``api.Project``, all but
-``render``, with undo through the snapshot codec in ``native``) and the
-``erosion``, ``tectonic-erosion``, ``ocean``, ``climate`` and ``coupled``
-CLI commands.  Not yet: ``viz`` (map projections and appearance, so
-``Project.render``) and ``utils/checkpoint.py``.
+(``model.coupled_step``), the map projections and the appearance chain
+(``viz``), the editor session (``api.Project`` with ``render``, undo
+through the snapshot codec in ``native``), the checkpoints
+(``utils.checkpoint``: single-file and sharded, in the reference's
+format), the ``erosion``, ``tectonic-erosion``, ``ocean``, ``climate`` and
+``coupled`` CLI commands with --png, --checkpoint and --resume, and both
+examples (``examples``).  Not yet: the reference's overlapped halo sweeps,
+k-halo local versions of the stages that still go through
+``dist.mesh.sharded_call``, and the weak-scaling tool.
 """
 
 from .core import Grid

@@ -13,19 +13,25 @@
 Flags: --width/--height/--steps override the config size (for ``climate``
 the steps are substeps, run in dispatches of 250), --seed the terrain's
 fBm seed, --jacobi the ocean command's pressure sweeps, --save out.npz,
---log metrics.jsonl, --device (default ``cuda``; ``--device cpu`` runs the
-kernels' plain twins), --mesh NYxNX (the fields split over NY*NX
-processes, started by torchrun, ``--nproc-per-node NY*NX``; NCCL on
-``cuda``, gloo on ``cpu``).  ``erosion`` is the reference's fluvial
+--png out.png (the final field through the default appearance chain:
+the terrain, or for ``climate`` the temperature, as the reference
+renders them), --log metrics.jsonl, --device (default ``cuda``;
+``--device cpu`` runs the kernels' plain twins), --mesh NYxNX (the fields
+split over NY*NX processes, started by torchrun, ``--nproc-per-node
+NY*NX``; NCCL on ``cuda``, gloo on ``cpu``).  ``coupled`` takes
+--checkpoint FILE (the state written every --checkpoint-every steps and
+at the end, in the reference's format) and --resume (restart from FILE
+when it exists).  ``erosion`` is the reference's fluvial
 erosion loop with lakes (``ops.erosion.landscape_evolution``; the lake
 solve runs on the host, the mass is logged every step); ``tectonic-erosion``
 is the same loop with the plate tectonics' uplift refreshed every 5th
 step (``ops.erosion.coupled_tectonic_erosion``).  Both run on one device:
 they refuse --mesh (the reference builds a mesh and never uses it).
---checkpoint/--resume and --png are not ported yet and are refused.
 
 At the end the CLI prints one JSON line to stdout, the kernel launches of
-the run.  Under a mesh, rank 0 logs and saves the gathered fields.
+the run.  Under a mesh, rank 0 logs, renders and saves the gathered
+fields, and writes the checkpoint of the gathered state; a resume loads
+it on every rank, which takes its blocks.
 ``main`` returns the last state (``coupled``, this rank's blocks under a
 mesh) or fields.
 """
@@ -33,6 +39,7 @@ mesh) or fields.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -52,14 +59,17 @@ def _build_parser():
         sp.add_argument("--steps", type=int, default=steps)
         sp.add_argument("--seed", type=int, default=7)
         sp.add_argument("--save", type=str, default=None)
+        sp.add_argument("--png", type=str, default=None)
         sp.add_argument("--log", type=str, default=None)
         sp.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda)")
         sp.add_argument("--mesh", type=str, default=None,
                         help="NYxNX domain decomposition (under torchrun)")
-        for flag, queue in _NOT_PORTED.items():
-            sp.add_argument(flag, nargs="?", const=True, default=None,
-                            help=f"not ported yet ({queue}); refused")
+        sp.add_argument("--checkpoint", type=str, default=None,
+                        help="checkpoint file; with --resume, restart from it")
+        sp.add_argument("--checkpoint-every", type=int, default=10)
+        sp.add_argument("--resume", action="store_true",
+                        help="resume from --checkpoint if it exists")
 
     common(sub.add_parser("erosion", help="fluvial erosion (BASELINE 1)"),
            1024, 512, 100)
@@ -76,18 +86,7 @@ def _build_parser():
     return p
 
 
-# reference flags the port refuses, with the ROADMAP queue-1 item that
-# ports them
-_NOT_PORTED = {"--checkpoint": "checkpoints, ROADMAP queue 1 item 8",
-               "--checkpoint-every": "checkpoints, ROADMAP queue 1 item 8",
-               "--resume": "checkpoints, ROADMAP queue 1 item 8",
-               "--png": "the PNG render, ROADMAP queue 1 item 8"}
-
-
-def _refuse_unported(parser, args) -> None:
-    for flag, queue in _NOT_PORTED.items():
-        if getattr(args, flag.lstrip("-").replace("-", "_")) is not None:
-            parser.error(f"{flag} is not ported yet ({queue})")
+def _refuse_mesh(parser, args) -> None:
     if args.cmd in ("erosion", "tectonic-erosion") and args.mesh:
         parser.error(f"{args.cmd} runs on one device: --mesh is not "
                      "supported (the reference builds a mesh and never uses "
@@ -162,6 +161,13 @@ def _finish(args, grid, height, logger, lay):
                                 coords=np.asarray(grid.coords),
                                 circumference=grid.circumference)
             print(f"saved {args.save}", file=sys.stderr)
+        if args.png:
+            from ..utils.png import write_png
+            from ..viz import appearance
+
+            img = appearance.render(height, grid)
+            write_png(args.png, img.cpu().numpy()[::-1])
+            print(f"wrote {args.png}", file=sys.stderr)
         from ..kernels import launch_counts
 
         print(json.dumps({"kernel_launches": launch_counts()}))
@@ -169,10 +175,19 @@ def _finish(args, grid, height, logger, lay):
     lay.close()
 
 
+def _map_fields(state, fn):
+    """``state`` with ``fn`` applied to each (H, W) field (blocks to the
+    whole field or back); 0-d and None leaves stay."""
+    return dataclasses.replace(state, **{
+        f.name: fn(x) for f in dataclasses.fields(state)
+        if isinstance(x := getattr(state, f.name), torch.Tensor)
+        and x.dim() == 2})
+
+
 def main(argv=None):
     parser = _build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    _refuse_mesh(parser, args)
 
     from ..core.grid import Grid
     from ..utils import metrics as M
@@ -248,13 +263,30 @@ def main(argv=None):
         return {"temperature": T, "terrain": h, "t_index": i0}
 
     if args.cmd == "coupled":
-        from ..model import CoupledConfig, coupled_step, init_coupled
+        from ..model import CoupledConfig, CoupledState, coupled_step, \
+            init_coupled
         from ..ops import ocean
+        from ..utils import checkpoint as ckpt
 
-        state = init_coupled(lay.local(_terrain(grid, args.seed, device)),
-                             grid, mesh=mesh)
+        start = 0
+        if args.resume and args.checkpoint and ckpt.latest(args.checkpoint):
+            state, start = ckpt.load(args.checkpoint, CoupledState, device)
+            state = _map_fields(state, lay.local)
+            if lay.lead:
+                print(f"resumed from {args.checkpoint} at step {start}",
+                      file=sys.stderr)
+        else:
+            state = init_coupled(lay.local(_terrain(grid, args.seed,
+                                                    device)),
+                                 grid, mesh=mesh)
+
+        def save_checkpoint(step):
+            full = _map_fields(state, lay.full)  # every rank gathers
+            if lay.lead:
+                ckpt.save(args.checkpoint, full, step, grid)
+
         cfg = CoupledConfig()
-        for i in range(args.steps):
+        for i in range(start, args.steps):
             state = coupled_step(state, grid, cfg, mesh=mesh)
             fh, fT, fu, fv = (lay.full(x) for x in (
                 state.height, state.temperature, state.u, state.v))
@@ -263,6 +295,10 @@ def main(argv=None):
                            mean_T=M.mean_temperature(fT, grid),
                            advect_clamped=ocean.advect_clamped_fraction(
                                fu, fv, fh, grid, cfg.ocean))
+            if args.checkpoint and (i + 1) % args.checkpoint_every == 0:
+                save_checkpoint(i + 1)
+        if args.checkpoint:
+            save_checkpoint(args.steps)
         _finish(args, grid, state.height, logger, lay)
         return state
 

@@ -14,7 +14,8 @@ fixed-accuracy codec (``native.snapc``, accuracy 1e-6); undo adds the
 decoded diff back on the device and redo subtracts it.
 ``ReversibleHistory`` holds closure pairs (layer removal).
 
-``render`` (appearance and map projections) is not ported yet.
+``render`` runs the appearance chain (``viz.appearance``) and the map
+projection (``viz.projections``) on the session's device.
 """
 
 from __future__ import annotations
@@ -380,8 +381,22 @@ class Project:
 
     # ---- rendering ----------------------------------------------------------
 
-    def render(self, *args, **kw):
-        """Appearance chain + map projection: not ported yet (ROADMAP
-        queue 1 item 8)."""
-        raise NotImplementedError(
-            "Project.render is not ported yet (ROADMAP queue 1 item 8)")
+    def render(self, layers=None, projection: str = "equirectangular",
+               out_w: int = 800, out_h: int = 400, uv=None, **canvas_kw):
+        """Appearance chain + projection -> (out_h, out_w, 4) RGBA on the
+        session's device; pixels beyond the projection are (0.1, 0.1, 0.1,
+        1).
+
+        ``uv`` feeds VectorField layers (defaults to the session's ocean
+        velocity when present).  The four channels share one gather."""
+        from ..viz import CanvasParams, appearance, project_field
+
+        if uv is None:
+            uv = getattr(self, "ocean_uv", None)
+        rgba = appearance.render(self.terrain, self.grid, layers, uv=uv)
+        params = CanvasParams(projection=projection, **canvas_kw)
+        img, oob = project_field(rgba.permute(2, 0, 1), params, self.grid,
+                                 out_w, out_h)
+        back = host_to_device(np.array([0.1, 0.1, 0.1, 1.0], np.float32),
+                              self.device)
+        return torch.where(oob[..., None], back, img.permute(1, 2, 0))

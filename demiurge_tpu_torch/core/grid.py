@@ -126,12 +126,20 @@ class Grid:
 
     def geodistance_tex(self, p1, p2) -> torch.Tensor:
         """Haversine distance between two tex-coord points (pairs of
-        tensors), in x-pixel units (the GLSL ``geodistance``, which scales
-        by size.x/(lam1-lam0))."""
+        tensors; one of them may be a pair of Python numbers, taken as
+        float32 where a function of it is), in x-pixel units (the GLSL
+        ``geodistance``, which scales by size.x/(lam1-lam0))."""
         l1, f1 = self.tex_to_spheric(p1[0], p1[1])
         l2, f2 = self.tex_to_spheric(p2[0], p2[1])
+        dev = (f1 if isinstance(f1, torch.Tensor) else f2).device
+
+        def cos(f):
+            if not isinstance(f, torch.Tensor):
+                f = torch.full((), f, dtype=torch.float32, device=dev)
+            return torch.cos(f)
+
         inner = (torch.sin(torch.abs(f2 - f1) / 2) ** 2
-                 + torch.cos(f1) * torch.cos(f2)
+                 + cos(f1) * cos(f2)
                  * torch.sin((l1 - l2) / 2) ** 2)
         delta_sigma = 2 * torch.asin(torch.sqrt(inner))
         return delta_sigma / (self.lam1 - self.lam0) * self.width

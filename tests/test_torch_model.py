@@ -169,16 +169,6 @@ def test_cli_coupled_and_climate(tmp_path):
         assert t["mean_T"] == pytest.approx(j["mean_T"], rel=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "ck.npz"], ["--resume"],
-                                  ["--checkpoint-every", "5"],
-                                  ["--png", "x.png"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main(["coupled", "--device", "cpu"] + flag)
-    assert exc.value.code != 0
-    assert "not ported yet" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("mesh, says", [("2x2", "needs 4 processes"),
                                         ("2by2", "expected NYxNX")])
 def test_cli_mesh_needs_its_processes(mesh, says, capsys):

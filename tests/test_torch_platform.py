@@ -49,7 +49,10 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "ops/pressure_cg.py", "ops/adjust.py", "ops/blend.py",
           "ops/thermal.py", "ops/morphological.py", "ops/brush.py",
           "ops/deterrace.py", "select/selection.py", "utils/png.py",
-          "utils/progress.py", "native/snapc.py", "api/project.py")
+          "utils/progress.py", "native/snapc.py", "api/project.py",
+          "viz/__init__.py", "viz/projections.py", "viz/appearance.py",
+          "utils/checkpoint.py", "examples/make_planet.py",
+          "examples/ocean_climate.py", "tools/multiprocess_test.py")
 
 
 def test_grep_tests_cover_the_ported_modules():

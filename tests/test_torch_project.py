@@ -349,8 +349,14 @@ def test_layers_and_render():
     assert lid not in p.layers
     assert p.undo() and lid in p.layers
     assert p.redo() and lid not in p.layers
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        p.render()
+    img = p.render(out_w=32, out_h=16, projection="mollweide")
+    assert img.shape == (16, 32, 4) and img.dtype == torch.float32
+    assert bool(torch.isfinite(img).all())
+    # the flat terrain (0, an ocean pixel) inside the ellipse, the
+    # background (0.1, 0.1, 0.1, 1) outside it
+    assert float(img[8, 16, 3]) == 1.0
+    np.testing.assert_array_equal(img[0, 0].numpy(),
+                                  np.float32([0.1, 0.1, 0.1, 1.0]))
     with pytest.raises(KeyError):
         p._get_field("nothing")
     assert p.device == torch.device("cpu")
