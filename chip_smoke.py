@@ -76,10 +76,20 @@
    exact), each timed beside K7; then, with every launch counter at 0, 3
    ``coupled_step(mesh=1x1)``s against 3 single-card steps (height rtol
    1e-5 atol 1e-6, T rtol 1e-5 atol 1e-4, u and v rtol 1e-5 atol 1e-6),
-   ms per step, fails unless K5, K6, K10a and K10b launched; a per-stage
-   device profile of one mesh step; and ``coupled --mesh 1x1`` through
+   ms per step, fails unless K5 and K6's codes form launched on the row
+   strips and K10a and K10b launched, or if a ``sharded_call`` or a
+   full-field gather ran (``dist.mesh``'s traffic counters); a per-stage
+   device profile of one mesh step (the local stages of ``dist.local``);
+   then each local stage on that step's inputs bit for bit against the
+   single-card stage, timed beside it and beside the ``sharded_call``
+   form; K5 and K6's codes form on the strip bit for bit against their
+   plain forms there (0 ties); the overlapped halo sweeps (pressure, 25
+   rounds of 8; viscosity, 5 of 10) bit for bit against the monolithic
+   ones, timed; one mesh step at 8192x4096 (finite, its peak memory, no
+   field gathered); ``coupled --mesh 1x1`` through
    ``torch.distributed.run`` (2 steps at 2048x1024): finite logs and K10
-   launches;
+   launches; ``tools.scaling_bench`` at one rank (2048x1024, 5 steps) and
+   its refusal of more ranks than cards;
 9. the reference's alternative flow solvers and the packed Jacobi (K11):
    ``tools.flow_rounds`` at 2048x1024 as a subprocess (must exit 0 and
    report K11d launches); then, with every launch counter at 0,
@@ -295,7 +305,9 @@ def main() -> int:
                 "jacobi_packed": (kp, "LAUNCHES"),
                 "advect_stage": (ka, "LAUNCHES_STAGE"),
                 "advect_stage_one_row": (ka, "LAUNCHES_STAGE_ONE_ROW"),
-                "flow_directions_packed": (kd, "LAUNCHES_PACKED")}
+                "flow_directions_packed": (kd, "LAUNCHES_PACKED"),
+                "blur_strip": (kb, "LAUNCHES_STRIP"),
+                "flow_directions_strip": (kd, "LAUNCHES_STRIP")}
     # the kernels of the single-card coupled path; the mesh path's are
     # phase 8's, the one-row table's phase 4's, K11's phase 9's
     single_card = ["jacobi_pressure", "jacobi_diffusion", "climate", "blur",
@@ -313,13 +325,16 @@ def main() -> int:
         """Each form's own launches from every counter's reading: the
         sampler's and the codes form's counters (LAUNCHES,
         LAUNCHES_ONE_ROW) count the stage and packed forms' launches too,
-        and the stage's counts its one-row launches."""
+        the stage's counts its one-row launches, and K5's and the codes
+        form's count their launches on a rank's row strip."""
         c = dict(c)
         c["advect_sample_pallas"] -= c["advect_stage_one_row"]
         c["advect_sample_tiered"] -= (c["advect_stage"]
                                       + c["advect_sample_pallas"])
         c["advect_stage"] -= c["advect_stage_one_row"]
-        c["flow_directions"] -= c["flow_directions_packed"]
+        c["flow_directions"] -= (c["flow_directions_packed"]
+                                 + c["flow_directions_strip"])
+        c["blur"] -= c["blur_strip"]
         return c
 
     @contextlib.contextmanager
@@ -1143,8 +1158,11 @@ def main() -> int:
     # -- 8. the sharded path on a 1x1 mesh (NCCL, world size 1) -----------
     import torch.distributed as tdist
 
+    from demiurge_tpu_torch.dist import halo as dhalo
+    from demiurge_tpu_torch.dist import local as dlocal
     from demiurge_tpu_torch.dist import mesh as dmesh
     from demiurge_tpu_torch.dist.flowdist import (_pick_dist_band,
+                                                  flow_solve_rows_twolevel,
                                                   flow_solve_sharded_twolevel)
     from demiurge_tpu_torch.dist.halo import flow_solve_sharded
 
@@ -1315,15 +1333,20 @@ def main() -> int:
     s_one = model.init_coupled(terrain, grid)
     torch.cuda.synchronize()
     zero_counts()
+    dmesh.reset_traffic()
     t0 = time.perf_counter()
     for _ in range(3):
         s_mesh = model.coupled_step(s_mesh, grid, ccfg, mesh=mesh)
     torch.cuda.synchronize()
     mesh_step_ms = (time.perf_counter() - t0) * 1e3 / 3
     mesh_launches = read_counts(list(counters))
+    mesh_traffic = dmesh.traffic()
     print(f"launches on the mesh path (3 steps): {mesh_launches}")
+    print(f"traffic of the 3 mesh steps: {json.dumps(mesh_traffic)}")
+    assert mesh_traffic["sharded_call"] == 0, mesh_traffic
+    assert mesh_traffic["field_gathers"] == 0, mesh_traffic
     for name in ("blur", "flow_directions", "flow_local_solve",
-                 "flow_local_vis"):
+                 "flow_local_vis", "blur_strip", "flow_directions_strip"):
         assert mesh_launches[name] > 0, f"{name} never launched on the mesh"
     t0 = time.perf_counter()
     for _ in range(3):
@@ -1348,38 +1371,42 @@ def main() -> int:
           f"ms/step; on one card without a mesh {one_step_ms:.2f} ms/step "
           f"(3 steps each, host clock, {card})")
 
-    def staged_mesh_step(st, mark):
-        """coupled_step(mesh=...) written out stage by stage."""
-        def sc(fn):
-            return dmesh.sharded_call(fn, mesh)
-
+    def staged_mesh_step(st, mark, keep):
+        """coupled_step(mesh=...) written out stage by stage; ``keep``
+        collects the stages' inputs."""
         T_, ti = temperature.temperature_step(
             st.temperature, st.height, st.t_index, grid,
             ccfg.climate_substeps, mesh=mesh)
         mark("climate (row groups, 10 substeps; torch)")
         oc = ccfg.ocean
         uu, vv = ocean.advect(st.u, st.v, st.height, grid, oc, mesh=mesh)
-        mark("ocean advect (sampler on blocks; torch)")
+        mark("ocean advect (block departure, sampler on blocks; torch)")
         uu, vv = ocean.diffusion(uu, vv, st.height, grid, oc, mesh=mesh)
-        mark("ocean viscosity (halo rounds, 50 sweeps; torch)")
-        dv = sc(ocean.divergence)(uu, vv, st.height, grid, oc)
-        mark("ocean divergence (sharded_call)")
+        mark("ocean viscosity (block coefficients, halo rounds; torch)")
+        keep["diffused"] = (uu, vv)
+        dv = dlocal.block_call(ocean.divergence, mesh, 1, halo=(0, 1, 2),
+                               negate=(0, 1))(uu, vv, st.height, grid, oc)
+        mark("ocean divergence (blocks, 1-ring halo)")
         pp = ocean.pressure_solve(dv, st.height, grid, oc, mesh=mesh)
-        mark("ocean pressure (halo rounds, 200 sweeps; torch)")
-        uu, vv = sc(ocean.project)(uu, vv, pp, st.height, grid, oc)
-        mark("ocean projection (sharded_call)")
-        cd, mo = sc(of._codes_and_mouths)(st.height, st.sel, grid,
+        mark("ocean pressure (block coefficients, halo rounds; torch)")
+        keep["div"], keep["p"] = dv, pp
+        uu, vv = dlocal.block_call(ocean.project, mesh, 1, halo=(2, 3))(
+            uu, vv, pp, st.height, grid, oc)
+        mark("ocean projection (blocks, 1-ring halo)")
+        _, _, pk = dlocal.flow_masks_rows(st.height, st.sel, grid, mesh,
                                           ccfg.flow_preblur)
-        mark("flow blur, directions, mouths (sharded_call; K5, K6)")
-        ar = dmesh.local_part(of.cell_area_lower_edge(grid, dev), grid.shape,
-                              mesh)
-        acc, vis = flow_solve_sharded_twolevel(cd, ar, mo, grid, mesh)
+        mark("flow blur, codes, mouths, masks (row strips; K5, K6)")
+        ar = of.cell_area_lower_edge(dlocal.rows_window(grid, mesh, 0), dev)
+        acc, vis = flow_solve_rows_twolevel(pk, ar, grid, mesh)
+        acc = dmesh.rows_to_blocks(acc, mesh)
+        vis = dmesh.rows_to_blocks(vis, mesh) > 0.5
         mark("flow two-level solve (K10a x2, K10b x2, coarse graph)")
         fm = torch.where(vis, torch.pow(acc, ccfg.flow_exponent), -1.0)
-        hh = sc(erosion.erosion_pass)(st.height, fm, st.uplift, grid,
-                                      ccfg.erosion_factor,
-                                      ccfg.erosion_slope_exponent)
-        mark("flow map + erosion (sharded_call)")
+        keep["fm"] = fm
+        hh = dlocal.block_call(erosion.erosion_pass, mesh, 1, halo=(0,))(
+            st.height, fm, st.uplift, grid, ccfg.erosion_factor,
+            ccfg.erosion_slope_exponent)
+        mark("flow map + erosion (blocks, 1-ring halo)")
         return model.CoupledState(height=hh, uplift=st.uplift, sel=st.sel,
                                   u=uu, v=vv, temperature=T_, t_index=ti,
                                   flow_acc=acc)
@@ -1390,7 +1417,8 @@ def main() -> int:
     zero_counts()
     t0 = time.perf_counter()
     mark("start")
-    got = staged_mesh_step(s_mesh, mark)
+    keep = {}
+    got = staged_mesh_step(s_mesh, mark, keep)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     step_launches = read_counts(["flow_local_solve", "flow_local_vis"])
@@ -1407,8 +1435,210 @@ def main() -> int:
     print(f"  {'sum of rows':56s} {sum(t for _, t in rows):9.3f} ms; "
           f"first-to-last event {total:.3f} ms; host clock {host_ms:.3f} ms;"
           f" K10 launches in the step {step_launches}")
+    # -- 8b. the local stages one by one on the staged step's inputs: each
+    # bit for bit against the single-card stage, timed beside it and
+    # beside the sharded_call form it replaced (CUDA events, 3 calls)
+    oc = ccfg.ocean
+    hgt, uplift8 = s_mesh.height, s_mesh.uplift
+    du, dv_ = keep["diffused"]
+
+    def sc(fn):
+        return dmesh.sharded_call(fn, mesh)
+
+    def rows_masks(h_, sel_):
+        return dlocal.flow_masks_rows(h_, sel_, grid, mesh, ccfg.flow_preblur)
+
+    def single_masks(fn):
+        def run(h_, sel_):
+            code_, mouth_ = fn(of._codes_and_mouths)(h_, sel_, grid,
+                                                     ccfg.flow_preblur)
+            return code_, mouth_, fn(kf.pack_masks)(code_, mouth_, grid)
+        return run
+
+    ident = (lambda f: f)  # noqa: E731
+    stages = [
+        ("departure points", lambda f: f(ocean._departure),
+         (s_mesh.u, s_mesh.v, grid, oc), dict(k=0)),
+        ("divergence", lambda f: f(ocean.divergence),
+         (du, dv_, hgt, grid, oc), dict(k=1, halo=(0, 1, 2), negate=(0, 1))),
+        ("projection", lambda f: f(ocean.project),
+         (du, dv_, keep["p"], hgt, grid, oc), dict(k=1, halo=(2, 3))),
+        ("pressure coefficients", lambda f: f(kj.coefficients),
+         (keep["div"], hgt, grid), dict(k=1, halo=(1,))),
+        ("viscosity coefficients", lambda f: f(kj.diffusion_coefficients),
+         (hgt, grid), dict(k=1, halo=(0,))),
+        ("erosion pass", lambda f: f(erosion.erosion_pass),
+         (hgt, keep["fm"], uplift8, grid, ccfg.erosion_factor,
+          ccfg.erosion_slope_exponent), dict(k=1, halo=(0,)))]
+    local_stage_ms = {}
+    for name, pick, args, how in stages:
+        k_ = how.pop("k")
+        loc = pick(lambda fn: dlocal.block_call(fn, mesh, k_, **how))
+        outs = [loc(*args), pick(ident)(*args), pick(sc)(*args)]
+        outs = [o if isinstance(o, (tuple, list)) else (o,) for o in outs]
+        torch.cuda.synchronize()
+        for a, b in zip(outs[0], outs[1]):
+            assert torch.equal(a.expand(H, W), b.expand(H, W)), name
+        local_stage_ms[name] = [cuda_ms(lambda: f(*args), 3) for f in (
+            loc, pick(ident), pick(sc))]
+    n_strip = (kb.LAUNCHES_STRIP, kd.LAUNCHES_STRIP)
+    got_m = rows_masks(hgt, s_mesh.sel)
+    assert kb.LAUNCHES_STRIP > n_strip[0] and kd.LAUNCHES_STRIP > n_strip[1]
+    want_m = single_masks(ident)(hgt, s_mesh.sel)
+    torch.cuda.synchronize()
+    mask_ties = int((got_m[0] != want_m[0]).sum())
+    assert mask_ties == 0, f"{mask_ties} direction ties on the strips"
+    assert torch.equal(got_m[1], want_m[1]) and torch.equal(got_m[2],
+                                                            want_m[2])
+    local_stage_ms["flow masks (row strips)"] = [
+        cuda_ms(lambda: rows_masks(hgt, s_mesh.sel), 3),
+        cuda_ms(lambda: single_masks(ident)(hgt, s_mesh.sel), 3),
+        cuda_ms(lambda: single_masks(sc)(hgt, s_mesh.sel), 3)]
+    print(f"local stages on the 1x1 mesh at {W}x{H}, each bit for bit "
+          f"against the single-card stage on the staged step's inputs "
+          f"(direction ties {mask_ties}); ms local / single card / "
+          f"sharded_call (CUDA events, 3 calls; {card}):")
+    for name, (a, b, c) in local_stage_ms.items():
+        print(f"  {name:28s} {a:9.3f} {b:9.3f} {c:9.3f}")
+
+    # K5 and K6's codes form on the row strips of a 4-rank mesh (on one
+    # rank the strip is the whole grid): the group at the south pole
+    # (ending there, the window's pole flag on) and an inner one with a
+    # halo on both sides, each against its plain form on the strip and
+    # the whole grid's rows; the inner one timed
+    from demiurge_tpu_torch.core.grid import Window
+
+    kr = dlocal.flow_rows_reach(ccfg.flow_preblur)
+    whole_hb = kb.blur_cuda(hgt, grid, rlist)
+    strip_ties = 0
+    r4 = H // 4
+    for group in (0, 1):
+        lo, hi = max(group * r4 - kr, 0), (group + 1) * r4 + kr
+        win = Window(W, hi - lo, grid.coords, grid.circumference,
+                     full=(W, H), row0=lo)
+        hs, ss = hgt[lo:hi].contiguous(), s_mesh.sel[lo:hi].contiguous()
+        hb_k = kb.blur_cuda(hs, win, rlist)
+        hb_p = kb.blur_plain(hs, win, rlist)
+        cs_k = kd.flow_directions_cuda(hb_k, ss, win)
+        cs_p = kd.flow_directions_plain(hb_k, ss, win)
+        torch.cuda.synchronize()
+        own = slice(group * r4 - lo, group * r4 - lo + r4)
+        assert torch.equal(hb_k, hb_p), ("K5 on the strip", group)
+        assert torch.equal(hb_k[own], whole_hb[group * r4:(group + 1) * r4])
+        strip_ties += int((cs_k != cs_p).sum())
+    assert strip_ties == 0, f"{strip_ties} ties of K6 on the strips"
+    Ns = hs.numel()
+    ms = cuda_ms(lambda: kb.blur_cuda(hs, win, rlist), 20)
+    plain_ms = cuda_ms(lambda: kb.blur_plain(hs, win, rlist), 3)
+    record("blur_strip", "demiurge_tpu_torch/csrc/blur.cu",
+           "demiurge_tpu/pallas_kernels/blur.py:135", max_err(hb_k, hb_p),
+           ms, plain_ms, 2 * 4.0 * Ns, len(rlist) * 62 * Ns,
+           f"K5 on the row strips of a 4-rank mesh at {W}x{H} (the south "
+           f"pole's, ending there, and an inner one, {win.height}x"
+           f"{win.width}: {r4} rows and {kr} halo rows a side, timed), bit "
+           f"for bit against its plain form and the whole grid's rows")
+    ms = cuda_ms(lambda: kd.flow_directions_cuda(hb_k, ss, win), 20)
+    plain_ms = cuda_ms(lambda: kd.flow_directions_plain(hb_k, ss, win), 3)
+    record("flow_directions_strip", "demiurge_tpu_torch/csrc/directions.cu",
+           "demiurge_tpu/pallas_kernels/directions.py:152",
+           max_err(cs_k, cs_p), ms, plain_ms, 3 * 4.0 * Ns, 90 * Ns,
+           f"K6's codes form on the same strips (its tables at the "
+           f"strips' global rows), {strip_ties} ties; timed on the inner "
+           f"one")
+    del hs, ss, hb_k, hb_p, cs_k, cs_p, got_m, want_m, whole_hb
+
+    # the overlapped sweeps against the monolithic ones: the pressure's 25
+    # rounds of 8 and the viscosity's 5 of 10, split even though nothing
+    # is in flight on one rank (the solvers split only with
+    # dist.halo.OVERLAP on, and then only where something is in flight)
+    pc = dlocal.block_call(kj.coefficients, mesh, 1, halo=(1,))(
+        keep["div"], hgt, grid)
+    dc = dlocal.block_call(kj.diffusion_coefficients, mesh, 1, halo=(0,))(
+        hgt, grid)
+    sweep_ms = {}
+    for name, k_, coeffs, rounds, neg, start8 in (
+            ("pressure", 8, pc, 25, False, torch.zeros_like(hgt)),
+            ("viscosity", 10, dc + (torch.zeros_like(hgt),), 5, True, du)):
+        padded = dhalo._padded_coefficients(coeffs, k_, grid, mesh) + (
+            dhalo.exchange_halo(coeffs[5], k_, grid, mesh),)
+
+        def mono(k_=k_, padded=padded, neg=neg, rounds=rounds, p=start8):
+            for _ in range(rounds):
+                p = dhalo._ksweeps(p, k_, padded, lambda q: (
+                    dhalo.exchange_halo(q, k_, grid, mesh, negate_pole=neg)))
+            return p
+
+        def split(k_=k_, padded=padded, neg=neg, rounds=rounds, p=start8):
+            for _ in range(rounds):
+                p = dhalo._overlapped_ksweeps(p, k_, padded, lambda q: (
+                    dhalo.post_halo(q, k_, grid, mesh, negate_pole=neg)),
+                    split=True)
+            return p
+
+        dhalo.LAST_OVERLAP.update(rounds=0, split=0, in_flight=0)
+        a, b = mono(), split()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+        ov = dict(dhalo.LAST_OVERLAP)
+        assert ov["split"] == ov["in_flight"] == rounds, ov
+        sweep_ms[name] = (cuda_ms(mono, 1), cuda_ms(split, 1))
+        print(f"  {name} sweeps on the 1x1 mesh ({rounds} rounds of "
+              f"{k_}): split bit for bit against monolithic, centre issued "
+              f"before the wait in {ov['in_flight']} of {ov['split']} split "
+              f"rounds; monolithic {sweep_ms[name][0]:.3f} ms, split "
+              f"{sweep_ms[name][1]:.3f} ms ({card})")
+    del pc, dc, a, b, keep
     del s_mesh, s_one, want, got
+    torch.cuda.empty_cache()
+
+    # one mesh step at BASELINE config 5's 8192x4096
+    big_grid = Grid(*BIG)
+    sb = model.init_coupled(cli._terrain(big_grid, SEED, dev), big_grid,
+                            mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dmesh.reset_traffic()
+    t0 = time.perf_counter()
+    sb = model.coupled_step(sb, big_grid, ccfg, mesh=mesh)
+    torch.cuda.synchronize()
+    big_mesh_s = time.perf_counter() - t0
+    big_traffic = dmesh.traffic()
+    assert big_traffic["field_gathers"] == 0, big_traffic
+    for name in ("height", "u", "v", "flow_acc"):
+        assert bool(torch.isfinite(getattr(sb, name)).all()), name
+    print(f"one mesh step at {BIG[0]}x{BIG[1]} on the 1x1 mesh: "
+          f"{big_mesh_s * 1e3:.1f} ms (host clock, the first at this size), "
+          f"max memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; height, u, "
+          f"v and flow_acc finite, temperature finite: "
+          f"{bool(torch.isfinite(sb.temperature).all())}, mean T "
+          f"{float(sb.temperature.mean()):.4g}; field gathers "
+          f"{big_traffic['field_gathers']} ({card})")
+    del sb
+    torch.cuda.empty_cache()
     tdist.destroy_process_group()
+
+    # the weak-scaling tool at one rank, and its refusal of more ranks than
+    # this machine has cards
+    sb_cmd = [sys.executable, "-m", "demiurge_tpu_torch.tools.scaling_bench",
+              "--base-width", str(W), "--base-height", str(H), "--steps", "5",
+              "--ranks", "1"]
+    t0 = time.perf_counter()
+    run = subprocess.run(sb_cmd, cwd=REPO, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=str(
+                             REPO)))
+    assert run.returncode == 0, (run.returncode, run.stderr[-3000:])
+    (sb_rec,) = [json.loads(line) for line in run.stdout.splitlines()
+                 if line.startswith("{")]
+    assert sb_rec["devices"] == 1 and sb_rec["finite"], sb_rec
+    print(f"scaling_bench at n = 1 ({time.perf_counter() - t0:.1f} s with "
+          f"start-up): {json.dumps(sb_rec)}")
+    run = subprocess.run(sb_cmd + ["--ranks", str(
+        torch.cuda.device_count() + 1)], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert run.returncode == 2 and "CUDA devices" in run.stderr, run.stderr
+    print(f"scaling_bench refuses {torch.cuda.device_count() + 1} ranks: "
+          f"{run.stderr.strip()}")
 
     # the CLI under torch.distributed.run, one process on this card
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -2207,8 +2437,8 @@ def main() -> int:
                               "3", "--checkpoint", ckm, "--resume"])
     torch.cuda.synchronize()
     mesh13_forms = own_forms(read_counts(list(counters)))
-    for name in ("flow_local_solve", "flow_local_vis", "blur",
-                 "flow_directions"):
+    for name in ("flow_local_solve", "flow_local_vis", "blur_strip",
+                 "flow_directions_strip"):
         assert mesh13_forms[name] > 0, f"{name} never launched on the mesh"
     hold_to_single(m_resumed, straight,
                    "mesh CLI resumed to 3 against 3 single-card CLI steps")
@@ -2265,7 +2495,9 @@ def main() -> int:
     main_launches = {**coupled_forms,
                      **{n: mesh_forms[n] for n in ("flow_directions",
                                                    "flow_local_solve",
-                                                   "flow_local_vis")},
+                                                   "flow_local_vis",
+                                                   "blur_strip",
+                                                   "flow_directions_strip")},
                      **{n: ocean_forms[n] for n in ("advect_sample_pallas",
                                                     "advect_stage_one_row")},
                      **k11_launches}

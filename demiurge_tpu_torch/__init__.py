@@ -20,10 +20,11 @@ DeTerrace), the selection tools (``select``), the coupled step
 through the snapshot codec in ``native``), the checkpoints
 (``utils.checkpoint``: single-file and sharded, in the reference's
 format), the ``erosion``, ``tectonic-erosion``, ``ocean``, ``climate`` and
-``coupled`` CLI commands with --png, --checkpoint and --resume, and both
-examples (``examples``).  Not yet: the reference's overlapped halo sweeps,
-k-halo local versions of the stages that still go through
-``dist.mesh.sharded_call``, and the weak-scaling tool.
+``coupled`` CLI commands with --png, --checkpoint and --resume, both
+examples (``examples``), and the distribution (``dist``): every stage of
+the default coupled step on this rank's block or row group
+(``dist.local``), the halo exchanges overlapped with the sweeps, and the
+weak-scaling tool (``tools.scaling_bench``).
 """
 
 from .core import Grid

@@ -29,9 +29,11 @@ step (``ops.erosion.coupled_tectonic_erosion``).  Both run on one device:
 they refuse --mesh (the reference builds a mesh and never uses it).
 
 At the end the CLI prints one JSON line to stdout, the kernel launches of
-the run.  Under a mesh, rank 0 logs, renders and saves the gathered
-fields, and writes the checkpoint of the gathered state; a resume loads
-it on every rank, which takes its blocks.
+the run.  Under a mesh, every rank reduces its own blocks for the step
+log (one all_reduce a metric, ``utils.metrics``) and rank 0 logs; rank 0
+renders and saves the gathered fields, and writes the checkpoint of the
+gathered state; a resume loads it on every rank, which takes its
+blocks.
 ``main`` returns the last state (``coupled``, this rank's blocks under a
 mesh) or fields.
 """
@@ -154,7 +156,8 @@ class _Layout:
 
 
 def _finish(args, grid, height, logger, lay):
-    height = lay.full(height)
+    if args.save or args.png:
+        height = lay.full(height)
     if lay.lead:
         if args.save:
             np.savez_compressed(args.save, terrain=height.cpu().numpy(),
@@ -230,13 +233,13 @@ def main(argv=None):
         u, v = (lay.local(x) for x in ocean.init_ocean(grid, device))
         for i in range(args.steps):
             u, v, p, d = ocean.ocean_step(u, v, h, grid, cfg, mesh=mesh)
-            fu, fv, fh = lay.full(u), lay.full(v), lay.full(h)
+            # every rank reduces its blocks (no field leaves its rank)
+            rec = dict(div_norm=M.divergence_norm(u, v, h, grid, cfg, mesh),
+                       vmax=M.vmax(u, v, mesh),
+                       advect_clamped=ocean.advect_clamped_fraction(
+                           u, v, h, grid, cfg, mesh))
             if lay.lead:
-                logger.log(i, div_norm=M.divergence_norm(fu, fv, fh, grid,
-                                                         cfg),
-                           vmax=torch.sqrt(fu * fu + fv * fv).max(),
-                           advect_clamped=ocean.advect_clamped_fraction(
-                               fu, fv, fh, grid, cfg))
+                logger.log(i, **rec)
         # the reference saves the terrain here, not the currents
         _finish(args, grid, h, logger, lay)
         return {"u": u, "v": v, "terrain": h}
@@ -254,10 +257,9 @@ def main(argv=None):
                                                  mesh=mesh)
             done += k
             step += 1
-            fT = lay.full(T)
+            mean_T = M.mean_temperature(T, grid, mesh)
             if lay.lead:
-                logger.log(step, substeps=done,
-                           mean_T=M.mean_temperature(fT, grid))
+                logger.log(step, substeps=done, mean_T=mean_T)
         # the reference saves the temperature under the name "terrain"
         _finish(args, grid, T, logger, lay)
         return {"temperature": T, "terrain": h, "t_index": i0}
@@ -288,13 +290,14 @@ def main(argv=None):
         cfg = CoupledConfig()
         for i in range(start, args.steps):
             state = coupled_step(state, grid, cfg, mesh=mesh)
-            fh, fT, fu, fv = (lay.full(x) for x in (
-                state.height, state.temperature, state.u, state.v))
+            rec = dict(mass=M.mass(state.height, grid, mesh),
+                       mean_T=M.mean_temperature(state.temperature, grid,
+                                                 mesh),
+                       advect_clamped=ocean.advect_clamped_fraction(
+                           state.u, state.v, state.height, grid, cfg.ocean,
+                           mesh))
             if lay.lead:
-                logger.log(i, mass=M.mass(fh, grid),
-                           mean_T=M.mean_temperature(fT, grid),
-                           advect_clamped=ocean.advect_clamped_fraction(
-                               fu, fv, fh, grid, cfg.ocean))
+                logger.log(i, **rec)
             if args.checkpoint and (i + 1) % args.checkpoint_every == 0:
                 save_checkpoint(i + 1)
         if args.checkpoint:

@@ -80,6 +80,34 @@ class Grid:
         t = (phi - self.phi0) / (self.phi1 - self.phi0)
         return s, t
 
+    @property
+    def base(self) -> "Grid":
+        """The whole grid this grid's tables are cut from: itself (a
+        ``Window``'s is the grid it is a window of)."""
+        return self
+
+    def rows_np(self) -> np.ndarray:
+        """The grid row each row reads its tables from, int64 (H,)."""
+        return np.arange(self.height)
+
+    def row_numbers(self, device) -> torch.Tensor:
+        """Each row's number in the whole grid, int64 (H, 1) (a
+        ``Window``'s rows past a pole count on below 0 and from H)."""
+        return torch.arange(self.height, device=device).reshape(-1, 1)
+
+    def row_index(self, device) -> torch.Tensor:
+        """The grid row each row reads its tables from, int64 (H,)."""
+        return torch.arange(self.height, device=device)
+
+    def col_index(self, device) -> torch.Tensor:
+        """The grid column of each column, int64 (W,)."""
+        return torch.arange(self.width, device=device)
+
+    def cut(self, t: torch.Tensor) -> torch.Tensor:
+        """A table of the whole grid, as this grid reads it: itself (a
+        ``Window`` cuts its rows and columns)."""
+        return t
+
     def row_t(self, device) -> torch.Tensor:
         """t coordinate of each row center, shape (H, 1)."""
         r = torch.arange(self.height, dtype=torch.float32, device=device)
@@ -143,6 +171,119 @@ class Grid:
                  * torch.sin((l1 - l2) / 2) ** 2)
         delta_sigma = 2 * torch.asin(torch.sqrt(inner))
         return delta_sigma / (self.lam1 - self.lam0) * self.width
+
+
+_WINDOW_INDEX: dict = {}  # (window, axis, device) -> index tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Window(Grid):
+    """A rectangle of a global grid, reaching past its poles where it
+    must: a rank's block or row group with its halo (``dist.local``).
+
+    ``width`` and ``height`` are the window's own, the shape of its
+    fields; ``full`` is the grid's (W, H).  The window's row i and column
+    j are the grid's row ``row0 + i`` and column ``(col0 + j) mod W``; a
+    row past a pole is the row the pole reflects it to (row -1 is row 0,
+    row H is row H - 1, and so on), as far as the tables go: a per-row or
+    per-column table of a window is the grid's own table cut at those
+    rows and columns (``cut``), so it holds the same bits, and the
+    per-pixel tables built from the indices (``row_index``,
+    ``col_index``) read the global coordinates.  ``shift`` rolls the
+    window's columns; at its first and last rows it reflects over a pole
+    where the window spans the whole width from that pole's row, as the
+    grid does (a row group's window), and clamps anywhere else, where its
+    halo rows stand beyond a pole or inside the grid: a stencil of reach
+    k then leaves the k rings inside such an edge stale and the caller
+    crops them.  With a halo, for an x-periodic grid that touches both
+    poles; without one (a block as it is), for any x-periodic grid.
+
+    ``width`` and ``height`` are not the globe's: every ``Grid`` method
+    that reads them is overridden here, to read ``full`` or the cut
+    tables, or to raise where a window has no answer (``geodistance_tex``
+    scales by the globe's width: ask ``base``)."""
+
+    full: Tuple[int, int] = (0, 0)
+    row0: int = 0
+    col0: int = 0
+
+    @property
+    def base(self) -> Grid:
+        """The whole grid, with the window's coords (a coordsMod window's
+        base is the coordsMod grid)."""
+        return Grid(self.full[0], self.full[1], self.coords,
+                    self.circumference)
+
+    @property
+    def _whole_rows(self) -> bool:
+        return self.col0 == 0 and self.width == self.full[0]
+
+    @property
+    def wrap_south(self) -> bool:
+        return (self.row0 == 0 and self._whole_rows
+                and self.base.wrap_south)
+
+    @property
+    def wrap_north(self) -> bool:
+        return (self.row0 + self.height == self.full[1] and self._whole_rows
+                and self.base.wrap_north)
+
+    def row_numbers(self, device) -> torch.Tensor:
+        return torch.arange(self.row0, self.row0 + self.height,
+                            device=device).reshape(-1, 1)
+
+    def rows_np(self) -> np.ndarray:
+        """The grid row each window row reads (poles reflected), int64."""
+        H = self.full[1]
+        g = np.arange(self.row0, self.row0 + self.height)
+        g = np.where(g < 0, -1 - g, g)
+        return np.where(g >= H, 2 * H - 1 - g, g)
+
+    def cols_np(self) -> np.ndarray:
+        return (self.col0 + np.arange(self.width)) % self.full[0]
+
+    def _index(self, axis: str, device) -> torch.Tensor:
+        key = (self, axis, str(device))
+        if key not in _WINDOW_INDEX:
+            idx = self.rows_np() if axis == "rows" else self.cols_np()
+            _WINDOW_INDEX[key] = torch.from_numpy(idx).to(device)
+        return _WINDOW_INDEX[key]
+
+    def row_index(self, device) -> torch.Tensor:
+        return self._index("rows", device)
+
+    def col_index(self, device) -> torch.Tensor:
+        return self._index("cols", device)
+
+    def cut(self, t: torch.Tensor) -> torch.Tensor:
+        """The window's part of a table of the whole grid: rows where
+        ``t`` spans the grid's H rows (dim -2, or dim 0 of a 1-D table),
+        columns where it spans the W columns (dim -1)."""
+        W, H = self.full
+        if t.dim() == 1:
+            return t.index_select(0, self.row_index(t.device))
+        if t.shape[-2] == H:
+            t = t.index_select(t.dim() - 2, self.row_index(t.device))
+        if t.shape[-1] == W:
+            t = t.index_select(t.dim() - 1, self.col_index(t.device))
+        return t
+
+    def row_t(self, device) -> torch.Tensor:
+        return self.cut(self.base.row_t(device))
+
+    def col_s(self, device) -> torch.Tensor:
+        return self.cut(self.base.col_s(device))
+
+    def row_spacing(self) -> float:
+        return self.base.row_spacing()
+
+    def pixelsize_rows(self, device):
+        dx, dy = self.base.pixelsize_rows(device)
+        return self.cut(dx), dy
+
+    def geodistance_tex(self, p1, p2) -> torch.Tensor:
+        raise NotImplementedError(
+            "a window has no globe-wide texture scale: use its base grid")
 
 
 def rdiv(num: float, t: torch.Tensor) -> torch.Tensor:

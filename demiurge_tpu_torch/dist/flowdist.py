@@ -7,7 +7,9 @@ graph):
 
   1. ``all_to_all_single`` over the mesh row: the (y, x) blocks become
      full-width row groups (rank g = yi*nx + xi gets rows [g*r, (g+1)*r)),
-     since in-band paths wrap the dateline;
+     since in-band paths wrap the dateline (the coupled step builds the
+     packed masks on the row groups already, ``dist.local``, and enters
+     at step 2: ``flow_solve_rows_twolevel``);
   2. band-local solves on each rank, no communication: A_loc and exit ids
      (K10a), and the local reachability (K10b);
   3. ``all_gather`` of the bands' boundary rows only (2 rows a band); every
@@ -29,8 +31,7 @@ from ..kernels.flow import pack_masks
 from ..kernels.flow2 import (_accumulate_adaptive, _or_chain_adaptive,
                              coarse_graph_rows, coarse_rows,
                              flow_local_solve, flow_local_vis, mask_local)
-from .mesh import (Mesh, all_gather_rows, blocks_to_rows, rows_to_blocks,
-                   sharded_call)
+from .mesh import Mesh, all_gather_rows, blocks_to_rows, rows_to_blocks
 
 
 def _pick_dist_band(rows_loc: int) -> int:
@@ -50,8 +51,26 @@ def flow_sharded_twolevel_supported(grid: Grid, mesh: Mesh) -> bool:
 def flow_solve_sharded_twolevel(code, area2d, mouth, grid: Grid, mesh: Mesh,
                                 band: int = 0):
     """Distributed (A, vis) flow solve by the two-level scheme, on this
-    rank's blocks.  Same fixpoint as ``ops.flow.flow_solve_stencil``.
-    Returns (A, vis bool) blocks."""
+    rank's blocks of the codes and mouths: the packed masks built on the
+    blocks (a 1-ring halo of the codes, ``dist.local``; on the gathered
+    fields where the local stages do not apply), regrouped into rows,
+    then ``flow_solve_rows_twolevel``.  Same fixpoint as
+    ``ops.flow.flow_solve_stencil``.  Returns (A, vis bool) blocks."""
+    from .local import block_or_gathered
+
+    packed_b = block_or_gathered(pack_masks, grid, mesh, 1, halo=(0,))(
+        code, mouth, grid)
+    A, vis = flow_solve_rows_twolevel(blocks_to_rows(packed_b, mesh),
+                                      blocks_to_rows(area2d, mesh), grid,
+                                      mesh, band)
+    return rows_to_blocks(A, mesh), rows_to_blocks(vis, mesh) > 0.5
+
+
+def flow_solve_rows_twolevel(packed_r, ar_r, grid: Grid, mesh: Mesh,
+                             band: int = 0):
+    """Steps 2-4 of the two-level solve on this rank's row group: the
+    packed masks and the cell areas (r, W) in the row-group layout (rank
+    g's rows [g*r, (g+1)*r)).  Returns (A, vis float) in that layout."""
     H, W = grid.shape
     rows_loc = H // mesh.size
     band = band or _pick_dist_band(rows_loc)
@@ -59,12 +78,9 @@ def flow_solve_sharded_twolevel(code, area2d, mouth, grid: Grid, mesh: Mesh,
         raise ValueError(f"two-level sharded solve: grid {grid.shape}, mesh "
                          f"{mesh.shape}, band {band}")
 
-    packed_b = sharded_call(pack_masks, mesh)(code, mouth, grid)
-
-    # 1. blocks -> full-width row groups; the band edges are those of the
-    #    grid (each rank's rows start at a multiple of the band)
-    pl_r = mask_local(blocks_to_rows(packed_b, mesh), band)
-    ar_r = blocks_to_rows(area2d, mesh)
+    # 1. the band edges are those of the grid (each rank's rows start at a
+    #    multiple of the band)
+    pl_r = mask_local(packed_r, band)
 
     # 2. local band solves
     A_loc, E = flow_local_solve(pl_r, ar_r, ar_r, band, with_exit=True)
@@ -100,6 +116,4 @@ def flow_solve_sharded_twolevel(code, area2d, mouth, grid: Grid, mesh: Mesh,
     # the reference re-solves vis through its XLA twin even on a TPU; the
     # seeded K10b kernel has the same fixpoint
     vis = flow_local_vis(pl_r, seed, band)
-
-    # 5. back to the blocks
-    return rows_to_blocks(A, mesh), rows_to_blocks(vis, mesh) > 0.5
+    return A, vis

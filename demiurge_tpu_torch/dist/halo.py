@@ -6,7 +6,8 @@ Counterpart of ``demiurge_tpu/dist/halo.py``.  The deep iterative solvers
 k-wide halo once, then run k sweeps on the padded block (validity shrinks
 one ring a sweep), and repeat: k times less communication than one
 exchange a sweep.  Static inputs (the 5-point coefficients, the packed
-flow masks) are padded once, before the rounds.
+flow masks) are padded once, before the rounds; the coefficients are
+built on the blocks (``dist.local``).
 
 Topology, as ``core.topology.shift``:
 
@@ -18,44 +19,212 @@ Topology, as ``core.topology.shift``:
   pole reverses the walk (the N/S coefficients swap in reflected halo
   rows) and tangent vectors (velocity halos negate).
 
-``ppermute`` is ``dist.mesh.permute`` (paired isend/irecv) and ``pmax``
-``dist.mesh.any_rank`` (all_reduce MAX).  The sweeps are plain PyTorch on
-each rank; the rank-local sweeps on the Jacobi kernels are later work.
+A halo exchange is one round of paired isend/irecv: the four edges, the
+four corners and the cap rows, each straight from the rank that holds it
+(``post_halo``), then one wait for all of them (``PendingHalo.finish``).
+With ``OVERLAP`` on, the solvers sweep the centre of the block, which
+needs no halo, between the two (``_overlapped_ksweeps``, the reference's
+split); ``LAST_OVERLAP`` records whether they did.  ``pmax`` is
+``dist.mesh.any_rank`` (all_reduce MAX).  The sweeps are plain PyTorch
+on each rank; the rank-local sweeps on the Jacobi kernels are later
+work.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.grid import Grid
 from ..core.topology import NEIGHBORS_FLOW_ORDER, _pole_col_shift
-from .mesh import Mesh, any_rank, permute, sharded_call
+from .mesh import TRAFFIC, Mesh, _nbytes, _wire, any_rank, permute
+
+#: whether the solvers split each halo round that waits on another rank
+#: into the block's centre, swept while the exchange is in flight, and
+#: its frame (the reference's order).  Off: the split costs four more
+#: strips of sweeps a round, and no run has yet shown the overlap paying
+#: for them (PERF.md; ``tools/scaling_bench.py --overlap`` turns it on)
+OVERLAP = False
+
+#: the last solve's halo rounds: rounds run, rounds split into a centre
+#: and a frame, and split rounds whose centre sweeps were issued while
+#: their exchange was in flight (posted, not yet waited for)
+LAST_OVERLAP: dict = {"rounds": 0, "split": 0, "in_flight": 0}
+
+_REGIONS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+            if (dy, dx) != (0, 0)]
 
 
-def _ring(x, mesh: Mesh, axis: str, s: int):
-    """Along the mesh axis ('x' or 'y') as a ring: send ``x`` to the rank
-    s steps on, receive from the rank s steps back."""
-    if axis == "x":
-        n, i = mesh.nx, mesh.xi
-        rank = lambda j: mesh.rank_of(mesh.yi, j % n)  # noqa: E731
+def _source(Y: int, X: int, dy: int, dx: int, h: int, w: int, k: int,
+            grid: Grid, mesh: Mesh):
+    """Where halo region (dy, dx) of rank (Y, X)'s padded block comes
+    from: (rank, block rows, block columns, across a pole), or None where
+    it is zeros (beyond an edge that does not wrap).  Rows beyond a pole
+    are the pole band's rows flipped, half a world round."""
+    W = grid.width
+    cols = {-1: X * w - k + np.arange(k), 0: X * w + np.arange(w),
+            1: X * w + w + np.arange(k)}[dx] % W
+    Yp, pole = Y + dy, False
+    if 0 <= Yp < mesh.ny:
+        rows = {-1: np.arange(h - k, h), 0: np.arange(h),
+                1: np.arange(k)}[dy]
+    elif (grid.wrap_south if dy < 0 else grid.wrap_north):
+        Yp, pole = (0, True) if dy < 0 else (mesh.ny - 1, True)
+        rows = (np.arange(k - 1, -1, -1) if dy < 0
+                else np.arange(h - 1, h - k - 1, -1))
+        cols = (cols + _pole_col_shift(grid)) % W
     else:
-        n, i = mesh.ny, mesh.yi
-        rank = lambda j: mesh.rank_of(j % n, mesh.xi)  # noqa: E731
-    return permute(x, rank(i + s), rank(i - s), mesh)
+        return None
+    xs = cols // w
+    if not (xs == xs[0]).all():
+        raise ValueError("the polar cap needs an even number of x shards")
+    return mesh.rank_of(Yp, int(xs[0])), rows, cols - xs[0] * w, pole
 
 
-def _band_from_prev(x, mesh: Mesh):
-    """Along 'y', not a ring: rank yi gets ``x`` of yi - 1 (zeros at 0)."""
-    up = mesh.rank_of(mesh.yi + 1, mesh.xi) if mesh.yi < mesh.ny - 1 else None
-    down = mesh.rank_of(mesh.yi - 1, mesh.xi) if mesh.yi > 0 else None
-    return permute(x, up, down, mesh)
+def _runs(idx: np.ndarray):
+    """An index list as runs of consecutive indices: [(start, stop)]."""
+    cut = np.flatnonzero(np.diff(idx) != 1) + 1
+    return tuple((int(r[0]), int(r[-1]) + 1) for r in np.split(idx, cut))
 
 
-def _band_from_next(x, mesh: Mesh):
-    """Along 'y': rank yi gets ``x`` of yi + 1 (zeros at ny - 1)."""
-    up = mesh.rank_of(mesh.yi + 1, mesh.xi) if mesh.yi < mesh.ny - 1 else None
-    down = mesh.rank_of(mesh.yi - 1, mesh.xi) if mesh.yi > 0 else None
-    return permute(x, down, up, mesh)
+def _cut(rows: np.ndarray, cols: np.ndarray):
+    """Block rows and columns as slices: (first row, row after the last,
+    flipped, column runs).  The rows are one run, ascending or (beyond a
+    pole) descending; the columns one run or (a cap on one x shard, half
+    a world round) two."""
+    flip = bool(rows[0] > rows[-1])
+    r0, r1 = (int(rows[-1]), int(rows[0]) + 1) if flip else \
+        (int(rows[0]), int(rows[-1]) + 1)
+    return r0, r1, flip, _runs(cols)
+
+
+def _spans(h: int, w: int, k: int, dy: int, dx: int):
+    """Region (dy, dx)'s rows and columns in the padded block."""
+    return ({-1: slice(0, k), 0: slice(k, k + h), 1: slice(k + h, None)}[dy],
+            {-1: slice(0, k), 0: slice(k, k + w), 1: slice(k + w, None)}[dx])
+
+
+class _Plan:
+    """Rank (yi, xi)'s exchange of the k-wide halo of its (h, w) block:
+    ``own`` the regions it copies from its own block, (padded rows,
+    padded columns, ``_cut``, across a pole); ``remote`` the regions to
+    receive, (region, rank); ``zero`` the regions beyond an edge that
+    does not wrap; ``send`` the pieces of its block it sends, in the
+    order each receiver posts its receives: (dst rank, ``_cut``, across a
+    pole)."""
+
+    def __init__(self, h, w, k, grid, ny, nx, yi, xi):
+        mesh = Mesh(ny, nx, yi, xi, torch.device("cpu"), None)
+        me = mesh.rank
+        self.own, self.remote, self.zero = [], [], []
+        for region in _REGIONS:
+            src = _source(yi, xi, *region, h, w, k, grid, mesh)
+            rs, cs = _spans(h, w, k, *region)
+            if src is None:
+                self.zero.append((rs, cs))
+            elif src[0] == me:
+                self.own.append((rs, cs, _cut(src[1], src[2]), src[3]))
+            else:
+                self.remote.append(((rs, cs), src[0]))
+        self.send = []
+        for q in range(ny * nx):
+            if q == me:
+                continue
+            Y, X = divmod(q, nx)
+            for region in _REGIONS:
+                src = _source(Y, X, *region, h, w, k, grid, mesh)
+                if src is not None and src[0] == me:
+                    self.send.append((q, _cut(src[1], src[2]), src[3]))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(h: int, w: int, k: int, grid: Grid, ny: int, nx: int, yi: int,
+          xi: int) -> _Plan:
+    return _Plan(h, w, k, grid, ny, nx, yi, xi)
+
+
+def _put(out, block, cut, negate: bool):
+    """Copy the piece of ``block`` at ``cut`` into ``out``, a region of
+    the padded block: its rows (flipped beyond a pole), then one slice
+    copy a column run, negated where ``negate``."""
+    r0, r1, flip, runs = cut
+    rows = block[r0:r1]
+    if flip:
+        rows = torch.flip(rows, dims=[0])
+    c = 0
+    for a, b in runs:
+        part = rows[:, a:b]
+        dst = out[:, c:c + b - a]
+        if negate:
+            torch.neg(part, out=dst)
+        else:
+            dst.copy_(part)
+        c += b - a
+
+
+class PendingHalo:
+    """A posted halo exchange: the padded block with this rank's own
+    pieces in place, the receive buffers and the requests in flight.
+    ``remote`` is whether any piece comes from another rank; ``finish``
+    waits for every request and returns the padded block."""
+
+    def __init__(self, padded, dtype, recvs, requests, sends):
+        self.padded, self.dtype = padded, dtype
+        self.recvs, self.requests = recvs, requests
+        self._sends = sends  # kept alive until the wait
+        self.remote = bool(requests)
+        self.waited = False
+
+    def finish(self) -> torch.Tensor:
+        for req in self.requests:
+            req.wait()
+        self.waited = True
+        self._sends = None
+        out = self.padded
+        for (rs, cs), buf in self.recvs:
+            out[rs, cs] = buf
+        return out.to(self.dtype)
+
+
+def post_halo(block, k: int, grid: Grid, mesh: Mesh,
+              negate_pole: bool = False) -> PendingHalo:
+    """Post the k-wide halo exchange of this rank's (h, w) block: every
+    isend and irecv of the round at once (edges, corners, the cap rows),
+    and the pieces this rank holds itself copied into place (slice
+    copies).  ``negate_pole`` flips the sign of the pole-cap halo rows
+    (velocity components reverse across a pole)."""
+    if not grid.wrap_x:
+        raise NotImplementedError("halo exchange needs an x-periodic grid")
+    poles = grid.wrap_south or grid.wrap_north
+    if poles and mesh.nx > 1 and mesh.nx % 2:
+        raise ValueError("the polar cap needs an even number of x shards")
+    h, w = block.shape
+    plan = _plan(h, w, k, grid, mesh.ny, mesh.nx, mesh.yi, mesh.xi)
+    wire = _wire(block)
+    ops, sends = [], []
+    for q, (r0, r1, flip, runs), pole in plan.send:
+        piece = wire.new_empty((r1 - r0, sum(b - a for a, b in runs)))
+        _put(piece, wire, (r0, r1, flip, runs), pole and negate_pole)
+        sends.append(piece)
+        ops.append(dist.P2POp(dist.isend, piece, q))
+    padded = wire.new_empty((h + 2 * k, w + 2 * k))
+    padded[k:k + h, k:k + w] = wire
+    for rs, cs, cut, pole in plan.own:
+        _put(padded[rs, cs], wire, cut, pole and negate_pole)
+    for rs, cs in plan.zero:
+        padded[rs, cs] = 0
+    recvs = []
+    for (rs, cs), src in plan.remote:
+        buf = torch.empty((padded[rs, cs].shape), dtype=wire.dtype,
+                          device=block.device)
+        TRAFFIC["permute"] += _nbytes(buf)
+        recvs.append(((rs, cs), buf))
+        ops.append(dist.P2POp(dist.irecv, buf, src))
+    requests = dist.batch_isend_irecv(ops) if ops else []
+    return PendingHalo(padded, block.dtype, recvs, requests, sends)
 
 
 def exchange_halo(block, k: int, grid: Grid, mesh: Mesh,
@@ -64,39 +233,7 @@ def exchange_halo(block, k: int, grid: Grid, mesh: Mesh,
     neighbours: (h+2k, w+2k), whose stencils up to k rings deep match the
     single-device wrap topology.  ``negate_pole`` flips the sign of the
     pole-cap halo rows (velocity components reverse across a pole)."""
-    if not grid.wrap_x:
-        raise NotImplementedError("halo exchange needs an x-periodic grid")
-    poles = grid.wrap_south or grid.wrap_north
-    if poles and mesh.nx > 1 and mesh.nx % 2:
-        raise ValueError("the polar cap needs an even number of x shards")
-
-    # E/W ring (dateline periodic)
-    if mesh.nx > 1:
-        west = _ring(block[:, -k:], mesh, "x", 1)
-        east = _ring(block[:, :k], mesh, "x", -1)
-    else:
-        west, east = block[:, -k:], block[:, :k]
-    padded = torch.cat([west, block, east], dim=1)
-
-    # N/S bands
-    south = _band_from_prev(padded[-k:], mesh)
-    north = _band_from_next(padded[:k], mesh)
-
-    # polar caps: flipped head/tail rows from the antipodal x shard
-    def cap(rows):
-        if mesh.nx > 1:
-            rows = _ring(torch.flip(rows, dims=[0]), mesh, "x", mesh.nx // 2)
-        else:  # the antipode is in this block: roll the unpadded rows
-            rows = torch.roll(torch.flip(rows[:, k:-k], dims=[0]),
-                              -_pole_col_shift(grid), dims=1)
-            rows = torch.cat([rows[:, -k:], rows, rows[:, :k]], dim=1)
-        return -rows if negate_pole else rows
-
-    if grid.wrap_south and mesh.yi == 0:
-        south = cap(padded[:k])
-    if grid.wrap_north and mesh.yi == mesh.ny - 1:
-        north = cap(padded[-k:])
-    return torch.cat([south, padded, north], dim=0)
+    return post_halo(block, k, grid, mesh, negate_pole).finish()
 
 
 def exchange_rows_halo(block, k: int, mesh: Mesh, grid: Grid = None,
@@ -159,14 +296,61 @@ def _sweep5(p, cN, cS, cE, cW, cC, b):
 def _ksweeps(p_b, k: int, coeffs, exchange, n_sw=None):
     """k sweeps of this rank's block after one k-wide halo refresh, on the
     padded block; its centre is the result.  ``n_sw``: only the first
-    ``n_sw`` sweeps run.  (The reference splits the block into a centre
-    and a frame so that XLA can overlap the exchange with the centre's
-    sweeps; eager PyTorch finishes the exchange first, so the split would
-    only add launches.)"""
+    ``n_sw`` sweeps run.  The monolithic order, which
+    ``_overlapped_ksweeps`` equals bit for bit."""
     pp = exchange(p_b)
     for _ in range(k if n_sw is None else min(n_sw, k)):
         pp = _sweep5(pp, *coeffs)
     return pp[k:-k, k:-k]
+
+
+def _overlapped_ksweeps(p_b, k: int, coeffs, post, n_sw=None,
+                        split=None):
+    """``_ksweeps`` with the exchange overlapped (the reference's
+    ``_overlapped_ksweeps``): post the exchange, sweep the centre of the
+    block (out rows and columns [2k, h-2k)), which reads only this rank's
+    own cells, wait, then sweep the four frame strips from the padded
+    block.  Every cell sees the same stencil inputs as in the monolithic
+    order, so the result is the same bit for bit.  ``post`` posts the
+    exchange (``post_halo``).  The monolithic order where the block is too
+    small to split (h or w < 4k), and with ``split=None`` unless
+    ``OVERLAP`` is on and a piece comes from another rank (on a 1x1 mesh
+    nothing is in flight); ``split=True`` or ``False`` decides alone."""
+    h, w = p_b.shape
+    n = k if n_sw is None else min(n_sw, k)
+
+    def run(block, csl):
+        for _ in range(n):
+            block = _sweep5(block, *csl)
+        return block
+
+    def crop(r0, r1, c0, c1):
+        return tuple(c[r0:r1, c0:c1] for c in coeffs)
+
+    pending = post(p_b)
+    LAST_OVERLAP["rounds"] += 1
+    if split is None:
+        split = OVERLAP and pending.remote
+    if h < 4 * k or w < 4 * k or not split:
+        return run(pending.finish(), coeffs)[k:-k, k:-k]
+
+    # centre: block rows/cols [k, h-k) = padded [2k, h); after k sweeps
+    # its valid part is out rows/cols [2k, h-2k)
+    centre = run(p_b[k:h - k, k:w - k], crop(2 * k, h, 2 * k, w))
+    LAST_OVERLAP["split"] += 1
+    LAST_OVERLAP["in_flight"] += int(not pending.waited)
+    centre = centre[k:-k, k:-k]
+    pp = pending.finish()
+
+    # the frame strips from the padded block, each cropped to its core
+    S = run(pp[0:4 * k, :], crop(0, 4 * k, 0, w + 2 * k))[k:3 * k, k:-k]
+    N = run(pp[h - 2 * k:h + 2 * k, :],
+            crop(h - 2 * k, h + 2 * k, 0, w + 2 * k))[k:3 * k, k:-k]
+    Wst = run(pp[2 * k:h, 0:4 * k], crop(2 * k, h, 0, 4 * k))[k:-k, k:3 * k]
+    E = run(pp[2 * k:h, w - 2 * k:w + 2 * k],
+            crop(2 * k, h, w - 2 * k, w + 2 * k))[k:-k, k:3 * k]
+    mid = torch.cat([Wst, centre, E], dim=1)
+    return torch.cat([S, mid, N], dim=0)
 
 
 def _padded_coefficients(coeffs, k: int, grid: Grid, mesh: Mesh):
@@ -179,52 +363,74 @@ def _padded_coefficients(coeffs, k: int, grid: Grid, mesh: Mesh):
 def pressure_solve_sharded(divw, terrain, grid: Grid, mesh: Mesh,
                            iters: int = 5000, k: int = 8) -> torch.Tensor:
     """The pressure Poisson solve on blocks: k sweeps per k-wide halo
-    exchange of p (the coefficients are folded and padded once), from
-    zero.  ceil(iters / k) rounds of k sweeps, as the reference runs."""
+    exchange of p (``_overlapped_ksweeps``; the coefficients are built on
+    the blocks with a 1-ring halo, or on the gathered fields where the
+    local stages do not apply, then folded and padded once), from zero.
+    ceil(iters / k) rounds of k sweeps, as the reference runs."""
     from ..kernels.jacobi import coefficients
+    from .local import block_or_gathered
 
-    coeffs = sharded_call(coefficients, mesh)(divw, terrain, grid)
+    LAST_OVERLAP.update(rounds=0, split=0, in_flight=0)
+    coeffs = block_or_gathered(coefficients, grid, mesh, 1, halo=(1,))(
+        divw, terrain, grid)
     padded = _padded_coefficients(coeffs, k, grid, mesh) \
         + (exchange_halo(coeffs[5], k, grid, mesh),)
     p = torch.zeros_like(divw)
     for _ in range((iters + k - 1) // k):
-        p = _ksweeps(p, k, padded, lambda q: exchange_halo(q, k, grid, mesh))
+        p = _overlapped_ksweeps(p, k, padded,
+                                lambda q: post_halo(q, k, grid, mesh))
     return p
 
 
 def diffusion_solve_sharded(u, v, terrain, grid: Grid, mesh: Mesh,
                             iters: int = 50, k: int = 10):
     """The implicit-viscosity solve on blocks: k sweeps per halo exchange
-    of each of (u, v), velocity pole halos negated; the last round runs
-    the remainder of ``iters``."""
+    of each of (u, v) (``_overlapped_ksweeps``), velocity pole halos
+    negated; the last round runs the remainder of ``iters``.  The
+    coefficients as in ``pressure_solve_sharded``."""
     from ..kernels.jacobi import diffusion_coefficients
+    from .local import block_or_gathered
 
-    coeffs = sharded_call(diffusion_coefficients, mesh)(terrain, grid)
+    LAST_OVERLAP.update(rounds=0, split=0, in_flight=0)
+    coeffs = block_or_gathered(diffusion_coefficients, grid, mesh, 1,
+                               halo=(0,))(terrain, grid)
     padded = _padded_coefficients(coeffs, k, grid, mesh)
     padded = padded + (torch.zeros_like(padded[0]),)
     n_rounds = (iters + k - 1) // k
     quotas = [k] * (n_rounds - 1) + [iters - (n_rounds - 1) * k]
 
-    def exch(q):
-        return exchange_halo(q, k, grid, mesh, negate_pole=True)
+    def post(q):
+        return post_halo(q, k, grid, mesh, negate_pole=True)
 
     for n_sw in quotas:
-        u = _ksweeps(u, k, padded, exch, n_sw=n_sw)
-        v = _ksweeps(v, k, padded, exch, n_sw=n_sw)
+        u = _overlapped_ksweeps(u, k, padded, post, n_sw=n_sw)
+        v = _overlapped_ksweeps(v, k, padded, post, n_sw=n_sw)
     return u, v
 
 
 def flow_solve_sharded(code, area2d, mouth, grid: Grid, mesh: Mesh,
                        k: int = 16, max_iters: int = 1 << 20):
     """The flow fixpoint on blocks, the fallback where the two-level solve
-    does not apply: k sweeps of the joint (A, vis) relaxation per k-wide
-    halo exchange, the packed masks padded once, until a round changes
-    nothing on any rank.  Same fixpoint as ``ops.flow.flow_solve_stencil``
-    (the cross-pole bits are masked off, so the pole-cap halo rows are
-    never read).  Returns (A, vis bool)."""
+    does not apply: the packed masks built on the blocks (``pack_masks``
+    with a 1-ring halo of the codes; on the gathered fields where the
+    local stages do not apply), then ``flow_solve_sharded_packed``.
+    Returns (A, vis bool)."""
     from ..kernels.flow import pack_masks
+    from .local import block_or_gathered
 
-    packed_b = sharded_call(pack_masks, mesh)(code, mouth, grid)
+    packed_b = block_or_gathered(pack_masks, grid, mesh, 1, halo=(0,))(
+        code, mouth, grid)
+    return flow_solve_sharded_packed(packed_b, area2d, grid, mesh, k,
+                                     max_iters)
+
+
+def flow_solve_sharded_packed(packed_b, area2d, grid: Grid, mesh: Mesh,
+                              k: int = 16, max_iters: int = 1 << 20):
+    """k sweeps of the joint (A, vis) relaxation per k-wide halo exchange,
+    the packed masks padded once, until a round changes nothing on any
+    rank.  Same fixpoint as ``ops.flow.flow_solve_stencil`` (the
+    cross-pole bits are masked off, so the pole-cap halo rows are never
+    read).  Returns (A, vis bool)."""
     packed = exchange_halo(packed_b, k, grid, mesh)
     area = exchange_halo(area2d, k, grid, mesh)
     inc = [(packed & (1 << i)) != 0 for i in range(8)]
@@ -240,7 +446,8 @@ def flow_solve_sharded(code, area2d, mouth, grid: Grid, mesh: Mesh,
             newvis = torch.maximum(newvis, torch.where(outs[i], vd, 0.0))
         return newA, newvis
 
-    A, vis = area2d, torch.where(mouth, 1.0, 0.0)
+    A = area2d
+    vis = torch.where((packed_b & (1 << 16)) != 0, 1.0, 0.0)
     for _ in range(0, max_iters, k):
         Ap = exchange_halo(A, k, grid, mesh)
         vp = exchange_halo(vis, k, grid, mesh)

@@ -8,17 +8,28 @@ layout ``P('y', 'x')`` gives in JAX.  One process drives one device.
 
 Two execution paths, as in the reference:
 
-- ``sharded_call``, the stand-in for GSPMD's ``sharded_jit``: it gathers
-  the block arguments, runs the unmodified single-device op (on its CUDA
-  kernels on the card) and returns this rank's block of each output.
-  Exact, since it is the same code; not communication-local.
-- the explicit paths in ``dist.halo``, ``dist.flowdist``,
+- the explicit paths in ``dist.local`` (the stencil stages: GSPMD's
+  partitioning written out), ``dist.halo``, ``dist.flowdist``,
   ``dist.climate`` and ``dist.advect``: halo exchanges by paired
-  ``isend``/``irecv`` and row regroups by ``all_to_all_single``.
+  ``isend``/``irecv`` and row regroups by ``all_to_all_single``;
+- ``sharded_call``, kept for the options and grids that have no local
+  form (regional grids, ``exact_quirks``, ``advect_method="exact"``, a
+  warm-started pressure solve, a climate deeper than a rank's rows): it
+  gathers the block arguments, runs the unmodified single-device op and
+  returns this rank's block of each output.  Exact, since it is the same
+  code; not communication-local.
 
 ``initialize`` joins the process group: from torchrun's environment, or a
 one-process group when there is none.  NCCL for CUDA tensors, gloo for CPU
 tensors (``core.platform.collective_backend``).
+
+Traffic counters: ``TRAFFIC`` holds the bytes this rank received from
+other ranks, by kind of collective ("gather_field", the full fields of
+``gather_field`` and ``sharded_call``; "permute", the halo exchanges;
+"all_to_all", the row regroups; "all_gather_rows"; "all_reduce"), and
+``CALLS`` the calls of ``sharded_call`` and ``gather_field`` ("field
+gathers", one a gathered argument).  ``reset_traffic`` zeroes both,
+``traffic`` reads them.
 """
 
 from __future__ import annotations
@@ -32,6 +43,27 @@ import torch
 import torch.distributed as dist
 
 from ..core.platform import claim_rank_device, collective_backend
+
+#: bytes received from other ranks, by kind (module docstring)
+TRAFFIC = {"gather_field": 0, "permute": 0, "all_to_all": 0,
+           "all_gather_rows": 0, "all_reduce": 0}
+#: calls of ``sharded_call``, and full-field gathers
+CALLS = {"sharded_call": 0, "field_gathers": 0}
+
+
+def reset_traffic() -> None:
+    for d in (TRAFFIC, CALLS):
+        for key in d:
+            d[key] = 0
+
+
+def traffic() -> dict:
+    """The counters: {"bytes": TRAFFIC, **CALLS}, copied."""
+    return {"bytes": dict(TRAFFIC), **CALLS}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -152,12 +184,14 @@ def gather_field(block: torch.Tensor, mesh: Mesh,
     rank, or with ``dst`` on that rank only (the others get None)."""
     wire = _wire(block)
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+    CALLS["field_gathers"] += 1
     if dst is None:
         dist.all_gather(parts, wire)
     else:
         dist.gather(wire, parts if mesh.rank == dst else None, dst=dst)
         if mesh.rank != dst:
             return None
+    TRAFFIC["gather_field"] += (mesh.size - 1) * _nbytes(wire)
     rows = [torch.cat(parts[y * mesh.nx:(y + 1) * mesh.nx], dim=1)
             for y in range(mesh.ny)]
     return torch.cat(rows, dim=0).to(block.dtype)
@@ -172,6 +206,7 @@ def blocks_to_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     r = x.shape[0] // mesh.nx
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=mesh.row_group)
+    TRAFFIC["all_to_all"] += _nbytes(out) * (mesh.nx - 1) // mesh.nx
     return out.reshape(mesh.nx, r, -1).permute(1, 0, 2).reshape(r, -1)
 
 
@@ -183,6 +218,7 @@ def rows_to_blocks(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     chunks = x.reshape(r, mesh.nx, W // mesh.nx).permute(1, 0, 2).contiguous()
     out = torch.empty_like(chunks)
     dist.all_to_all_single(out, chunks, group=mesh.row_group)
+    TRAFFIC["all_to_all"] += _nbytes(out) * (mesh.nx - 1) // mesh.nx
     return out.reshape(mesh.nx * r, W // mesh.nx)
 
 
@@ -203,6 +239,8 @@ def permute(x: torch.Tensor, dst: Optional[int], src: Optional[int],
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if src is not None:
+        TRAFFIC["permute"] += _nbytes(out)
     return out.to(x.dtype)
 
 
@@ -211,13 +249,27 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     wire = _wire(x)
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
     dist.all_gather(parts, wire)
+    TRAFFIC["all_gather_rows"] += (mesh.size - 1) * _nbytes(wire)
     return torch.cat(parts, dim=0).to(x.dtype)
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
+    """``t`` summed (or its maximum, ``op="max"``) over every rank, on
+    every rank (a new tensor)."""
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX)
+    if mesh.size > 1:
+        TRAFFIC["all_reduce"] += _nbytes(t)
+    return t
 
 
 def any_rank(flag: bool, mesh: Mesh) -> bool:
     """Whether ``flag`` holds on any rank (JAX's pmax over both axes)."""
     t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    if mesh.size > 1:
+        TRAFFIC["all_reduce"] += _nbytes(t)
     return bool(t.item())
 
 
@@ -241,6 +293,7 @@ def sharded_call(fn, mesh: Mesh):
     comes back as this rank's part (``local_part``)."""
 
     def call(*args, **kwargs):
+        CALLS["sharded_call"] += 1
         full = []
 
         def gather(a):

@@ -29,4 +29,6 @@ def launch_counts() -> dict:
             "jacobi_packed": jacobi_packed.LAUNCHES,
             "advect_stage": advect.LAUNCHES_STAGE,
             "advect_stage_one_row": advect.LAUNCHES_STAGE_ONE_ROW,
-            "flow_directions_packed": directions.LAUNCHES_PACKED}
+            "flow_directions_packed": directions.LAUNCHES_PACKED,
+            "blur_strip": blur.LAUNCHES_STRIP,
+            "flow_directions_strip": directions.LAUNCHES_STRIP}

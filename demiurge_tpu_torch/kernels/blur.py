@@ -21,7 +21,10 @@ same order.  A launch runs a group of iterations on full-width row bands
 in shared memory (``kernels/bands.py``), whose vertical reaches sum to the
 band's halo; an iteration that alone outgrows a band runs as two one-pass
 launches.  ``launches`` plans a call's.  ``LAUNCHES`` counts kernel
-launches.
+launches, ``LAUNCHES_STRIP`` those on a row window (``core.grid.Window``:
+a rank's row group with its halo, ``dist.local``), whose tables are the
+grid's at the window's rows and whose pole flags are on only where the
+window ends at a pole.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..core.topology import _pole_col_shift
 from . import bands
 
 LAUNCHES = 0
+LAUNCHES_STRIP = 0
 TAPS = 6  # taps of one pass besides the center: 3 offsets x 2 signs
 # a band's row (blur.cu): two buffers with margins, 4 ints; 128 floats of
 # slack
@@ -151,7 +155,7 @@ def launch_count(plan) -> int:
 def blur_cuda(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:
     """Every iteration on the card: ``launches(grid, rlist)``, out of place,
     on the current stream, no synchronisation."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_STRIP
     check_kernel_inputs(("field",), (field,), shape=grid.shape)
     if not grid.wrap_x:
         raise NotImplementedError("the blur needs an x-periodic grid")
@@ -178,12 +182,14 @@ def blur_cuda(field: torch.Tensor, grid: Grid, rlist) -> torch.Tensor:
                 b.cluster, b.seg, b.th, stream)
             build.check(err, "demiurge_blur_band")
             LAUNCHES += 1
+            LAUNCHES_STRIP += grid.base is not grid
         else:  # the vertical pass to tmp, the horizontal one to dst
             tmp = torch.empty_like(field)
             err = lib.demiurge_blur(src.data_ptr(), *ptrs, tmp.data_ptr(),
                                     dst.data_ptr(), *topo, 1, stream)
             build.check(err, "demiurge_blur")
             LAUNCHES += 2
+            LAUNCHES_STRIP += 2 * (grid.base is not grid)
         src = dst
     return src
 

@@ -20,7 +20,10 @@ kernel's packed form on the card; its twin is ``directions_packed_plain``.
 The tie-break noise and the per-row metric are built once per grid, by the
 same torch ops the twin uses, and handed to the kernel as tables.
 ``LAUNCHES`` counts kernel launches of both forms, ``LAUNCHES_PACKED``
-those of the packed form.
+those of the packed form, ``LAUNCHES_STRIP`` those of the codes form on a
+row window (``core.grid.Window``: a rank's row group with its halo,
+``dist.local``; the tables at the window's global rows, the window's
+rows clamped at its edges as the coordsMod grid clamps at the poles).
 
 Knife-edge ties: a pixel whose aspect lies within an ulp of an octant
 boundary, or of the tie-break threshold, can resolve to the neighbouring
@@ -44,6 +47,7 @@ from ..core.topology import NEIGHBORS_FLOW_ORDER, _pole_col_shift, shift
 PI = math.pi
 LAUNCHES = 0
 LAUNCHES_PACKED = 0
+LAUNCHES_STRIP = 0
 
 TILE = (16, 128)   # a block's tile, rows x columns: csrc/directions.cu's
                    # build, which refuses any other
@@ -53,7 +57,8 @@ _TABLES: dict = {}
 
 def tables(grid: Grid, device):
     """(q (H, W) tie-break noise, dx8 (H,) = 8 * dx of the coordsMod
-    grid), both float32 on ``device``, built once per grid."""
+    grid), both float32 on ``device``, built once per grid (a window's
+    at its global rows and columns)."""
     key = (grid, str(device))
     if key not in _TABLES:
         from ..ops.flow import _coords_mod_grid, tie_break_noise
@@ -123,7 +128,7 @@ def flow_directions_plain(hb, sel, grid: Grid) -> torch.Tensor:
 def flow_directions_cuda(hb, sel, grid: Grid) -> torch.Tensor:
     """The direction pass on the card: one launch on the current stream,
     no synchronisation."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_STRIP
     check_kernel_inputs(("hb", "sel"), (hb, sel), shape=grid.shape)
     if not grid.wrap_x:
         raise NotImplementedError(
@@ -139,6 +144,7 @@ def flow_directions_cuda(hb, sel, grid: Grid) -> torch.Tensor:
         code.data_ptr(), H, W, dy8(grid), *TILE, stream)
     build.check(err, "demiurge_flow_directions")
     LAUNCHES += 1
+    LAUNCHES_STRIP += grid.base is not grid
     return code
 
 

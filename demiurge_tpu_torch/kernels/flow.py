@@ -63,7 +63,7 @@ def pack_masks(code, mouth, grid: Grid) -> torch.Tensor:
     for i, (_, ok) in enumerate(_incoming_fields(code, grid)):
         packed = packed | torch.where(ok, 1 << i, 0).to(torch.int32)
     for i, (dx, dy) in enumerate(NEIGHBORS_FLOW_ORDER):
-        m = (code == DIR_CODE[(dx, dy)]) & _row_in_range(grid.height, dy,
+        m = (code == DIR_CODE[(dx, dy)]) & _row_in_range(grid, dy,
                                                          code.device)
         packed = packed | torch.where(m, 1 << (8 + i), 0).to(torch.int32)
     return packed | torch.where(mouth, 1 << 16, 0).to(torch.int32)

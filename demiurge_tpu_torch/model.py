@@ -60,16 +60,15 @@ def init_coupled(height: torch.Tensor, grid: Grid,
     ``height`` is this rank's block and so is every field of the state."""
     device = height.device
     uplift, h = erosion.init_uplift(height)
+    if mesh is not None:  # the block's own fields, built on the block
+        from .dist.local import block_window
+
+        grid = block_window(grid, mesh, 0)
     u, v = ocean.init_ocean(grid, device)
     fields = dict(
         sel=torch.ones(grid.shape, dtype=torch.float32, device=device),
         u=u, v=v, temperature=temperature.init_temperature(grid, device),
         flow_acc=torch.zeros(grid.shape, dtype=torch.float32, device=device))
-    if mesh is not None:
-        from .dist.mesh import local_part
-
-        fields = {k: local_part(x, grid.shape, mesh)
-                  for k, x in fields.items()}
     return CoupledState(
         height=h, uplift=uplift,
         t_index=torch.zeros((), dtype=torch.float32, device=device),
@@ -82,9 +81,12 @@ def coupled_step(state: CoupledState, grid: Grid,
     """One coupled step; returns the new state.
 
     ``mesh``: a ``dist.mesh.Mesh``; the state's fields are then this
-    rank's blocks, and the climate, the ocean's sampler and solvers and
-    the flow fixpoint run their block forms (``dist``), the other stages
-    on the gathered fields (``dist.mesh.sharded_call``)."""
+    rank's blocks, and every stage runs on this rank's block or row group
+    (``dist``: the climate on row groups, the ocean's stages and solvers
+    and the erosion pass on blocks with their halos, the flow's masks on
+    row groups and its fixpoint by the two-level solve); where a grid or
+    an option has no local form, that stage runs on the gathered fields
+    (``dist.mesh.sharded_call``)."""
     h = state.height
     T, ti = temperature.temperature_step(
         state.temperature, h, state.t_index, grid,
@@ -98,9 +100,9 @@ def coupled_step(state: CoupledState, grid: Grid,
                                       mesh=mesh)
     erode = erosion.erosion_pass
     if mesh is not None:
-        from .dist.mesh import sharded_call
+        from .dist.local import block_or_gathered
 
-        erode = sharded_call(erosion.erosion_pass, mesh)
+        erode = block_or_gathered(erode, grid, mesh, 1, halo=(0,))
     h = erode(h, fm, state.uplift, grid, cfg.erosion_factor,
               cfg.erosion_slope_exponent)
     return CoupledState(height=h, uplift=state.uplift, sel=state.sel, u=u,

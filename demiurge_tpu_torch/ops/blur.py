@@ -72,16 +72,19 @@ def vertical_taps(step: float):
 
 def horizontal_taps(grid: Grid, step: float, stretch_x: bool = True):
     """The six horizontal taps of one pass as per-row fractional column
-    offsets (numpy float32 (H,)), in the pass's order."""
-    r = np.arange(grid.height, dtype=np.float32)
-    t = (r + np.float32(0.5)) / np.float32(grid.height)
+    offsets (numpy float32 (H,)), in the pass's order (a window's rows of
+    the whole grid's taps)."""
+    H = grid.base.height
+    r = np.arange(H, dtype=np.float32)
+    t = (r + np.float32(0.5)) / np.float32(H)
     phi = t * np.float32(grid.phi1 - grid.phi0) + np.float32(grid.phi0)
     pf = np.cos(np.abs(phi))
+    rows = grid.rows_np()
     taps = []
     for off in _OFFSETS:
         for sign in (1.0, -1.0):
             ox = np.float32(sign * off * step)
-            taps.append(ox / pf if stretch_x else np.full_like(pf, ox))
+            taps.append((ox / pf if stretch_x else np.full_like(pf, ox))[rows])
     return taps
 
 

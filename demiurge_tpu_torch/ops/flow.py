@@ -98,9 +98,10 @@ def _hash2(px, py):
 def tie_break_noise(grid: Grid, device) -> torch.Tensor:
     """q = noise(st*resolution*2)*0.5+0.5 (FlowFilter.cpp:151).  The
     lattice points st*resolution*2 are the integers (2c+1, 2r+1), so the
-    value noise reduces to the raw hash there."""
-    c = torch.arange(grid.width, dtype=torch.float32, device=device)
-    r = torch.arange(grid.height, dtype=torch.float32, device=device)
+    value noise reduces to the raw hash there (a window's at its global
+    rows and columns)."""
+    c = grid.col_index(device).to(torch.float32)
+    r = grid.row_index(device).to(torch.float32)
     px = (2 * c + 1).reshape(1, -1).expand(grid.shape)
     py = (2 * r + 1).reshape(-1, 1).expand(grid.shape)
     return _hash2(px, py) * 0.5 + 0.5
@@ -261,23 +262,26 @@ def cell_area_lower_edge(grid: Grid, device, scale: float = 1e-5
 
 
 def _cell_area_build(grid: Grid, device, scale: float) -> torch.Tensor:
-    H, W = grid.shape
+    """The (H, W) table; a window's rows of the grid's per-row areas."""
+    H, W = grid.base.shape
     y = torch.arange(H, dtype=torch.float32, device=device).reshape(-1, 1) / H
     geoy = y * (grid.phi1 - grid.phi0) + grid.phi0
     pwx = grid.circumference * (grid.lam1 - grid.lam0) / (2 * PI) / W
     pwy = grid.circumference * (grid.phi1 - grid.phi0) / (2 * PI) / H
     area = pwy * pwx * torch.clamp(torch.cos(geoy), min=0.0) * scale
-    return area.expand(grid.shape).contiguous()
+    return grid.cut(area).expand(grid.shape).contiguous()
 
 
-def _row_in_range(H: int, dy: int, device) -> torch.Tensor:
-    """(H, 1) mask of the rows whose row r + dy exists (no pole wrap)."""
-    rows = torch.arange(H, device=device).reshape(-1, 1)
+def _row_in_range(grid: Grid, dy: int, device) -> torch.Tensor:
+    """(H, 1) mask of the rows whose row r + dy exists in the whole grid
+    (no pole wrap)."""
+    rows = grid.row_numbers(device)
+    H = grid.base.height
     if dy > 0:
         return rows < H - dy
     if dy < 0:
         return rows >= -dy
-    return torch.ones((H, 1), dtype=torch.bool, device=device)
+    return torch.ones((grid.height, 1), dtype=torch.bool, device=device)
 
 
 def _incoming_fields(code, grid: Grid):
@@ -291,7 +295,7 @@ def _incoming_fields(code, grid: Grid):
     fields = []
     for dx, dy in _SCAN_ORDER:
         ncode = shift(code, dx, dy, grid, pole_wrap=False)
-        ok = (ncode == DIR_CODE[(-dx, -dy)]) & _row_in_range(H, dy,
+        ok = (ncode == DIR_CODE[(-dx, -dy)]) & _row_in_range(grid, dy,
                                                              code.device)
         if not wrap and dx > 0:
             ok = ok & (cols < W - dx)
@@ -304,8 +308,7 @@ def _incoming_fields(code, grid: Grid):
 def _outgoing_masks(code, grid: Grid):
     """For each code 1..9 but 5, (offset, "my code points there and the
     target row exists")."""
-    H = grid.height
-    return [(CODE_DIR[c], (code == c) & _row_in_range(H, CODE_DIR[c][1],
+    return [(CODE_DIR[c], (code == c) & _row_in_range(grid, CODE_DIR[c][1],
                                                        code.device))
             for c in range(1, 10) if c != 5]
 
@@ -390,10 +393,12 @@ def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
     ``return_acc=True`` also returns the raw accumulation, to carry it.
 
     ``mesh``: the fields are this rank's blocks.  The pre-blur, directions
-    and masks run on the gathered fields (``sharded_call``); the fixpoint
-    is the two-level sharded solve (``dist.flowdist``) or, where that does
-    not apply, the halo-exchange relaxation (``dist.halo``); ``acc0`` is
-    not used there, as in the reference."""
+    and masks run on this rank's row group (``dist.local.
+    flow_masks_rows``), or on the gathered fields (``sharded_call``) where
+    that does not apply; the fixpoint is the two-level sharded solve
+    (``dist.flowdist``) or, where that does not apply, the halo-exchange
+    relaxation (``dist.halo``); ``acc0`` is not used there, as in the
+    reference."""
     if mesh is not None:
         return _flow_filter_sharded(height, sel, grid, exponent, preblur,
                                     acc0, return_acc, mesh)
@@ -408,22 +413,39 @@ def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
 
 def _flow_filter_sharded(height, sel, grid: Grid, exponent, preblur, acc0,
                          return_acc, mesh):
+    from ..dist import local
     from ..dist.flowdist import (flow_sharded_twolevel_supported,
-                                 flow_solve_sharded_twolevel)
-    from ..dist.halo import flow_solve_sharded
-    from ..dist.mesh import local_part, sharded_call
+                                 flow_solve_rows_twolevel)
+    from ..dist.halo import flow_solve_sharded, flow_solve_sharded_packed
+    from ..dist.mesh import rows_to_blocks, sharded_call
 
     if not grid.wrap_x:
         return sharded_call(flow_filter_device, mesh)(
             height, sel, grid, exponent, preblur, acc0, return_acc)
-    code, mouth = sharded_call(_codes_and_mouths, mesh)(height, sel, grid,
-                                                        preblur)
-    area = local_part(cell_area_lower_edge(grid, height.device), grid.shape,
-                      mesh)
-    if flow_sharded_twolevel_supported(grid, mesh):
-        acc, vis = flow_solve_sharded_twolevel(code, area, mouth, grid, mesh)
+    dev = height.device
+    area = cell_area_lower_edge(local.block_window(grid, mesh, 0), dev)
+    if local.flow_rows_supported(grid, mesh, preblur):
+        _, _, packed_r = local.flow_masks_rows(height, sel, grid, mesh,
+                                               preblur)
+        if flow_sharded_twolevel_supported(grid, mesh):
+            area_r = cell_area_lower_edge(local.rows_window(grid, mesh, 0),
+                                          dev)
+            acc, vis = flow_solve_rows_twolevel(packed_r, area_r, grid, mesh)
+            acc, vis = rows_to_blocks(acc, mesh), rows_to_blocks(vis, mesh)
+            vis = vis > 0.5
+        else:
+            acc, vis = flow_solve_sharded_packed(
+                rows_to_blocks(packed_r, mesh), area, grid, mesh)
     else:
-        acc, vis = flow_solve_sharded(code, area, mouth, grid, mesh)
+        code, mouth = sharded_call(_codes_and_mouths, mesh)(height, sel,
+                                                            grid, preblur)
+        if flow_sharded_twolevel_supported(grid, mesh):
+            from ..dist.flowdist import flow_solve_sharded_twolevel
+
+            acc, vis = flow_solve_sharded_twolevel(code, area, mouth, grid,
+                                                   mesh)
+        else:
+            acc, vis = flow_solve_sharded(code, area, mouth, grid, mesh)
     out = torch.where(vis, torch.pow(acc, exponent), -1.0)
     return (out, acc) if return_acc else out
 

@@ -130,9 +130,13 @@ def stage_tables(grid: Grid, device) -> StageTables:
     call."""
     key = (grid, str(device))
     if key not in _TABLES:
-        lam1d, phi1d = grid.lam_phi(device)
-        parts = (torch.sin(lam1d), torch.cos(lam1d), torch.sin(phi1d),
-                 torch.cos(phi1d), *wind_profile(grid, device))
+        if grid.base is not grid:  # a window: the grid's tables, cut
+            parts = tuple(grid.cut(t)
+                          for t in stage_tables(grid.base, device)[:6])
+        else:
+            lam1d, phi1d = grid.lam_phi(device)
+            parts = (torch.sin(lam1d), torch.cos(lam1d), torch.sin(phi1d),
+                     torch.cos(phi1d), *wind_profile(grid, device))
         flat = torch.cat([t.reshape(-1) for t in parts]).contiguous()
         _TABLES[key] = StageTables(*parts, flat)
     return _TABLES[key]
@@ -168,8 +172,10 @@ def tap_radius_y(grid: Grid, cfg: OceanConfig) -> int:
 
 
 def _row_col(grid: Grid, device):
-    c = torch.arange(grid.width, dtype=torch.float32, device=device)
-    r = torch.arange(grid.height, dtype=torch.float32, device=device)
+    """Each pixel's column (1, W) and row (H, 1) as float32 (a window's
+    global ones)."""
+    c = grid.col_index(device).to(torch.float32)
+    r = grid.row_index(device).to(torch.float32)
     return c.reshape(1, -1), r.reshape(-1, 1)
 
 
@@ -257,12 +263,19 @@ def _departure(u, v, grid: Grid, cfg: OceanConfig):
 
 
 def advect_clamped_fraction(u, v, terrain, grid: Grid,
-                            cfg: OceanConfig) -> torch.Tensor:
+                            cfg: OceanConfig, mesh=None) -> torch.Tensor:
     """Fraction of ocean pixels whose backtraced displacement exceeds the
-    tiered tap radii — pixels the sampler's cap would distort."""
+    tiered tap radii — pixels the sampler's cap would distort.  Under a
+    ``mesh`` the fields are this rank's blocks; the two counts are summed
+    over the ranks (exact: whole numbers)."""
     H, W = grid.shape
-    s2, t2 = _departure(u, v, grid, cfg)[:2]
-    c, r = _row_col(grid, u.device)
+    part = grid
+    if mesh is not None:
+        from ..dist.local import block_window
+
+        part = block_window(grid, mesh, 0)
+    s2, t2 = _departure(u, v, part, cfg)[:2]
+    c, r = _row_col(part, u.device)
     dx = s2 * W - 0.5 - c
     dx = torch.remainder(dx + W / 2.0, float(W)) - W / 2.0   # shortest wrap
     dy = t2 * H - 0.5 - r
@@ -270,12 +283,17 @@ def advect_clamped_fraction(u, v, terrain, grid: Grid,
     # the last strip is short when H is not a whole number of strips (the
     # reference repeats H // len(radii) rows a strip, which then does not
     # cover H and fails to broadcast)
-    rxrow = _strip_radius_rows(radii, ka.STRIP, u.device)[:H]
+    rxrow = part.cut(_strip_radius_rows(radii, ka.STRIP, u.device)[:H])
     ry = tap_radius_y(grid, cfg)
     clamped = (torch.abs(dx) > rxrow) | (torch.abs(dy) > ry)
     water = terrain <= 0
-    return (torch.sum(torch.where(water & clamped, 1.0, 0.0))
-            / torch.clamp(torch.sum(torch.where(water, 1.0, 0.0)), min=1.0))
+    counts = (torch.sum(torch.where(water & clamped, 1.0, 0.0)),
+              torch.sum(torch.where(water, 1.0, 0.0)))
+    if mesh is not None:
+        from ..dist.mesh import all_reduce
+
+        counts = tuple(all_reduce(torch.stack(counts), mesh))
+    return counts[0] / torch.clamp(counts[1], min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -288,12 +306,12 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
 
     One card: the stage as one kernel launch on CUDA tensors, its twin
     ``advect_plain`` on CPU tensors (``kernels.advect.advect_stage``).
-    ``mesh``: the fields are this rank's blocks; the departure points run
-    on the gathered fields (``sharded_call``), the sampler on blocks with
-    one halo exchange and one global radius (``dist.advect``), the rest
-    elementwise on the blocks.  ``advect_method="exact"`` or a grid that is
-    not x-periodic: ``advect_gather`` (on the gathered fields under a
-    mesh)."""
+    ``mesh``: the fields are this rank's blocks; the departure points, an
+    elementwise stage, on the blocks with the blocks' own tables
+    (``dist.local``), the sampler on blocks with one halo exchange and one
+    global radius (``dist.advect``), the rest elementwise on the blocks.
+    ``advect_method="exact"`` or a grid that is not x-periodic:
+    ``advect_gather`` (on the gathered fields under a mesh)."""
     if cfg.advect_method != "fast" or not grid.wrap_x:
         if mesh is None:
             return advect_gather(u, v, terrain, grid, cfg)
@@ -302,15 +320,14 @@ def advect(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
         return sharded_call(advect_gather, mesh)(u, v, terrain, grid, cfg)
     if mesh is None:
         return ka.advect_stage(u, v, terrain, grid, cfg)
+    from ..dist import local
     from ..dist.advect import advect_sample_sharded
-    from ..dist.mesh import local_part, sharded_call
 
-    dep = sharded_call(_departure, mesh)(u, v, grid, cfg)
+    dep = local.block_call(_departure, mesh, 0)(u, v, grid, cfg)
     nu, nv = advect_sample_sharded(u, v, dep[0], dep[1], grid, mesh,
                                    Rx=cfg.tap_radius_x, Ry=cfg.tap_radius_y)
-    tab = stage_tables(grid, u.device)
-    wx, wy = (local_part(w, grid.shape, mesh) for w in (tab.wx, tab.wy))
-    return _advect_finish(nu, nv, dep, wx, wy, terrain, cfg)
+    tab = stage_tables(local.block_window(grid, mesh, 0), u.device)
+    return _advect_finish(nu, nv, dep, tab.wx, tab.wy, terrain, cfg)
 
 
 def advect_plain(u, v, terrain, grid: Grid, cfg: OceanConfig):
@@ -595,15 +612,18 @@ def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig(),
 
     ``mesh``: the fields are this rank's blocks; the sampler and the two
     iterative solvers run their block forms (``dist.advect``,
-    ``dist.halo``), divergence and projection run on the gathered fields
-    (``sharded_call``)."""
+    ``dist.halo``), divergence and projection on the blocks with a 1-ring
+    halo (``dist.local``; the velocity halo negated beyond a pole), or on
+    the gathered fields (``sharded_call``) where the local stages do not
+    apply."""
     if mesh is None:
         div_fn, project_fn = divergence, project
     else:
-        from ..dist.mesh import sharded_call
+        from ..dist.local import block_or_gathered
 
-        div_fn = sharded_call(divergence, mesh)
-        project_fn = sharded_call(project, mesh)
+        div_fn = block_or_gathered(divergence, grid, mesh, 1,
+                                   halo=(0, 1, 2), negate=(0, 1))
+        project_fn = block_or_gathered(project, grid, mesh, 1, halo=(2, 3))
     u, v = advect(u, v, terrain, grid, cfg, mesh=mesh)
     u, v = diffusion(u, v, terrain, grid, cfg, mesh=mesh)
     div = div_fn(u, v, terrain, grid, cfg)

@@ -3,7 +3,10 @@
 Counterpart of ``demiurge_tpu/utils/metrics.py``: per-step physical
 diagnostics (mass, divergence norm, mean temperature), throughput accounting
 (grid-points/s), and a JSON-lines step logger.  The reference's ``--xprof``
-trace flag is not ported; the CLI does not accept it.
+trace flag is not ported; the CLI does not accept it.  Under a ``mesh``
+(``dist.mesh``) the fields are this rank's blocks: each rank sums its own
+block and one all_reduce adds the sums, so no field leaves its rank (the
+sums' order differs from one device's, an ulp or so).
 """
 
 from __future__ import annotations
@@ -18,25 +21,64 @@ import torch
 from ..core.grid import Grid
 
 
-def mass(height: torch.Tensor, grid: Grid) -> torch.Tensor:
+def _block(grid: Grid, mesh):
+    """The grid, or this rank's block of it as a window (its tables)."""
+    if mesh is None:
+        return grid
+    from ..dist.local import block_window
+
+    return block_window(grid, mesh, 0)
+
+
+def _sum(parts, mesh):
+    """The sums of ``parts`` (0-d tensors) over every rank."""
+    if mesh is None:
+        return parts
+    from ..dist.mesh import all_reduce
+
+    return tuple(all_reduce(torch.stack(parts), mesh))
+
+
+def mass(height: torch.Tensor, grid: Grid, mesh=None) -> torch.Tensor:
     """Area-weighted land volume (conservation diagnostic)."""
-    area = grid.cell_area_rows(height.device)
-    return torch.sum(torch.clamp(height, min=0.0) * area)
+    area = _block(grid, mesh).cell_area_rows(height.device)
+    return _sum((torch.sum(torch.clamp(height, min=0.0) * area),), mesh)[0]
 
 
-def divergence_norm(u, v, terrain, grid: Grid, cfg=None) -> torch.Tensor:
+def divergence_norm(u, v, terrain, grid: Grid, cfg=None,
+                    mesh=None) -> torch.Tensor:
     """RMS divergence over the ocean (zero on land)."""
     from ..ops import ocean as _ocean
 
     cfg = cfg or _ocean.OceanConfig()
-    d = _ocean.divergence(u, v, terrain, grid, cfg)
-    return torch.sqrt(torch.mean(torch.where(terrain <= 0, d * d, 0.0)))
+    if mesh is None:
+        d = _ocean.divergence(u, v, terrain, grid, cfg)
+        return torch.sqrt(torch.mean(torch.where(terrain <= 0, d * d, 0.0)))
+    from ..dist.local import block_or_gathered
+
+    d = block_or_gathered(_ocean.divergence, grid, mesh, 1, halo=(0, 1, 2),
+                          negate=(0, 1))(u, v, terrain, grid, cfg)
+    (total,) = _sum((torch.sum(torch.where(terrain <= 0, d * d, 0.0)),),
+                    mesh)
+    return torch.sqrt(total / (grid.width * grid.height))
 
 
-def mean_temperature(T: torch.Tensor, grid: Grid) -> torch.Tensor:
+def mean_temperature(T: torch.Tensor, grid: Grid, mesh=None) -> torch.Tensor:
     """Area-weighted mean of the temperature field."""
-    area = grid.cell_area_rows(T.device)
-    return torch.sum(T * area) / torch.sum(area * torch.ones_like(T))
+    area = _block(grid, mesh).cell_area_rows(T.device)
+    num, den = _sum((torch.sum(T * area),
+                     torch.sum(area * torch.ones_like(T))), mesh)
+    return num / den
+
+
+def vmax(u, v, mesh=None) -> torch.Tensor:
+    """The largest current speed."""
+    top = torch.sqrt(u * u + v * v).max()
+    if mesh is None:
+        return top
+    from ..dist.mesh import all_reduce
+
+    return all_reduce(top, mesh, op="max")
 
 
 class StepLogger:

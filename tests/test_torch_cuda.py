@@ -322,6 +322,44 @@ def test_blur_kernel_equals_plain_twin(dev, shape, radius):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(512, 256), (2048, 1024)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("group", [0, 1, 3])
+def test_strip_kernels_equal_plain_forms(dev, shape, group):
+    """K5 and K6's codes form on a row strip, as the mesh step launches
+    them (``dist.local.flow_masks_rows``): row group ``group`` of 4 with
+    its 7 halo rows, ending at a pole for groups 0 and 3 (the window's
+    pole flag on there).  Each bit for bit against its plain form on the
+    strip, and the strip's blur equal to the whole grid's at the strip's
+    own rows."""
+    from demiurge_tpu_torch.core.grid import Window
+    from demiurge_tpu_torch.dist.local import flow_rows_reach
+    from demiurge_tpu_torch.kernels import blur as kb
+    from demiurge_tpu_torch.kernels import directions as kd
+    from demiurge_tpu_torch.ops.blur import sigma_list
+
+    grid, h = _terrain(*shape, dev)
+    W, H = shape
+    k, r = flow_rows_reach(0.5), H // 4
+    lo, hi = max(group * r - k, 0), min((group + 1) * r + k, H)
+    win = Window(W, hi - lo, grid.coords, grid.circumference, full=(W, H),
+                 row0=lo)
+    strip = h[lo:hi].contiguous()
+    rlist = sigma_list(0.5)
+    before = (kb.LAUNCHES_STRIP, kd.LAUNCHES_STRIP)
+    hb = kb.blur_cuda(strip, win, rlist)
+    code = kd.flow_directions_cuda(hb, torch.ones_like(hb), win)
+    torch.cuda.synchronize()
+    assert (kb.LAUNCHES_STRIP, kd.LAUNCHES_STRIP) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.equal(hb, kb.blur_plain(strip, win, rlist))
+    assert torch.equal(code, kd.flow_directions_plain(hb, torch.ones_like(
+        hb), win))
+    whole = kb.blur_cuda(h, grid, rlist)
+    own = slice(group * r - lo, group * r - lo + r)
+    assert torch.equal(hb[own], whole[group * r:(group + 1) * r])
+
+
 def test_band_kernels_raise_on_a_refused_launch(dev, monkeypatch):
     """A cluster that csrc/bands.cuh does not take (3 blocks) is refused
     by K1's and K5's entry points, and the wrappers raise; nothing is

@@ -185,8 +185,9 @@ def test_launch_counts_name_every_counter():
     assert {"advect_sample_pallas", "flow_solve_2d", "flow_solve_fused",
             "flow_solve_wave", "flow_banded_rounds", "jacobi_packed",
             "advect_stage", "advect_stage_one_row",
-            "flow_directions_packed"} <= names
-    assert len(names) == 19
+            "flow_directions_packed", "blur_strip",
+            "flow_directions_strip"} <= names
+    assert len(names) == 21
 
 
 def test_interop_round_trip_and_config():

@@ -1,13 +1,17 @@
-"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py.
+"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py
+and tests/test_torch_dist_local.py.
 
-    python tests/torch_mesh_worker.py INPUTS.npz OUTDIR NY NX RANK
+    python tests/torch_mesh_worker.py INPUTS.npz OUTDIR NY NX RANK [MODE]
 
 Joins a group of NY*NX processes through the file store OUTDIR/store,
 builds the NYxNX mesh, runs every sharded path of the port on the full
 fields in INPUTS.npz (each rank takes its block), gathers the results and,
-on rank 0, writes them to OUTDIR/out.npz.  It imports torch, numpy and the
-port only (never JAX), so the parent test can hold the results to the
-reference package.
+on rank 0, writes them to OUTDIR/out.npz.  MODE ``local`` runs the
+block-local stages (``dist.local``), the overlapped halo sweeps and the
+traffic counters instead; ``band`` the mesh paths of a grid without
+poles (the inputs' ``coords``).  It imports torch, numpy and the port only
+(never JAX), so the parent test can hold the results to the reference
+package.
 """
 
 import dataclasses
@@ -29,7 +33,134 @@ from demiurge_tpu_torch.dist import flowdist, halo  # noqa: E402
 from demiurge_tpu_torch.dist import mesh as dm  # noqa: E402
 
 
-def main(inputs, outdir, ny, nx, rank):
+def local_stages(grid, mesh, blk, meta, out):
+    """The block-local stages, the overlapped sweeps against the
+    monolithic ones, and the traffic of default coupled steps."""
+    from demiurge_tpu_torch.dist import local
+    from demiurge_tpu_torch.kernels import jacobi as kj
+    from demiurge_tpu_torch.kernels.flow import pack_masks
+    from demiurge_tpu_torch.model import CoupledConfig, coupled_step, \
+        init_coupled
+    from demiurge_tpu_torch.ops import erosion, ocean
+
+    def put(name, block):
+        out[name] = dm.gather_field(block, mesh).numpy()
+
+    def put_rows(name, rows):
+        out[name] = dm.all_gather_rows(rows, mesh).numpy()
+
+    cfg = ocean.OceanConfig()
+    u, v, t, p = blk["u"], blk["v"], blk["terrain"], blk["f"]
+    dep = local.block_call(ocean._departure, mesh, 0)(u, v, grid, cfg)
+    for i, d in enumerate(dep):
+        put(f"dep{i}", d.expand(u.shape).contiguous())
+    put("div", local.block_call(ocean.divergence, mesh, 1, halo=(0, 1, 2),
+                                negate=(0, 1))(u, v, t, grid, cfg))
+    pu, pv = local.block_call(ocean.project, mesh, 1, halo=(2, 3))(
+        u, v, p, t, grid, cfg)
+    put("proj_u", pu)
+    put("proj_v", pv)
+    for i, c in enumerate(local.block_call(kj.coefficients, mesh, 1,
+                                           halo=(1,))(blk["div"], t, grid)):
+        put(f"coef{i}", c)
+    for i, c in enumerate(local.block_call(kj.diffusion_coefficients, mesh,
+                                           1, halo=(0,))(t, grid)):
+        put(f"dcoef{i}", c)
+    code, mouth, packed = local.flow_masks_rows(blk["rough"], blk["sel"],
+                                                grid, mesh, 0.5)
+    put_rows("rows_code", code)
+    put_rows("rows_mouth", mouth)
+    put_rows("rows_packed", packed)
+    put("pack_b", local.block_call(pack_masks, mesh, 1, halo=(0,))(
+        blk["code"], blk["mouth"].bool(), grid))
+    put("erosion", local.block_call(erosion.erosion_pass, mesh, 1,
+                                    halo=(0,))(t, blk["fm"], blk["uplift"],
+                                               grid, 1.0, 1.0))
+
+    # the overlapped k sweeps against the monolithic ones: pressure (k 8,
+    # 3 rounds), viscosity (k 10, quotas 10, 10, 5, velocity halos
+    # negated), and a k the blocks are too small to split for (k 20)
+    dcoef = local.block_call(kj.diffusion_coefficients, mesh, 1,
+                             halo=(0,))(t, grid)
+    pcoef = local.block_call(kj.coefficients, mesh, 1, halo=(1,))(
+        blk["div"], t, grid)
+    for name, k, coeffs, quotas, neg in (
+            ("p", 8, pcoef, [8, 8, 8], False),
+            ("d", 10, dcoef + (torch.zeros_like(t),), [10, 10, 5], True),
+            ("fb", 20, dcoef + (torch.zeros_like(t),), [20], True)):
+        padded = halo._padded_coefficients(coeffs, k, grid, mesh) + (
+            halo.exchange_halo(coeffs[5], k, grid, mesh),)
+        mono, split = u, u
+        halo.LAST_OVERLAP.update(rounds=0, split=0, in_flight=0)
+        for n_sw in quotas:
+            mono = halo._ksweeps(mono, k, padded, lambda q: halo.exchange_halo(
+                q, k, grid, mesh, negate_pole=neg), n_sw=n_sw)
+            split = halo._overlapped_ksweeps(split, k, padded, lambda q: (
+                halo.post_halo(q, k, grid, mesh, negate_pole=neg)),
+                n_sw=n_sw, split=True)
+        put(f"sweep_{name}_mono", mono)
+        put(f"sweep_{name}_split", split)
+        ov = halo.LAST_OVERLAP
+        put_rows(f"overlap_{name}", torch.tensor(
+            [[ov["rounds"], ov["split"], ov["in_flight"]]]))
+
+    # the traffic of two default coupled steps, and of one exact_quirks
+    # step (its viscosity keeps sharded_call)
+    kinds = list(dm.TRAFFIC)
+
+    def read():
+        tr = dm.traffic()
+        return torch.tensor([[tr["sharded_call"], tr["field_gathers"]]
+                             + [tr["bytes"][k] for k in kinds]])
+
+    state = init_coupled(t, grid, mesh=mesh)
+    dm.reset_traffic()
+    state = coupled_step(state, grid, CoupledConfig(), mesh=mesh)
+    one = read()
+    coupled_step(state, grid, CoupledConfig(), mesh=mesh)
+    put_rows("traffic_default", torch.cat([one, read()]).reshape(1, -1))
+    quirks = CoupledConfig(climate_substeps=2, ocean=ocean.OceanConfig(
+        jacobi_iters=16, diffusion_iters=5, exact_quirks=True))
+    dm.reset_traffic()
+    coupled_step(state, grid, quirks, mesh=mesh)
+    put_rows("traffic_quirks", read())
+    out["traffic_kinds"] = np.asarray(json.dumps(kinds))
+
+
+def band_paths(grid, mesh, blk, out):
+    """The mesh paths of an x-periodic grid without poles, where the local
+    stages do not apply: the halo solvers with their coefficients built on
+    the gathered fields, the flow filter (its masks on the gathered
+    fields, the two-level fixpoint) and the halo fixpoint, with the
+    ``sharded_call``s they make."""
+    from demiurge_tpu_torch.ops import flow as tf
+    from demiurge_tpu_torch.ops import ocean
+
+    def put(name, block):
+        out[name] = dm.gather_field(block, mesh).numpy()
+
+    cfg = ocean.OceanConfig(jacobi_iters=24, diffusion_iters=25)
+    dm.reset_traffic()
+    put("pressure", ocean.pressure_solve(blk["div"], blk["terrain"], grid,
+                                         cfg, mesh=mesh))
+    du, dv = ocean.diffusion(blk["u"], blk["v"], blk["terrain"], grid, cfg,
+                             mesh=mesh)
+    put("diff_u", du)
+    put("diff_v", dv)
+    solvers = dm.traffic()["sharded_call"]
+    fm, acc = tf.flow_filter_device(blk["rough"], blk["sel"], grid,
+                                    return_acc=True, mesh=mesh)
+    put("fm", fm)
+    put("acc", acc)
+    area = dm.shard_field(tf.cell_area_lower_edge(grid, mesh.device), mesh)
+    A, vis = halo.flow_solve_sharded(blk["code"], area, blk["mouth"].bool(),
+                                     grid, mesh)
+    put("flowh_A", A)
+    put("flowh_vis", vis)
+    out["calls"] = np.asarray([solvers, dm.traffic()["sharded_call"]])
+
+
+def main(inputs, outdir, ny, nx, rank, mode=""):
     torch.set_num_threads(1)
     outdir = pathlib.Path(outdir)
     dist.init_process_group("gloo", init_method=f"file://{outdir}/store",
@@ -37,11 +168,19 @@ def main(inputs, outdir, ny, nx, rank):
     mesh = dm.make_mesh(shape=(ny, nx), device="cpu")
     data = dict(np.load(inputs))
     meta = json.loads(str(data.pop("meta")))
-    grid = Grid(*meta["shape"])
+    grid = Grid(*meta["shape"], **({"coords": tuple(meta["coords"])}
+                                   if "coords" in meta else {}))
     full = {k: torch.from_numpy(v) for k, v in data.items()}
     blk = {k: dm.shard_field(v, mesh) if v.dim() == 2 else v
            for k, v in full.items()}
     out = {}
+    if mode in ("local", "band"):
+        (local_stages(grid, mesh, blk, meta, out) if mode == "local"
+         else band_paths(grid, mesh, blk, out))
+        if rank == 0:
+            np.savez(outdir / "out.npz", **out)
+        dist.destroy_process_group()
+        return
 
     def put(name, block):
         out[name] = dm.gather_field(block, mesh).numpy()
@@ -119,4 +258,4 @@ def main(inputs, outdir, ny, nx, rank):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2], *map(int, sys.argv[3:6]))
+    main(sys.argv[1], sys.argv[2], *map(int, sys.argv[3:6]), *sys.argv[6:])
