@@ -104,21 +104,29 @@
 10. BASELINE config 1 with every launch counter at 0: the ``erosion`` CLI
    at its default 1024x512 for 5 steps (the full flow filter with lakes,
    then the erosion pass); fails unless K5 and K6's codes form launched
-   once a step (and the packed form never), the native lake solver ran
-   once a step, and every logged mass and the field are finite; held to
-   the same 5 iterations through the plain twins (the height beyond 1e-5
-   of max at no more than 1e-3 of the pixels, direction ties counted);
-   then 5 iterations written out stage by stage (equal to the CLI's
-   field), each stage timed on the host clock around a synchronize:
+   once a step (and the packed form never), K12 (the lake-aware
+   relaxation) once a sweep of every step's solve, the native lake solver
+   ran once a step, and every logged mass and the field are finite; held
+   to the same 5 iterations through the plain twins (the height beyond
+   1e-5 of max at no more than 1e-3 of the pixels, direction ties
+   counted); then 5 iterations written out stage by stage (equal to the
+   CLI's field), each stage timed on the host clock around a synchronize:
    pre-blur + directions + masks, the host lake solve with its copies,
-   the lake-aware relaxation with its sweeps, the flow map + erosion pass;
+   the lake-aware relaxation (K12) with its sweeps, the flow map +
+   erosion pass; then K12 against its twin on the first iteration's
+   inputs, on the same inputs without connections and on a 2000x1000
+   grid (the CLI's terrain there): A, vis and root bit for bit after 1, 7
+   and 64 sweeps, the whole solve bit for bit with the same sweeps, each
+   solve timed with CUDA events beside the twin's;
 10b. BASELINE config 2 with every launch counter at 0: the
    ``tectonic-erosion`` CLI at its default 2048x1024 for 6 steps (the
    tectonic uplift refreshed at steps 0 and 5, then phase 10's iteration);
    the same checks and twin bound as phase 10, 6 native lake solves; then
    the 6 iterations stage by stage (equal to the CLI's field), the
-   tectonic uplift timed in the iterations that run it, and
-   torch.profiler's count of device kernels in one tectonic step;
+   tectonic uplift timed in the iterations that run it, K12 against its
+   twin on the first iteration's inputs as in phase 10 (its row in the
+   kernels line), and torch.profiler's count of device kernels in one
+   tectonic step;
 12. the editor session (``api.Project``) at 2048x1024, the size of
    BASELINE configs 2, 3 and 5, with every launch counter at 0: ridged
    fBm (make_planet's parameters), the six other modes into layers, a
@@ -157,8 +165,9 @@
    prints the phase's time;
 11. prints the kernels' JSON line (each kernel form's own launches on the
    path that runs it: the stage and packed forms are not counted again
-   under the sampler and codes forms; K5 and K6's codes form count the
-   erosion and tectonic-erosion runs too, K1-K6 the editor session, and
+   under the sampler and codes forms; K5, K6's codes form and K12 count
+   the erosion and tectonic-erosion runs, K1-K6 and K12 the editor
+   session, and
    every kernel phase 13's CLI runs launched),
    the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
@@ -262,6 +271,7 @@ def main() -> int:
     from demiurge_tpu_torch.kernels import flow_deadends as kx
     from demiurge_tpu_torch.kernels import jacobi as kj
     from demiurge_tpu_torch.kernels import jacobi_packed as kp
+    from demiurge_tpu_torch.kernels import lakeflow as kl
     from demiurge_tpu_torch.ops import blur as ob
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
     from demiurge_tpu_torch.ops import flow as of
@@ -307,7 +317,8 @@ def main() -> int:
                 "advect_stage_one_row": (ka, "LAUNCHES_STAGE_ONE_ROW"),
                 "flow_directions_packed": (kd, "LAUNCHES_PACKED"),
                 "blur_strip": (kb, "LAUNCHES_STRIP"),
-                "flow_directions_strip": (kd, "LAUNCHES_STRIP")}
+                "flow_directions_strip": (kd, "LAUNCHES_STRIP"),
+                "lake_relax": (kl, "LAUNCHES")}
     # the kernels of the single-card coupled path; the mesh path's are
     # phase 8's, the one-row table's phase 4's, K11's phase 9's
     single_card = ["jacobi_pressure", "jacobi_diffusion", "climate", "blur",
@@ -349,7 +360,8 @@ def main() -> int:
                  (kd, "flow_directions", kd.flow_directions_plain),
                  (kd, "directions_packed", kd.directions_packed_plain),
                  (kf, "flow_solve_area", kf.flow_solve_area_plain),
-                 (kf, "vis_solve", kf.vis_solve_plain)]
+                 (kf, "vis_solve", kf.vis_solve_plain),
+                 (kl, "relax_sweep", kl.relax_sweep_twin)]
         with contextlib.ExitStack() as stack:
             for mod, name, fn in swaps:
                 stack.enter_context(mock.patch.object(mod, name, fn))
@@ -1827,15 +1839,26 @@ def main() -> int:
     def erosion_cli(cmd, size, steps):
         """The erosion command ``cmd`` at ``size`` for ``steps`` with every
         counter at 0; fails unless K5 and K6's codes form launched once a
-        step (the packed form never), the native solver ran once a step,
-        and every logged mass and the field are finite.  Returns (field,
-        each form's launches, seconds with the terrain)."""
+        step (the packed form never), K12 once a sweep of every step's
+        relaxation, the native solver ran once a step, and every logged
+        mass and the field are finite.  Returns (field, each form's
+        launches, seconds with the terrain)."""
+        solves = []   # (sweeps, K12 launches) of each relaxation
+        stencil = of.flow_solve_stencil
+
+        def counted_solve(*args, **kwargs):
+            launches0 = kl.LAUNCHES
+            out = stencil(*args, **kwargs)
+            solves.append((of.LAST_SOLVE["sweeps"], kl.LAUNCHES - launches0))
+            return out
+
         zero_counts()
         native0 = nlakes.CALLS
         log_text = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stderr(log_text):
+        with contextlib.redirect_stderr(log_text), mock.patch.object(
+                of, "flow_solve_stencil", counted_solve):
             out = cli.main([cmd, "--steps", str(steps)])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1849,13 +1872,17 @@ def main() -> int:
         fired = {k: v for k, v in forms.items() if v}
         print(f"launches on the {cmd} path ({steps} steps at "
               f"{size[0]}x{size[1]}): {json.dumps(fired)}; native lake "
-              f"solves {native_calls}; {secs:.2f} s with the terrain")
+              f"solves {native_calls}; (sweeps, K12 launches) a step "
+              f"{solves}; {secs:.2f} s with the terrain")
         assert [r["step"] for r in records] == list(range(steps)), \
             log_text.getvalue()
         for rec in records:
             assert isinstance(rec["mass"], float) and \
                 math.isfinite(rec["mass"])
-        assert fired == {"blur": steps, "flow_directions": steps}, fired
+        assert len(solves) == steps and all(
+            n == launched > 0 for n, launched in solves), solves
+        assert fired == {"blur": steps, "flow_directions": steps,
+                         "lake_relax": sum(n for n, _ in solves)}, fired
         assert native_calls == steps, native_calls
         h = out["terrain"]
         assert tuple(h.shape) == (size[1], size[0])
@@ -1887,7 +1914,7 @@ def main() -> int:
 
     FLOW_STAGES = ["pre-blur + directions + masks (K5, K6 codes form)",
                    "host lake solve (copies, native solver)",
-                   "lake-aware relaxation (plain torch)",
+                   "lake-aware relaxation (K12 lake_relax)",
                    "flow map + erosion pass"]
     TECTO_STAGE = "tectonic uplift (plain torch; steps 0 and 5)"
 
@@ -1896,7 +1923,8 @@ def main() -> int:
         on the host clock around a synchronize (the lake solve and the
         relaxation's checks wait for the device anyway); with
         ``tectonic_every``, config 2's tectonic uplift first where it
-        refreshes.  Returns (h, {stage: [ms]}, sweeps, connections)."""
+        refreshes.  Returns (h, {stage: [ms]}, sweeps, connections, the
+        first iteration's relaxation inputs)."""
         uplift0, h = erosion.init_uplift(terrain, ecfg)
         uplift = uplift0
         fcfg = of.FlowConfig(preblur=0.5, exponent=ecfg.exponent,
@@ -1905,7 +1933,7 @@ def main() -> int:
         if tectonic_every:
             stack = ot.init_plate_stack(terrain, egrid)
             split = {TECTO_STAGE: [], **split}
-        sweeps, n_conn = [], []
+        sweeps, n_conn, first = [], [], None
         for i in range(steps):
             torch.cuda.synchronize()
             t = [time.perf_counter()]
@@ -1929,13 +1957,16 @@ def main() -> int:
             cto = host_to_device(sol.conn_to, dev)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
+            area = of.cell_area_lower_edge(egrid, dev, fcfg.area_scale)
             acc, vis, root = of.flow_solve_stencil(
-                code, of.cell_area_lower_edge(egrid, dev, fcfg.area_scale),
-                mouth, egrid, conn_from=cfrom, conn_to=cto, want_root=True)
+                code, area, mouth, egrid, conn_from=cfrom, conn_to=cto,
+                want_root=True)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
             sweeps.append(of.LAST_SOLVE["sweeps"])
             n_conn.append(int(sol.conn_from.size))
+            if first is None:
+                first = (code, mouth, area, cfrom, cto)
             fm = torch.where(vis, torch.pow(acc, fcfg.exponent), -1.0)
             wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf),
                                 dev)
@@ -1948,7 +1979,7 @@ def main() -> int:
             t.append(time.perf_counter())
             for k, t0_, t1_ in zip(FLOW_STAGES, t, t[1:]):
                 split[k].append((t1_ - t0_) * 1e3)
-        return h, split, sweeps, n_conn
+        return h, split, sweeps, n_conn, first
 
     def print_split(title, split, steps, sweeps, n_conn, cli_s):
         """Each stage's mean ms an iteration (a stage that runs on some
@@ -1966,6 +1997,97 @@ def main() -> int:
               f"{split[FLOW_STAGES[2]][-1] / sweeps[-1]:.3f} ms a sweep in "
               f"the last; lake connections a step {n_conn}")
 
+    def relax_inputs(egrid, h, sel):
+        """One relaxation's inputs on ``h``, as the flow filter makes
+        them: (code, mouth, area, conn_from, conn_to)."""
+        code = of.flow_directions(ob.blur(h, egrid, 0.5), sel, egrid)
+        mask, mouth, _ = of.incoming_mask(code, egrid)
+        parent = of.parent_pointers(code, egrid)
+        sol = nlakes.solve_lakes_native(
+            mask.cpu().numpy().reshape(-1), mouth.cpu().numpy().reshape(-1),
+            h.cpu().numpy().reshape(-1), parent.cpu().numpy(), egrid)
+        return (code, mouth, of.cell_area_lower_edge(egrid, dev),
+                host_to_device(sol.conn_from, dev),
+                host_to_device(sol.conn_to, dev))
+
+    def same_bits(a, b):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    def events_ms(fn):
+        """(fn(), its milliseconds between CUDA events), no warm-up."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def hold_k12(label, egrid, inputs, record_it=False):
+        """K12 against its twin on one relaxation's inputs: A, vis and
+        root bit for bit after 1, 7 and 64 sweeps from the solve's start;
+        the whole solve (``flow_solve_stencil``) bit for bit with the same
+        sweeps and K12 launched once a sweep.  Times (CUDA events): the
+        solve, the twin's solve, a sweep queued ahead of the host
+        (``device_ms``, 64 a call) and a twin sweep."""
+        code, mouth, area, cfrom, cto = inputs
+        src, dst = kl.conn_fields(cfrom, cto, egrid.shape)
+        packed = kl.pack_lake_masks(code, mouth, egrid, src, dst)
+        hh, ww = egrid.shape
+        start = (packed, area, src, dst, area, mouth, kl.root_start(packed),
+                 egrid)
+        for n in (1, 7, 64):
+            got = kl.relax_sweep_cuda(*start, n)
+            want = kl.relax_sweep_twin(*start, n)
+            for name, g, w in zip(("A", "vis", "root"), got, want):
+                assert same_bits(g, w), f"K12 {label}: {name}, {n} sweeps"
+
+        def solve():
+            return of.flow_solve_stencil(code, area, mouth, egrid,
+                                         conn_from=cfrom, conn_to=cto,
+                                         want_root=True)
+
+        launches0 = kl.LAUNCHES
+        got = solve()
+        sweeps, launched = of.LAST_SOLVE["sweeps"], kl.LAUNCHES - launches0
+        assert launched == sweeps > 0, (launched, sweeps)
+        with mock.patch.object(kl, "relax_sweep", kl.relax_sweep_twin):
+            want, twin_ms = events_ms(solve)
+            assert of.LAST_SOLVE["sweeps"] == sweeps
+        for name, g, w in zip(("A", "vis", "root"), got, want):
+            assert same_bits(g, w), f"K12 {label}: the solve's {name}"
+        solve_ms = cuda_ms(solve, 3)
+        sweep_ms = device_ms(lambda: kl.relax_sweep_cuda(*start, 64),
+                             10) / 64
+        twin_sweep_ms = cuda_ms(lambda: kl.relax_sweep_twin(*start), 10)
+        cells, conns = hh * ww, int(cfrom.numel())
+        adds = sum(int(((packed >> i) & 1).sum()) for i in range(8)) + conns
+        # what a sweep must move: packed, area, A and root (4 B each) and
+        # vis (1 B) read, A, vis and root written, and the two int64
+        # connection lists (16 B a connection); the whole solve reads
+        # packed, area and the lists once and writes A, vis and root once
+        sweep_bytes = 26.0 * cells + 16.0 * conns
+        sweep_bound = bound(sweep_bytes, adds)
+        solve_bound = bound(17.0 * cells + 16.0 * conns, adds)
+        print(f"K12 lake_relax, {label} ({ww}x{hh}, {cfrom.numel()} "
+              f"connections): 1, 7, 64 sweeps and the solve ({sweeps} "
+              f"sweeps, {launched} launches) bit for bit "
+              f"against the twin; solve {solve_ms:.3f} ms, twin solve "
+              f"{twin_ms:.3f} ms, bound {solve_bound[0]:.4f} ms "
+              f"({solve_bound[1]}); a sweep {sweep_ms * 1e3:.2f} us, twin "
+              f"{twin_sweep_ms:.3f} ms, bound {sweep_bound[0] * 1e3:.2f} us "
+              f"({sweep_bound[1]}) ({card})")
+        if record_it:
+            record("lake_relax", "demiurge_tpu_torch/csrc/lakeflow.cu",
+                   "demiurge_tpu/ops/flow.py:342", max_err(got[0], want[0]),
+                   sweep_ms, twin_sweep_ms, sweep_bytes, adds,
+                   f"one sweep at {ww}x{hh} ({cfrom.numel()} connections; "
+                   f"the solve {sweeps} sweeps, {solve_ms:.3f} ms against "
+                   f"the twin's {twin_ms:.3f} ms)")
+
     ESTEPS = 5
     egrid = Grid(*ERODE)
     h_ero, erosion_forms, ero_cli_s = erosion_cli("erosion", ERODE, ESTEPS)
@@ -1975,11 +2097,22 @@ def main() -> int:
     against_twins("erosion", h_ero, lambda cb: erosion.landscape_evolution(
         e_terrain, e_sel, egrid, ecfg, iterations=ESTEPS, callback=cb),
         egrid, e_sel, ESTEPS)
-    h_s, split, sweeps, n_conn = staged(egrid, e_terrain, e_sel, ecfg,
-                                        ESTEPS)
+    h_s, split, sweeps, n_conn, first = staged(egrid, e_terrain, e_sel,
+                                               ecfg, ESTEPS)
     assert torch.equal(h_s, h_ero), "the staged iterations left the CLI's"
     print_split(f"erosion iteration at {ERODE[0]}x{ERODE[1]}, BASELINE "
                 f"config 1", split, ESTEPS, sweeps, n_conn, ero_cli_s)
+    # K12 on config 1's first relaxation, without its connections, and
+    # on a 2000x1000 grid that 256-column blocks do not divide
+    hold_k12("config 1, first iteration", egrid, first)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    hold_k12("config 1, first iteration, 0 connections", egrid,
+             (*first[:3], none, none))
+    rgrid_k12 = Grid(*RAGGED)
+    hold_k12("the erosion CLI's terrain", rgrid_k12, relax_inputs(
+        rgrid_k12, cli._terrain(rgrid_k12, SEED, dev),
+        torch.ones(rgrid_k12.shape, device=dev)))
+    del first
     del h_ero, h_s, e_terrain
     torch.cuda.empty_cache()
 
@@ -1996,12 +2129,14 @@ def main() -> int:
                       t_terrain, t_sel, tgrid, ecfg, iterations=TSTEPS,
                       tectonic_every=TEVERY, callback=cb),
                   tgrid, t_sel, TSTEPS)
-    h_s, split, sweeps, n_conn = staged(tgrid, t_terrain, t_sel, ecfg,
-                                        TSTEPS, tectonic_every=TEVERY)
+    h_s, split, sweeps, n_conn, first = staged(
+        tgrid, t_terrain, t_sel, ecfg, TSTEPS, tectonic_every=TEVERY)
     assert torch.equal(h_s, h_tec), "the staged iterations left the CLI's"
     print_split(f"tectonic-erosion iteration at {TECTO[0]}x{TECTO[1]}, "
                 f"BASELINE config 2", split, TSTEPS, sweeps, n_conn,
                 tec_cli_s)
+    hold_k12("config 2, first iteration", tgrid, first, record_it=True)
+    del first
     tec_ms = split[TECTO_STAGE]
     stack = ot.init_plate_stack(t_terrain, tgrid)
     torch.cuda.synchronize()
@@ -2115,7 +2250,7 @@ def main() -> int:
     for name, ms, _, _ in rows:
         print(f"  {name:32s} {ms:10.2f} ms  {100 * ms / sess_ms:5.1f}%")
     for name in ("climate", "jacobi_pressure", "jacobi_diffusion",
-                 "advect_stage", "blur", "flow_directions"):
+                 "advect_stage", "blur", "flow_directions", "lake_relax"):
         assert session_forms[name] > 0, f"{name} never launched"
     assert session_forms["flow_directions_packed"] == 0, session_forms
 
@@ -2501,10 +2636,10 @@ def main() -> int:
                      **{n: ocean_forms[n] for n in ("advect_sample_pallas",
                                                     "advect_stage_one_row")},
                      **k11_launches}
-    for n in ("blur", "flow_directions"):
+    for n in ("blur", "flow_directions", "lake_relax"):
         main_launches[n] += erosion_forms[n] + tecto_forms[n]
     for n in ("climate", "jacobi_pressure", "jacobi_diffusion",
-              "advect_stage", "blur", "flow_directions"):
+              "advect_stage", "blur", "flow_directions", "lake_relax"):
         main_launches[n] += session_forms[n]
     for forms in (ckpt_forms, mesh13_forms):
         for n, v in forms.items():

@@ -3,10 +3,11 @@ its plain PyTorch twin.  ``build`` compiles the sources at first use; it is
 imported only by a wrapper that was handed a CUDA tensor."""
 
 from . import (advect, blur, climate, directions, flow, flow2,
-               flow_deadends, jacobi, jacobi_packed)
+               flow_deadends, jacobi, jacobi_packed, lakeflow)
 
 __all__ = ["advect", "blur", "climate", "directions", "flow", "flow2",
-           "flow_deadends", "jacobi", "jacobi_packed", "launch_counts"]
+           "flow_deadends", "jacobi", "jacobi_packed", "lakeflow",
+           "launch_counts"]
 
 
 def launch_counts() -> dict:
@@ -31,4 +32,5 @@ def launch_counts() -> dict:
             "advect_stage_one_row": advect.LAUNCHES_STAGE_ONE_ROW,
             "flow_directions_packed": directions.LAUNCHES_PACKED,
             "blur_strip": blur.LAUNCHES_STRIP,
-            "flow_directions_strip": directions.LAUNCHES_STRIP}
+            "flow_directions_strip": directions.LAUNCHES_STRIP,
+            "lake_relax": lakeflow.LAUNCHES}

@@ -87,6 +87,9 @@ SIGNATURES = {
     # ob rowtab b in0 in1 ping0 pong0 ping1 pong1, H W wrap_x wrap_s wrap_n
     # pole_shift sea_mask negate iters, stream
     "demiurge_jacobi_packed": [_P] * 9 + [_I] * 9 + [_P],
+    # packed area conn_src conn_dst A0 vis0 root0 A1 vis1 root1 A2 vis2
+    # root2, H W wrap_x n, stream
+    "demiurge_lake_relax": [_P] * 13 + [_I] * 4 + [_P],
 }
 
 

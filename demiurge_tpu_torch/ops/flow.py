@@ -18,8 +18,9 @@ FlowFilter (src/filter/FlowFilter.cpp):
      ``native``, ``default_lake_solver``);
   5. the upstream area accumulation and the mouth reachability, as the
      fixpoint of an 8-neighbour relaxation (``flow_solve_stencil``, with
-     the lake connections and the basin roots; the kernels of the
-     lake-free path in ``kernels.flow``).  Pointer doubling
+     the lake connections and the basin roots, one sweep a launch of K12
+     in ``kernels.lakeflow``; the kernels of the lake-free path in
+     ``kernels.flow``).  Pointer doubling
      (``accumulate``, ``resolve_roots``) reaches the same sums on the
      parent pointers.
 
@@ -51,6 +52,7 @@ from ..core.platform import host_to_device
 from ..core.topology import CODE_DIR, DIR_CODE, NEIGHBORS_FLOW_ORDER, shift
 from ..kernels import directions as kd
 from ..kernels import flow as kf
+from ..kernels import lakeflow as kl
 from .blur import blur
 
 PI = math.pi
@@ -305,14 +307,6 @@ def _incoming_fields(code, grid: Grid):
     return fields
 
 
-def _outgoing_masks(code, grid: Grid):
-    """For each code 1..9 but 5, (offset, "my code points there and the
-    target row exists")."""
-    return [(CODE_DIR[c], (code == c) & _row_in_range(grid, CODE_DIR[c][1],
-                                                       code.device))
-            for c in range(1, 10) if c != 5]
-
-
 def flow_solve_stencil(code, area2d, mouth, grid: Grid, conn_from=None,
                        conn_to=None, check_every: int = 64,
                        max_iters: int = 1 << 30, want_root: bool = False):
@@ -328,50 +322,30 @@ def flow_solve_stencil(code, area2d, mouth, grid: Grid, conn_from=None,
     ``conn_from`` -> attach pixel ``conn_to``, int64 flat indices from the
     host solver, each side unique) extend the sweep, after the taps:
     ``A[conn_to] += A_prev[conn_from]`` and ``vis[conn_from] |=
-    vis_prev[conn_to]``.  Returns (A, vis, root): root an int64 flat
-    index, -1 where the cell reaches no sink, None without
+    vis_prev[conn_to]``.  The masks and the connections are packed once
+    (``kernels.lakeflow``), and the sweeps run through K12
+    (``lakeflow.relax_sweep``: the CUDA kernel on the card, its plain twin
+    on the CPU), ``check_every`` a call.  Returns (A, vis, root): root an
+    int64 flat index, -1 where the cell reaches no sink, None without
     ``want_root``.  ``LAST_SOLVE["sweeps"]`` counts the sweeps run."""
-    H, W = grid.shape
-    inc = _incoming_fields(code, grid)
-    outs = _outgoing_masks(code, grid)
-    has_conns = conn_from is not None and conn_from.numel() > 0
-    root0 = None
-    if want_root:
-        idx = torch.arange(H * W, device=code.device).reshape(H, W)
-        root0 = torch.where(code == 5, idx, -1)
-
-    def sweep(A, vis, root):
-        newA = area2d
-        for (dx, dy), ok in inc:
-            newA = newA + torch.where(
-                ok, shift(A, dx, dy, grid, pole_wrap=False), 0.0)
-        # vis and root flow downstream -> upstream: take the value of the
-        # cell the code points to
-        newvis = mouth
-        newroot = root0
-        for (dx, dy), m in outs:
-            newvis = newvis | (m & shift(vis, dx, dy, grid, pole_wrap=False))
-            if want_root:
-                newroot = torch.where(
-                    m, shift(root, dx, dy, grid, pole_wrap=False), newroot)
-        if has_conns:
-            newA = newA.reshape(-1).index_add(
-                0, conn_to, A.reshape(-1)[conn_from]).reshape(H, W)
-            fv = newvis.reshape(-1).clone()
-            fv[conn_from] = fv[conn_from] | vis.reshape(-1)[conn_to]
-            newvis = fv.reshape(H, W)
-        return newA, newvis, newroot
-
-    A, vis, root, it = area2d, mouth, root0, 0
+    if conn_from is None:
+        conn_from = conn_to = torch.zeros(0, dtype=torch.int64,
+                                          device=code.device)
+    conn_src, conn_dst = kl.conn_fields(conn_from, conn_to, grid.shape)
+    packed = kl.pack_lake_masks(code, mouth, grid, conn_src, conn_dst)
+    area = area2d.contiguous()
+    A, vis = area, mouth.contiguous()
+    root = kl.root_start(packed) if want_root else None
+    it = 0
     while it < max_iters:
         prev, prev_v = A, vis
-        for _ in range(check_every):
-            A, vis, root = sweep(A, vis, root)
+        A, vis, root = kl.relax_sweep(packed, area, conn_src, conn_dst, A,
+                                      vis, root, grid, check_every)
         it += check_every
         if torch.equal(A, prev) and torch.equal(vis, prev_v):
             break
     LAST_SOLVE["sweeps"] = it
-    return A, vis, root
+    return A, vis, None if root is None else root.to(torch.int64)
 
 
 def _codes_and_mouths(height, sel, grid: Grid, preblur: float):

@@ -564,22 +564,144 @@ def test_erosion_loop_on_the_card_matches_the_cpu(dev):
     direction codes agree, as the coupled step's test allows."""
     from demiurge_tpu_torch.kernels import blur as kb
     from demiurge_tpu_torch.kernels import directions as kd
+    from demiurge_tpu_torch.kernels import lakeflow as kl
     from demiurge_tpu_torch.native import lakes as nlakes
     from demiurge_tpu_torch.ops import erosion
 
     grid, h = _terrain(256, 128, dev)
     cfg = erosion.ErosionConfig(lakes=True)
     before = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS)
+    relax0 = kl.LAUNCHES
     got = erosion.landscape_evolution(h, torch.ones_like(h), grid, cfg,
                                       iterations=3)
     after = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS)
     assert [b - a for a, b in zip(before, after)] == [3, 3, 0, 3]
+    # K12: each of the 3 relaxations runs at least one check's 64 sweeps
+    relaxed = kl.LAUNCHES - relax0
+    assert relaxed >= 3 * 64 and relaxed % 64 == 0
     want = erosion.landscape_evolution(h.cpu(), torch.ones(grid.shape),
                                        grid, cfg, iterations=3)
     got = got.cpu()
     assert bool(torch.isfinite(got).all())
     dh = (got - want).abs() / want.abs().max()
     assert float((dh > 1e-4).float().mean()) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the lake-aware relaxation (K12)
+# ---------------------------------------------------------------------------
+
+
+def _lake_inputs(case, dev):
+    """(grid, code, mouth, area, conn_from, conn_to, start state or None):
+    the erosion CLI's inputs on a terrain with its native lake solution
+    (no start: the solve's own, area, mouths and ``root_start``), or
+    random codes with 40 random connections and a random start on a
+    300x12 grid that 256-column blocks do not divide, on the globe or on
+    a regional grid (tests/test_torch_lakeflow.py's cases)."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.native import lakes as nlakes
+    from demiurge_tpu_torch.ops import flow
+
+    if case.startswith("random-300x12"):
+        rng = np.random.default_rng(11)
+        grid = Grid(300, 12, (-0.4, 0.3, -1.0, 0.5)) \
+            if case.endswith("regional") else Grid(300, 12)
+        code = torch.from_numpy(rng.integers(0, 10, (12, 300)).astype(
+            np.int32)).to(dev)
+        _, mouth, _ = flow.incoming_mask(code, grid)
+        tapped = np.flatnonzero(kf.pack_masks(code, mouth, grid).cpu(
+            ).numpy().reshape(-1) & 0xFF)
+        sinks = np.flatnonzero(code.cpu().numpy().reshape(-1) == 5)
+        cfrom = rng.choice(sinks, 40, replace=False)
+        cto = rng.choice(np.setdiff1d(tapped, cfrom), 40, replace=False)
+        A = rng.uniform(0, 4, (12, 300)).astype(np.float32)
+        start = (torch.from_numpy(A).to(dev),
+                 torch.from_numpy(rng.random((12, 300)) < 0.5).to(dev),
+                 torch.from_numpy(rng.integers(-1, 3600, (12, 300)).astype(
+                     np.int32)).to(dev))
+    else:
+        W, H = (2000, 1000) if case == "2000x1000" else (256, 128)
+        grid, h = _terrain(W, H, dev)
+        code = flow.flow_directions(flow.blur(h, grid, 0.5),
+                                    torch.ones_like(h), grid)
+        mask, mouth, _ = flow.incoming_mask(code, grid)
+        sol = nlakes.solve_lakes_native(
+            mask.cpu().numpy().reshape(-1), mouth.cpu().numpy().reshape(-1),
+            h.cpu().numpy().reshape(-1),
+            flow.parent_pointers(code, grid).cpu().numpy(), grid)
+        cfrom, cto = sol.conn_from, sol.conn_to
+        if case == "no-connections":
+            cfrom = cto = np.zeros(0, np.int64)
+        start = None
+    area = flow.cell_area_lower_edge(grid, dev)
+    return (grid, code, mouth, area, torch.from_numpy(cfrom).to(dev),
+            torch.from_numpy(cto).to(dev), start)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("case", ["256x128", "no-connections",
+                                  "random-300x12", "random-300x12-regional",
+                                  "2000x1000"])
+def test_lake_relax_kernel_equals_twin(dev, case):
+    """K12 against its twin: A, vis and root bit for bit after 1, 2, 7
+    and 64 sweeps (both ping-pong sets), with and without the roots; the
+    whole ``flow_solve_stencil`` on the card bit for bit with the CPU's,
+    the same sweeps, K12 launched once a sweep."""
+    from demiurge_tpu_torch.kernels import lakeflow as kl
+    from demiurge_tpu_torch.ops import flow
+
+    grid, code, mouth, area, cfrom, cto, start = _lake_inputs(case, dev)
+    src, dst = kl.conn_fields(cfrom, cto, grid.shape)
+    packed = kl.pack_lake_masks(code, mouth, grid, src, dst)
+    if start is None:
+        start = (area, mouth, kl.root_start(packed))
+    for root in (start[2], None):
+        for n in (1, 2, 7, 64):
+            before = kl.LAUNCHES
+            got = kl.relax_sweep_cuda(packed, area, src, dst, start[0],
+                                      start[1], root, grid, n)
+            torch.cuda.synchronize()
+            assert kl.LAUNCHES == before + n
+            want = kl.relax_sweep_twin(packed, area, src, dst, start[0],
+                                       start[1], root, grid, n)
+            for g, w in zip(got, want):
+                if w is None:
+                    assert g is None
+                else:
+                    assert torch.equal(_bits(g), _bits(w)), (case, n)
+    if case.startswith("random-300x12"):
+        return   # random codes may hold cycles: no fixpoint to solve
+    before = kl.LAUNCHES
+    got = flow.flow_solve_stencil(code, area, mouth, grid, conn_from=cfrom,
+                                  conn_to=cto, want_root=True)
+    sweeps = flow.LAST_SOLVE["sweeps"]
+    assert kl.LAUNCHES - before == sweeps
+    want = flow.flow_solve_stencil(code.cpu(), area.cpu(), mouth.cpu(),
+                                   grid, conn_from=cfrom.cpu(),
+                                   conn_to=cto.cpu(), want_root=True)
+    assert flow.LAST_SOLVE["sweeps"] == sweeps
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g.cpu()), _bits(w))
+    assert bool(want[1].any()) and int((want[2] >= 0).sum()) > 0
+
+
+def test_lake_relax_raises_on_a_refused_launch(dev):
+    """A grid taller than a launch's 65535 block rows is refused by the
+    entry point and the wrapper raises; nothing is counted."""
+    from demiurge_tpu_torch.kernels import lakeflow as kl
+
+    grid = Grid(4, 70000)
+    z = torch.zeros(grid.shape, device=dev)
+    i = torch.full(grid.shape, -1, dtype=torch.int32, device=dev)
+    before = kl.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kl.relax_sweep_cuda(torch.zeros_like(i), z, i, i, z, z > 0, None,
+                            grid)
+    assert kl.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,8 @@ PORTED = ("model.py", "core/stencils.py", "core/fastroll.py",
           "kernels/directions.py", "kernels/flow.py", "kernels/flow2.py",
           "dist/mesh.py", "dist/halo.py", "dist/flowdist.py",
           "dist/climate.py", "dist/advect.py", "kernels/flow_deadends.py",
-          "kernels/jacobi_packed.py", "tools/__init__.py",
+          "kernels/jacobi_packed.py", "kernels/lakeflow.py",
+          "tools/__init__.py",
           "tools/flow_rounds.py", "tools/flow_tune.py",
           "tools/jacobi_race.py", "native/__init__.py", "native/build.py",
           "native/lakes.py", "api/cli.py", "utils/interop.py",
@@ -186,8 +187,8 @@ def test_launch_counts_name_every_counter():
             "flow_solve_wave", "flow_banded_rounds", "jacobi_packed",
             "advect_stage", "advect_stage_one_row",
             "flow_directions_packed", "blur_strip",
-            "flow_directions_strip"} <= names
-    assert len(names) == 21
+            "flow_directions_strip", "lake_relax"} <= names
+    assert len(names) == 22
 
 
 def test_interop_round_trip_and_config():
