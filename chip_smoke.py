@@ -104,29 +104,33 @@
 10. BASELINE config 1 with every launch counter at 0: the ``erosion`` CLI
    at its default 1024x512 for 5 steps (the full flow filter with lakes,
    then the erosion pass); fails unless K5 and K6's codes form launched
-   once a step (and the packed form never), K12 (the lake-aware
-   relaxation) once a sweep of every step's solve, the native lake solver
-   ran once a step, and every logged mass and the field are finite; held
-   to the same 5 iterations through the plain twins (the height beyond
-   1e-5 of max at no more than 1e-3 of the pixels, direction ties
-   counted); then 5 iterations written out stage by stage (equal to the
-   CLI's field), each stage timed on the host clock around a synchronize:
-   pre-blur + directions + masks, the host lake solve with its copies,
-   the lake-aware relaxation (K12) with its sweeps, the flow map +
-   erosion pass; then K12 against its twin on the first iteration's
-   inputs, on the same inputs without connections and on a 2000x1000
-   grid (the CLI's terrain there): A, vis and root bit for bit after 1, 7
-   and 64 sweeps, the whole solve bit for bit with the same sweeps, each
-   solve timed with CUDA events beside the twin's;
+   once a step (and the packed form never), K12's tiled solve (the
+   lake-aware relaxation: its A, vis and root kernels) in every step,
+   each as many rounds as its solve reports, the one-sweep kernel never,
+   the native lake solver ran once a step, and every logged mass and the
+   field are finite; held to the same 5 iterations through the plain
+   twins (the height beyond 1e-5 of max at no more than 1e-3 of the
+   pixels, direction ties counted); then 5 iterations written out stage
+   by stage (equal to the CLI's field), each stage timed on the host
+   clock around a synchronize: pre-blur + directions + masks, the host
+   lake solve with its copies, the lake-aware relaxation (K12's tiles)
+   with its launches and host reads, the flow map + erosion pass; then
+   K12 on the first iteration's inputs, on the same inputs without
+   connections, on a 2000x1000 grid and on a regional 300x12 grid (the
+   CLI's terrain on both): the tiled solve bit for bit against the twin's
+   solve (A; vis and root exact) with its rounds, launches, host reads
+   and tile visits, the one-sweep kernel against the twin after 1, 7 and
+   64 sweeps and over its own solve with the same sweeps; the three
+   solves timed with CUDA events, and each tiled kernel's solve alone;
 10b. BASELINE config 2 with every launch counter at 0: the
    ``tectonic-erosion`` CLI at its default 2048x1024 for 6 steps (the
    tectonic uplift refreshed at steps 0 and 5, then phase 10's iteration);
    the same checks and twin bound as phase 10, 6 native lake solves; then
    the 6 iterations stage by stage (equal to the CLI's field), the
-   tectonic uplift timed in the iterations that run it, K12 against its
-   twin on the first iteration's inputs as in phase 10 (its row in the
-   kernels line), and torch.profiler's count of device kernels in one
-   tectonic step;
+   tectonic uplift timed in the iterations that run it, K12 on the first
+   iteration's inputs as in phase 10 (its rows in the kernels line: the
+   three tiled kernels and the one-sweep kernel), and torch.profiler's
+   count of device kernels in one tectonic step;
 12. the editor session (``api.Project``) at 2048x1024, the size of
    BASELINE configs 2, 3 and 5, with every launch counter at 0: ridged
    fBm (make_planet's parameters), the six other modes into layers, a
@@ -136,8 +140,9 @@
    2 erosion iterations, an ocean step with Jacobi and one with CG, 10
    climate substeps, 2 tectonics steps, the PNG export and the npz save;
    each step timed on the host clock around a synchronize.  Fails unless
-   K1, K2, K3, K4's stage form, K5 and K6's codes form launched, every
-   field is finite, the npz loads back exactly, the same session through
+   K1, K2, K3, K4's stage form, K5, K6's codes form and K12's three
+   tiled kernels launched (the one-sweep K12 never), every field is
+   finite, the npz loads back exactly, the same session through
    the plain twins matches step by step (within 1e-5 of max before the
    flow map, beyond it at no more than 1e-3 of the pixels; direction
    ties counted), undoing everything returns the terrain to 0 and the
@@ -165,9 +170,10 @@
    prints the phase's time;
 11. prints the kernels' JSON line (each kernel form's own launches on the
    path that runs it: the stage and packed forms are not counted again
-   under the sampler and codes forms; K5, K6's codes form and K12 count
-   the erosion and tectonic-erosion runs, K1-K6 and K12 the editor
-   session, and
+   under the sampler and codes forms; K5, K6's codes form and K12's
+   tiled kernels count the erosion and tectonic-erosion runs, K1-K6 and
+   K12's tiled kernels the editor session (the one-sweep K12 0 on every
+   path), and
    every kernel phase 13's CLI runs launched),
    the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
@@ -205,6 +211,7 @@ HB = H - 24             # K4b's grid height: not a whole number of strips
 CLIMATE = (4096, 2048)  # the climate CLI's default size
 ERODE = (1024, 512)     # the erosion CLI's default size (BASELINE config 1)
 TECTO = (2048, 1024)    # the tectonic-erosion CLI's (BASELINE config 2)
+REGIONAL = (-1.0, 0.9, -2.5, 1.0)  # a regional grid's coords (no wrap)
 
 # published peaks of one H100 SXM (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -318,7 +325,12 @@ def main() -> int:
                 "flow_directions_packed": (kd, "LAUNCHES_PACKED"),
                 "blur_strip": (kb, "LAUNCHES_STRIP"),
                 "flow_directions_strip": (kd, "LAUNCHES_STRIP"),
-                "lake_relax": (kl, "LAUNCHES")}
+                "lake_relax": (kl, "LAUNCHES"),
+                "lake_area_tiles": (kl, "LAUNCHES_AREA_TILES"),
+                "lake_vis_tiles": (kl, "LAUNCHES_VIS_TILES"),
+                "lake_root_tiles": (kl, "LAUNCHES_ROOT_TILES")}
+    # K12's tiled solve: its three kernels, one for each field
+    lake_tiles = ["lake_area_tiles", "lake_vis_tiles", "lake_root_tiles"]
     # the kernels of the single-card coupled path; the mesh path's are
     # phase 8's, the one-row table's phase 4's, K11's phase 9's
     single_card = ["jacobi_pressure", "jacobi_diffusion", "climate", "blur",
@@ -361,7 +373,8 @@ def main() -> int:
                  (kd, "directions_packed", kd.directions_packed_plain),
                  (kf, "flow_solve_area", kf.flow_solve_area_plain),
                  (kf, "vis_solve", kf.vis_solve_plain),
-                 (kl, "relax_sweep", kl.relax_sweep_twin)]
+                 (kl, "relax_sweep", kl.relax_sweep_twin),
+                 (kl, "relax_solve", kl.relax_solve_twin)]
         with contextlib.ExitStack() as stack:
             for mod, name, fn in swaps:
                 stack.enter_context(mock.patch.object(mod, name, fn))
@@ -1843,13 +1856,18 @@ def main() -> int:
         relaxation, the native solver ran once a step, and every logged
         mass and the field are finite.  Returns (field, each form's
         launches, seconds with the terrain)."""
-        solves = []   # (sweeps, K12 launches) of each relaxation
+        solves = []   # each relaxation's launches of K12's three kernels
         stencil = of.flow_solve_stencil
 
         def counted_solve(*args, **kwargs):
-            launches0 = kl.LAUNCHES
+            launches0 = read_counts(lake_tiles)
             out = stencil(*args, **kwargs)
-            solves.append((of.LAST_SOLVE["sweeps"], kl.LAUNCHES - launches0))
+            st = of.LAST_SOLVE
+            solves.append([(st[f]["rounds"], st[f]["launched"])
+                           for f in ("A", "vis", "root")])
+            assert list(solves[-1][i][1] for i in range(3)) == [
+                n - launches0[k]
+                for k, n in read_counts(lake_tiles).items()], solves
             return out
 
         zero_counts()
@@ -1872,17 +1890,19 @@ def main() -> int:
         fired = {k: v for k, v in forms.items() if v}
         print(f"launches on the {cmd} path ({steps} steps at "
               f"{size[0]}x{size[1]}): {json.dumps(fired)}; native lake "
-              f"solves {native_calls}; (sweeps, K12 launches) a step "
-              f"{solves}; {secs:.2f} s with the terrain")
+              f"solves {native_calls}; K12's (rounds, launches) of A, vis "
+              f"and root a step {solves}; {secs:.2f} s with the terrain")
         assert [r["step"] for r in records] == list(range(steps)), \
             log_text.getvalue()
         for rec in records:
             assert isinstance(rec["mass"], float) and \
                 math.isfinite(rec["mass"])
         assert len(solves) == steps and all(
-            n == launched > 0 for n, launched in solves), solves
+            0 < rounds <= launched for st in solves for rounds, launched in st
+        ), solves
         assert fired == {"blur": steps, "flow_directions": steps,
-                         "lake_relax": sum(n for n, _ in solves)}, fired
+                         **{k: sum(st[i][1] for st in solves)
+                            for i, k in enumerate(lake_tiles)}}, fired
         assert native_calls == steps, native_calls
         h = out["terrain"]
         assert tuple(h.shape) == (size[1], size[0])
@@ -1914,7 +1934,7 @@ def main() -> int:
 
     FLOW_STAGES = ["pre-blur + directions + masks (K5, K6 codes form)",
                    "host lake solve (copies, native solver)",
-                   "lake-aware relaxation (K12 lake_relax)",
+                   "lake-aware relaxation (K12's tiled solve)",
                    "flow map + erosion pass"]
     TECTO_STAGE = "tectonic uplift (plain torch; steps 0 and 5)"
 
@@ -1923,8 +1943,9 @@ def main() -> int:
         on the host clock around a synchronize (the lake solve and the
         relaxation's checks wait for the device anyway); with
         ``tectonic_every``, config 2's tectonic uplift first where it
-        refreshes.  Returns (h, {stage: [ms]}, sweeps, connections, the
-        first iteration's relaxation inputs)."""
+        refreshes.  Returns (h, {stage: [ms]}, K12's launches and host
+        reads a solve, connections, the first iteration's relaxation
+        inputs)."""
         uplift0, h = erosion.init_uplift(terrain, ecfg)
         uplift = uplift0
         fcfg = of.FlowConfig(preblur=0.5, exponent=ecfg.exponent,
@@ -1963,7 +1984,9 @@ def main() -> int:
                 want_root=True)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
-            sweeps.append(of.LAST_SOLVE["sweeps"])
+            st = of.LAST_SOLVE
+            sweeps.append((sum(v["launched"] for v in st.values()),
+                           max(v["host_reads"] for v in st.values())))
             n_conn.append(int(sol.conn_from.size))
             if first is None:
                 first = (code, mouth, area, cfrom, cto)
@@ -1993,9 +2016,9 @@ def main() -> int:
             m = sum(v) / steps
             print(f"  {k:52s} {m:9.2f} ms  {100 * m / iter_ms:5.1f}%  "
                   f"{json.dumps([round(x, 2) for x in v])}")
-        print(f"  relaxation sweeps a step {sweeps}, "
-              f"{split[FLOW_STAGES[2]][-1] / sweeps[-1]:.3f} ms a sweep in "
-              f"the last; lake connections a step {n_conn}")
+        print(f"  K12's (launches, host reads) a step {sweeps}, "
+              f"{split[FLOW_STAGES[2]][-1] * 1e3 / sweeps[-1][0]:.2f} us a "
+              f"launch in the last; lake connections a step {n_conn}")
 
     def relax_inputs(egrid, h, sel):
         """One relaxation's inputs on ``h``, as the flow filter makes
@@ -2026,12 +2049,19 @@ def main() -> int:
         end.synchronize()
         return out, start.elapsed_time(end)
 
+    def tile_note(stats):
+        """A tiled K12 solve's stats by field, in words."""
+        return "; ".join(f"{f} {solve_note(st)}" for f, st in stats.items())
+
     def hold_k12(label, egrid, inputs, record_it=False):
-        """K12 against its twin on one relaxation's inputs: A, vis and
-        root bit for bit after 1, 7 and 64 sweeps from the solve's start;
-        the whole solve (``flow_solve_stencil``) bit for bit with the same
-        sweeps and K12 launched once a sweep.  Times (CUDA events): the
-        solve, the twin's solve, a sweep queued ahead of the host
+        """K12 on one relaxation's inputs.  The tiled solve (the main
+        path's ``flow_solve_stencil``) against the twin's solve: A, vis
+        and root bit for bit, its rounds, launches, host reads and tile
+        visits printed; the one-sweep kernel against the twin after 1, 7
+        and 64 sweeps from the solve's start, and its Jacobi solve bit for
+        bit with the same sweeps as the twin's.  Times (CUDA events): the
+        three solves through ``flow_solve_stencil``, each tiled kernel's
+        solve alone, a one-sweep launch queued ahead of the host
         (``device_ms``, 64 a call) and a twin sweep."""
         code, mouth, area, cfrom, cto = inputs
         src, dst = kl.conn_fields(cfrom, cto, egrid.shape)
@@ -2050,16 +2080,33 @@ def main() -> int:
                                          conn_from=cfrom, conn_to=cto,
                                          want_root=True)
 
-        launches0 = kl.LAUNCHES
+        def one_sweep_solve(*args):
+            return kl.jacobi_solve(kl.relax_sweep_cuda, *args)
+
+        before = read_counts(["lake_relax", *lake_tiles])
         got = solve()
-        sweeps, launched = of.LAST_SOLVE["sweeps"], kl.LAUNCHES - launches0
-        assert launched == sweeps > 0, (launched, sweeps)
-        with mock.patch.object(kl, "relax_sweep", kl.relax_sweep_twin):
+        stats = dict(of.LAST_SOLVE)
+        after = read_counts(["lake_relax", *lake_tiles])
+        assert after["lake_relax"] == before["lake_relax"]
+        assert [after[k] - before[k] for k in lake_tiles] == [
+            stats[f]["launched"] for f in ("A", "vis", "root")], stats
+        with mock.patch.object(kl, "relax_solve", kl.relax_solve_twin):
             want, twin_ms = events_ms(solve)
-            assert of.LAST_SOLVE["sweeps"] == sweeps
+            sweeps = of.LAST_SOLVE["sweeps"]
         for name, g, w in zip(("A", "vis", "root"), got, want):
-            assert same_bits(g, w), f"K12 {label}: the solve's {name}"
+            assert same_bits(g, w), f"K12 {label}: the tiled solve's {name}"
+        with mock.patch.object(kl, "relax_solve", one_sweep_solve):
+            launches0 = kl.LAUNCHES
+            old = solve()
+            launched = kl.LAUNCHES - launches0
+            assert launched == of.LAST_SOLVE["sweeps"] == sweeps, (
+                launched, sweeps)
+            old_ms = cuda_ms(solve, 3)
+        for name, g, w in zip(("A", "vis", "root"), old, want):
+            assert same_bits(g, w), f"K12 {label}: the one-sweep {name}"
         solve_ms = cuda_ms(solve, 3)
+        part_ms = {f: cuda_ms(lambda f=f: kl.tile_solves(
+            packed, area, src, dst, egrid, (f,)), 3) for f in stats}
         sweep_ms = device_ms(lambda: kl.relax_sweep_cuda(*start, 64),
                              10) / 64
         twin_sweep_ms = cuda_ms(lambda: kl.relax_sweep_twin(*start), 10)
@@ -2068,25 +2115,45 @@ def main() -> int:
         # what a sweep must move: packed, area, A and root (4 B each) and
         # vis (1 B) read, A, vis and root written, and the two int64
         # connection lists (16 B a connection); the whole solve reads
-        # packed, area and the lists once and writes A, vis and root once
+        # packed, area and the lists once and writes A, vis and root once;
+        # each tiled kernel alone: packed and its own field (A also the
+        # area), with the lists where it reads them
         sweep_bytes = 26.0 * cells + 16.0 * conns
         sweep_bound = bound(sweep_bytes, adds)
         solve_bound = bound(17.0 * cells + 16.0 * conns, adds)
-        print(f"K12 lake_relax, {label} ({ww}x{hh}, {cfrom.numel()} "
-              f"connections): 1, 7, 64 sweeps and the solve ({sweeps} "
-              f"sweeps, {launched} launches) bit for bit "
-              f"against the twin; solve {solve_ms:.3f} ms, twin solve "
-              f"{twin_ms:.3f} ms, bound {solve_bound[0]:.4f} ms "
-              f"({solve_bound[1]}); a sweep {sweep_ms * 1e3:.2f} us, twin "
+        part_work = {"A": (12.0 * cells + 16.0 * conns, adds),
+                     "vis": (5.0 * cells + 16.0 * conns, 0),
+                     "root": (8.0 * cells, 0)}
+        print(f"K12, {label} ({ww}x{hh}, {conns} connections, "
+              f"{'x-periodic' if egrid.wrap_x else 'regional'}): the tiled "
+              f"solve bit for bit against the twin's ({sweeps} sweeps), "
+              f"{tile_note(stats)}; the one-sweep kernel bit for bit after "
+              f"1, 7, 64 sweeps and over its solve ({launched} launches). "
+              f"Solve through flow_solve_stencil: tiled {solve_ms:.3f} ms, "
+              f"one-sweep {old_ms:.3f} ms, twin {twin_ms:.3f} ms, bound "
+              f"{solve_bound[0]:.4f} ms ({solve_bound[1]}); each tiled "
+              f"kernel's solve alone "
+              f"{json.dumps({f: round(v, 3) for f, v in part_ms.items()})}"
+              f" ms; a one-sweep launch {sweep_ms * 1e3:.2f} us, twin "
               f"{twin_sweep_ms:.3f} ms, bound {sweep_bound[0] * 1e3:.2f} us "
               f"({sweep_bound[1]}) ({card})")
         if record_it:
+            for f, name in zip(("A", "vis", "root"), lake_tiles):
+                record(name, "demiurge_tpu_torch/csrc/lakeflow.cu",
+                       "demiurge_tpu/ops/flow.py:342",
+                       max_err(got[("A", "vis", "root").index(f)],
+                               want[("A", "vis", "root").index(f)]),
+                       part_ms[f], twin_ms, *part_work[f],
+                       f"K12's tiled {f} solve alone at {ww}x{hh} "
+                       f"({conns} connections; {solve_note(stats[f])}; the "
+                       f"plain time is the twin's solve of all three "
+                       f"fields; the whole tiled solve {solve_ms:.3f} ms)")
             record("lake_relax", "demiurge_tpu_torch/csrc/lakeflow.cu",
-                   "demiurge_tpu/ops/flow.py:342", max_err(got[0], want[0]),
+                   "demiurge_tpu/ops/flow.py:342", max_err(old[0], want[0]),
                    sweep_ms, twin_sweep_ms, sweep_bytes, adds,
-                   f"one sweep at {ww}x{hh} ({cfrom.numel()} connections; "
-                   f"the solve {sweeps} sweeps, {solve_ms:.3f} ms against "
-                   f"the twin's {twin_ms:.3f} ms)")
+                   f"the one-sweep kernel, off the main path: one sweep at "
+                   f"{ww}x{hh} (its solve {sweeps} sweeps, {old_ms:.3f} ms "
+                   f"against the twin's {twin_ms:.3f} ms)")
 
     ESTEPS = 5
     egrid = Grid(*ERODE)
@@ -2102,16 +2169,20 @@ def main() -> int:
     assert torch.equal(h_s, h_ero), "the staged iterations left the CLI's"
     print_split(f"erosion iteration at {ERODE[0]}x{ERODE[1]}, BASELINE "
                 f"config 1", split, ESTEPS, sweeps, n_conn, ero_cli_s)
-    # K12 on config 1's first relaxation, without its connections, and
-    # on a 2000x1000 grid that 256-column blocks do not divide
+    # K12 on config 1's first relaxation, without its connections, on a
+    # 2000x1000 grid that neither the tiles nor 256-column blocks divide,
+    # and on a regional 300x12 grid (the column clamps), the CLI's terrain
+    # on both
     hold_k12("config 1, first iteration", egrid, first)
     none = torch.zeros(0, dtype=torch.int64, device=dev)
     hold_k12("config 1, first iteration, 0 connections", egrid,
              (*first[:3], none, none))
-    rgrid_k12 = Grid(*RAGGED)
-    hold_k12("the erosion CLI's terrain", rgrid_k12, relax_inputs(
-        rgrid_k12, cli._terrain(rgrid_k12, SEED, dev),
-        torch.ones(rgrid_k12.shape, device=dev)))
+    for label, kgrid in (("the erosion CLI's terrain", Grid(*RAGGED)),
+                         ("the erosion CLI's terrain, regional",
+                          Grid(300, 12, REGIONAL))):
+        hold_k12(label, kgrid, relax_inputs(
+            kgrid, cli._terrain(kgrid, SEED, dev),
+            torch.ones(kgrid.shape, device=dev)))
     del first
     del h_ero, h_s, e_terrain
     torch.cuda.empty_cache()
@@ -2250,9 +2321,10 @@ def main() -> int:
     for name, ms, _, _ in rows:
         print(f"  {name:32s} {ms:10.2f} ms  {100 * ms / sess_ms:5.1f}%")
     for name in ("climate", "jacobi_pressure", "jacobi_diffusion",
-                 "advect_stage", "blur", "flow_directions", "lake_relax"):
+                 "advect_stage", "blur", "flow_directions", *lake_tiles):
         assert session_forms[name] > 0, f"{name} never launched"
     assert session_forms["flow_directions_packed"] == 0, session_forms
+    assert session_forms["lake_relax"] == 0, session_forms
 
     # finite fields; the saved checkpoint loads back exactly
     for name, _, t, s in rows:
@@ -2636,10 +2708,11 @@ def main() -> int:
                      **{n: ocean_forms[n] for n in ("advect_sample_pallas",
                                                     "advect_stage_one_row")},
                      **k11_launches}
-    for n in ("blur", "flow_directions", "lake_relax"):
+    for n in ("blur", "flow_directions", "lake_relax", *lake_tiles):
         main_launches[n] += erosion_forms[n] + tecto_forms[n]
     for n in ("climate", "jacobi_pressure", "jacobi_diffusion",
-              "advect_stage", "blur", "flow_directions", "lake_relax"):
+              "advect_stage", "blur", "flow_directions", "lake_relax",
+              *lake_tiles):
         main_launches[n] += session_forms[n]
     for forms in (ckpt_forms, mesh13_forms):
         for n, v in forms.items():

@@ -33,4 +33,7 @@ def launch_counts() -> dict:
             "flow_directions_packed": directions.LAUNCHES_PACKED,
             "blur_strip": blur.LAUNCHES_STRIP,
             "flow_directions_strip": directions.LAUNCHES_STRIP,
-            "lake_relax": lakeflow.LAUNCHES}
+            "lake_relax": lakeflow.LAUNCHES,
+            "lake_area_tiles": lakeflow.LAUNCHES_AREA_TILES,
+            "lake_vis_tiles": lakeflow.LAUNCHES_VIS_TILES,
+            "lake_root_tiles": lakeflow.LAUNCHES_ROOT_TILES}

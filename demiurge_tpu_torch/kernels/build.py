@@ -90,6 +90,17 @@ SIGNATURES = {
     # packed area conn_src conn_dst A0 vis0 root0 A1 vis1 root1 A2 vis2
     # root2, H W wrap_x n, stream
     "demiurge_lake_relax": [_P] * 13 + [_I] * 4 + [_P],
+    # packed area conn_src conn_dst A, wrap_x, flags stats, H W ty tx first
+    # n, stream
+    "demiurge_lake_area_tiles": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 6
+    + [_P],
+    # packed conn_src conn_dst vis, wrap_x, flags stats, H W ty tx first n,
+    # stream
+    "demiurge_lake_vis_tiles": [_P] * 4 + [_I] + [_P] * 2 + [_I] * 6
+    + [_P],
+    # packed root, wrap_x, flags stats, H W ty tx first n, stream
+    "demiurge_lake_root_tiles": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 6
+    + [_P],
 }
 
 

@@ -145,23 +145,35 @@ def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
     raise RuntimeError(f"{entry}: no fixpoint after {sweeps} sweeps")
 
 
-def solve_tiles_cuda(solves, device, shape, max_rounds: int) -> list:
+def solve_tiles_cuda(solves, device, shape, max_rounds: int,
+                     wakes: bool = False, streams=None) -> list:
     """Tiled solves side by side: batches of ``BATCH`` rounds of every
     solve not yet certified, each ``(entry, args)`` through its C entry
     point ``entry(*args(flags, stats, ty, tx, first, n))``, until a round
     of it writes nothing; one host read of every solve's round flags and
     visit counts ends a batch.  The rounds after a certifying one find
-    every tile quiet.  Returns each solve's stats."""
+    every tile quiet.  ``wakes``: each solve's flags also hold a wake word
+    a tile for each of the two rounds (``kernels.lakeflow``), all 0.
+    ``streams``: a CUDA stream a solve (None: the current one), which its
+    ``args`` name to the entry point; they start after the current
+    stream's work so far, and each batch's read waits for all of them.
+    Returns each solve's stats."""
     from . import build
 
     ty, tx = TILE
     H, W = shape
     nt = -(-H // ty) * -(-W // tx)
     # every edge bit set: round 0 wakes every tile
-    flags = torch.full((len(solves), 2 * nt), -1, dtype=torch.int32,
-                       device=device)
+    flags = torch.full((len(solves), (4 if wakes else 2) * nt), -1,
+                       dtype=torch.int32, device=device)
+    if wakes:
+        flags[:, 2 * nt:] = 0
     stats = torch.zeros((len(solves), 2 + BATCH), dtype=torch.int32,
                         device=device)
+    side = [st for st in streams or () if st is not None]
+    current = torch.cuda.current_stream(device) if side else None
+    for st in side:
+        st.wait_stream(current)
     lib = build.library()
     out = [None] * len(solves)
     done, reads = 0, 0
@@ -171,6 +183,8 @@ def solve_tiles_cuda(solves, device, shape, max_rounds: int) -> list:
                 build.check(getattr(lib, entry)(*args(
                     flags[j].data_ptr(), stats[j].data_ptr(), ty, tx, done,
                     BATCH)), entry)
+        for st in side:
+            current.wait_stream(st)
         rows = stats.tolist()  # the batch's one read
         reads += 1
         for j, (visits, passes, *wrote) in enumerate(rows):

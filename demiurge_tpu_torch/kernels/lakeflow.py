@@ -1,10 +1,9 @@
-"""K12: the lake-aware flow relaxation, one Jacobi sweep a launch.
+"""K12: the lake-aware flow relaxation, solved to its fixpoint.
 
-Counterpart of the sweep that ``demiurge_tpu/ops/flow.py``
-``flow_solve_stencil`` (:342-432) compiles into one device loop: XLA fuses
-the 8-neighbour stencil, and the lake connections' scatter rides in the same
-loop.  There is no Pallas kernel behind it.  One sweep computes, per cell,
-from the previous sweep's A, vis and root:
+Counterpart of the device loop that ``demiurge_tpu/ops/flow.py``
+``flow_solve_stencil`` (:342-432) compiles: XLA fuses the 8-neighbour
+stencil, and the lake connections' scatter rides in the same loop.  There
+is no Pallas kernel behind it.  The fixpoint, per cell:
 
   A    = area + A[nbr_i] for each incoming bit i in NEIGHBORS_FLOW_ORDER,
          then + A[conn_src] where the cell is a connection's attach pixel
@@ -21,31 +20,52 @@ clamped on any other.  The masks come in one int32 a pixel
 source" and bit 19 "has a connection target".  The connections (lake sink
 ``conn_from`` -> attach pixel ``conn_to``, each side unique: connections
 are keyed by attach pixel, and a connection leaves a sink at most once)
-become two int32 fields, -1 where a cell has none (``conn_fields``); a
-sweep reads them only where bit 18 or 19 is set.
+become two int32 fields, -1 where a cell has none (``conn_fields``), read
+only where bit 18 or 19 is set.  The flow graph with the connections is
+acyclic, so the fixpoint is unique.
 
-``relax_sweep`` launches ``n`` sweeps of the CUDA kernel
-(``csrc/lakeflow.cu``) over ping-pong buffers for CUDA tensors and runs
-``n`` sweeps of the plain twin ``relax_sweep_twin`` for CPU tensors.  The
-twin is the sweep the port ran before the kernel, in the same arithmetic
-and order: ``ops.flow``'s taps with ``torch.where(ok, shift(A), 0.0)``,
-then the connection add, which its ``index_add`` made after the taps.  The
-kernel skips a tap whose bit is clear, which is exact: adding +0.0 to a
-sum of non-negative areas leaves it unchanged.  So the two agree bit for
-bit.  ``LAUNCHES`` counts kernel launches (one a sweep); the fixpoint loop
-is ``ops.flow.flow_solve_stencil``'s.
+``relax_solve`` solves it: on the card (``relax_solve_cuda``) on K7/K8's
+shared-memory tiles in certified rounds (``csrc/lakeflow.cu``: A, vis and
+root as three tiled solves side by side in ``kernels.flow``'s batch loop,
+each on its own stream, one host read a batch of ``kernels.flow.BATCH``
+rounds; a connection whose ends share a tile is solved within a visit,
+one across tiles is read at the visit's start and a write of its far end
+wakes the reading tile for the next round; the solve stops at the first
+round in which no tile wrote, and raises when none comes within its
+round limit); on the CPU by the plain twin (``relax_solve_twin``: Jacobi
+sweeps of ``relax_sweep_twin``, checked every 64, A and vis compared).
+Both reach the same fixpoint: A bit for bit, vis and root exactly.
+
+``relax_sweep`` runs ``n`` Jacobi sweeps: the earlier kernel, one sweep a
+launch (``relax_sweep_cuda``), for CUDA tensors, the twin for CPU
+tensors.  The twin is the sweep the port ran before any kernel, in the
+same arithmetic and order: ``ops.flow``'s taps with ``torch.where(ok,
+shift(A), 0.0)``, then the connection add, which its ``index_add`` made
+after the taps.  The kernels skip a tap whose bit is clear, which is
+exact: adding +0.0 to a sum of non-negative areas leaves it unchanged.
+The one-sweep kernel is on no user path; ``jacobi_solve(relax_sweep_cuda,
+...)`` solves with it, as a yardstick for the tiles.
+
+``LAUNCHES`` counts the one-sweep kernel's launches (one a sweep);
+``LAUNCHES_AREA_TILES``, ``LAUNCHES_VIS_TILES`` and ``LAUNCHES_ROOT_TILES``
+the tiled kernels' (one a round of each solve).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.grid import Grid
-from ..core.platform import check_kernel_inputs, use_cuda_kernels
-from ..core.topology import NEIGHBORS_FLOW_ORDER, shift
+from ..core.platform import (check_kernel_inputs, host_to_device,
+                             use_cuda_kernels)
+from ..core.topology import DIR_CODE, NEIGHBORS_FLOW_ORDER, shift
 from . import flow as kf
 
-LAUNCHES = 0
+LAUNCHES = 0              # the one-sweep kernel
+LAUNCHES_AREA_TILES = 0   # the tiled solve's three kernels
+LAUNCHES_VIS_TILES = 0
+LAUNCHES_ROOT_TILES = 0
 
 SINK_BIT = 1 << 17
 SRC_BIT = 1 << 18   # conn_src >= 0: the attach pixel of a connection
@@ -83,11 +103,45 @@ def conn_fields(conn_from, conn_to, shape):
 def pack_lake_masks(code, mouth, grid: Grid, conn_src, conn_dst):
     """``kernels.flow.pack_masks`` with bit 17 set at the sinks (code 5),
     bit 18 where ``conn_src`` holds a connection and bit 19 where
-    ``conn_dst`` does."""
-    flags = (torch.where(code == 5, SINK_BIT, 0)
+    ``conn_dst`` does.  The 8 neighbours are 8 views of one padded copy
+    of the codes (``shift(pole_wrap=False)``'s: x wrapped on an x-periodic
+    grid and clamped on any other, rows clamped), and the range rules
+    (``ops.flow._incoming_fields``'s and ``pack_masks``') come as (8, H, 1)
+    and (8, 1, W) tables, so the masks take some 30 torch ops instead of
+    ``pack_masks``' 150: the relaxation packs them once a solve."""
+    from ..ops.flow import _wraps_x
+
+    H, W = grid.shape
+    dev = code.device
+    if grid.wrap_x:
+        cols = torch.cat([code[:, -1:], code, code[:, :1]], 1)
+    else:
+        cols = torch.cat([code[:, :1], code, code[:, -1:]], 1)
+    padded = torch.cat([cols[:1], cols, cols[-1:]], 0)
+    nbr = torch.stack([padded[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                       for dx, dy in NEIGHBORS_FLOW_ORDER])
+    # per neighbour: dx, dy, the code that flows from it here, the code
+    # that flows from here to it
+    table = host_to_device(np.array(
+        [(dx, dy, DIR_CODE[(-dx, -dy)], DIR_CODE[(dx, dy)])
+         for dx, dy in NEIGHBORS_FLOW_ORDER], np.int32), dev).reshape(
+             8, 4, 1, 1)
+    dx, dy, toward, away = table.unbind(1)
+    # _row_in_range: the row r + dy exists in the whole grid
+    r = grid.row_numbers(dev).reshape(1, H, 1)
+    rows = torch.where(dy > 0, r < grid.base.height - dy,
+                       torch.where(dy < 0, r >= -dy, True))
+    c = torch.arange(W, device=dev).reshape(1, 1, W)
+    in_cols = True if _wraps_x(grid) else (c < W - dx) & (c >= -dx)
+    bit = (1 << torch.arange(8, dtype=torch.int32, device=dev)).reshape(
+        8, 1, 1)
+    inc = torch.where((nbr == toward) & rows & in_cols, bit, 0).sum(0)
+    out = torch.where((code == away) & rows, bit << 8, 0).sum(0)
+    flags = (torch.where(mouth, 1 << 16, 0)
+             | torch.where(code == 5, SINK_BIT, 0)
              | torch.where(conn_src >= 0, SRC_BIT, 0)
              | torch.where(conn_dst >= 0, DST_BIT, 0))
-    return kf.pack_masks(code, mouth, grid) | flags.to(torch.int32)
+    return (inc | out | flags).to(torch.int32)
 
 
 def root_start(packed) -> torch.Tensor:
@@ -174,11 +228,114 @@ def relax_sweep_cuda(packed, area, conn_src, conn_dst, A, vis, root,
 
 def relax_sweep(packed, area, conn_src, conn_dst, A, vis, root,
                 grid: Grid, n: int = 1):
-    """``n`` sweeps: the CUDA kernel for CUDA tensors, the plain twin for
-    CPU tensors.  Returns (A, vis, root)."""
+    """``n`` sweeps: the one-sweep kernel for CUDA tensors, the plain twin
+    for CPU tensors.  Returns (A, vis, root)."""
     carried = () if root is None else (root,)
     if use_cuda_kernels(packed, area, conn_src, conn_dst, A, vis, *carried):
         return relax_sweep_cuda(packed, area, conn_src, conn_dst, A, vis,
                                 root, grid, n)
     return relax_sweep_twin(packed, area, conn_src, conn_dst, A, vis, root,
                             grid, n)
+
+
+def jacobi_solve(sweep, packed, area, conn_src, conn_dst, grid: Grid,
+                 want_root: bool = False, check_every: int = 64,
+                 max_iters: int = 1 << 30):
+    """The fixpoint by Jacobi sweeps from the area, the mouths and
+    ``root_start`` (root only with ``want_root``): ``check_every`` sweeps
+    a call of ``sweep`` (``relax_sweep``'s signature) until a check finds
+    A and vis unchanged, or ``max_iters`` sweeps have run.  Root follows
+    the same flow paths.  Returns (A, vis, root or None, {"sweeps": n})."""
+    A, vis = area, ((packed >> 16) & 1).bool()
+    root = root_start(packed) if want_root else None
+    it = 0
+    while it < max_iters:
+        prev, prev_v = A, vis
+        A, vis, root = sweep(packed, area, conn_src, conn_dst, A, vis, root,
+                             grid, check_every)
+        it += check_every
+        if torch.equal(A, prev) and torch.equal(vis, prev_v):
+            break
+    return A, vis, root, {"sweeps": it}
+
+
+def relax_solve_twin(packed, area, conn_src, conn_dst, grid: Grid,
+                     want_root: bool = False, check_every: int = 64,
+                     max_iters: int = 1 << 30):
+    """The plain twin's solve: ``jacobi_solve`` of ``relax_sweep_twin``."""
+    return jacobi_solve(relax_sweep_twin, packed, area, conn_src, conn_dst,
+                        grid, want_root, check_every, max_iters)
+
+
+TILE_ENTRIES = {"A": "demiurge_lake_area_tiles",
+                "vis": "demiurge_lake_vis_tiles",
+                "root": "demiurge_lake_root_tiles"}
+
+
+def tile_solves(packed, area, conn_src, conn_dst, grid: Grid,
+                parts=("A", "vis", "root")):
+    """The tiled solves of ``parts`` on the card, side by side: A from the
+    area, vis (uint8) from the mouths, root (int32) from ``root_start``,
+    each in place on its own buffer.  Returns ({part: field}, {part:
+    ``kernels.flow.solve_tiles_cuda``'s stats})."""
+    global LAUNCHES_AREA_TILES, LAUNCHES_VIS_TILES, LAUNCHES_ROOT_TILES
+    shape = grid.shape
+    check_kernel_inputs(("packed", "conn_src", "conn_dst"),
+                        (packed, conn_src, conn_dst), shape=shape,
+                        dtype=torch.int32)
+    check_kernel_inputs(("area",), (area,), shape=shape)
+    if not parts or set(parts) - set(TILE_ENTRIES):
+        raise ValueError(f"parts {parts}: some of {tuple(TILE_ENTRIES)}")
+    H, W = shape
+    wrap = int(grid.wrap_x)
+    start = {"A": area.clone,
+             "vis": lambda: ((packed >> 16) & 1).to(torch.uint8),
+             "root": lambda: root_start(packed)}
+    fields = {k: start[k]() for k in parts}
+    ins = {"A": (packed, area, conn_src, conn_dst), "vis": (
+        packed, conn_src, conn_dst), "root": (packed,)}
+    # the first solve on the current stream, each other one on its own:
+    # a round is one tile's visit long where few tiles wake, so the
+    # solves' rounds overlap on the card
+    streams = [None] + [torch.cuda.Stream(packed.device) for _ in parts[1:]]
+
+    def args(part, st):
+        ptrs = [t.data_ptr() for t in (*ins[part], fields[part])]
+        handle = (st or torch.cuda.current_stream(packed.device)).cuda_stream
+        return lambda *batch: (*ptrs, wrap, *batch[:2], H, W, *batch[2:],
+                               handle)
+
+    stats = kf.solve_tiles_cuda(
+        [(TILE_ENTRIES[k], args(k, st)) for k, st in zip(parts, streams)],
+        packed.device, shape, kf._max_sweeps(grid), wakes=True,
+        streams=streams)
+    stats = dict(zip(parts, stats))
+    LAUNCHES_AREA_TILES += stats.get("A", {}).get("launched", 0)
+    LAUNCHES_VIS_TILES += stats.get("vis", {}).get("launched", 0)
+    LAUNCHES_ROOT_TILES += stats.get("root", {}).get("launched", 0)
+    return fields, stats
+
+
+def relax_solve_cuda(packed, area, conn_src, conn_dst, grid: Grid,
+                     want_root: bool = False):
+    """The fixpoint on the card by the tiled kernels.  Returns (A, vis
+    bool, root int32 or None, {"A": stats, "vis": stats[, "root":
+    stats]})."""
+    parts = ("A", "vis", "root") if want_root else ("A", "vis")
+    fields, stats = tile_solves(packed, area, conn_src, conn_dst, grid,
+                                parts)
+    return (fields["A"], fields["vis"].bool(), fields.get("root"), stats)
+
+
+def relax_solve(packed, area, conn_src, conn_dst, grid: Grid,
+                want_root: bool = False, check_every: int = 64,
+                max_iters: int = 1 << 30):
+    """The fixpoint: the tiled kernels for CUDA tensors (on any grid; the
+    twin's ``check_every`` and ``max_iters`` do not apply), the plain twin
+    for CPU tensors.  Returns (A, vis, root or None, stats): the tiled
+    solves' stats by field on the card, {"sweeps": n} on the CPU."""
+    if use_cuda_kernels(packed, area, conn_src, conn_dst):
+        return relax_solve_cuda(packed, area, conn_src, conn_dst, grid,
+                                want_root)
+    return relax_solve_twin(packed, area, conn_src, conn_dst, grid,
+                            want_root, check_every, max_iters)

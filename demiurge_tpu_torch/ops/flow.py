@@ -18,8 +18,8 @@ FlowFilter (src/filter/FlowFilter.cpp):
      ``native``, ``default_lake_solver``);
   5. the upstream area accumulation and the mouth reachability, as the
      fixpoint of an 8-neighbour relaxation (``flow_solve_stencil``, with
-     the lake connections and the basin roots, one sweep a launch of K12
-     in ``kernels.lakeflow``; the kernels of the lake-free path in
+     the lake connections and the basin roots, on K12's tiles in
+     ``kernels.lakeflow``; the kernels of the lake-free path in
      ``kernels.flow``).  Pointer doubling
      (``accumulate``, ``resolve_roots``) reaches the same sums on the
      parent pointers.
@@ -60,7 +60,8 @@ PI = math.pi
 #: scan order of the steepest-descent fallback (FlowFilter.cpp:181-236)
 _SCAN_ORDER = NEIGHBORS_FLOW_ORDER
 
-#: the last ``flow_solve_stencil``'s sweeps, to its certifying check
+#: the last ``flow_solve_stencil``'s solve: the twin's sweeps, to its
+#: certifying check, or the tiled solves' stats (its docstring)
 LAST_SOLVE: dict = {}
 
 
@@ -311,40 +312,37 @@ def flow_solve_stencil(code, area2d, mouth, grid: Grid, conn_from=None,
                        conn_to=None, check_every: int = 64,
                        max_iters: int = 1 << 30, want_root: bool = False):
     """Upstream accumulation A, mouth reachability vis and, with
-    ``want_root``, the basin root, by relaxing
+    ``want_root``, the basin root: the fixpoint of
 
         A    <- area + sum_d incoming_d * shift(A, d)
         vis  <- mouth | OR_d (outgoing_d & shift(vis, d))
         root <- the cell itself where a sink, else its downstream root
 
-    to their fixpoint, checked every ``check_every`` sweeps on A and vis
-    (root follows the same flow paths).  The lake connections (lake sink
-    ``conn_from`` -> attach pixel ``conn_to``, int64 flat indices from the
-    host solver, each side unique) extend the sweep, after the taps:
-    ``A[conn_to] += A_prev[conn_from]`` and ``vis[conn_from] |=
-    vis_prev[conn_to]``.  The masks and the connections are packed once
-    (``kernels.lakeflow``), and the sweeps run through K12
-    (``lakeflow.relax_sweep``: the CUDA kernel on the card, its plain twin
-    on the CPU), ``check_every`` a call.  Returns (A, vis, root): root an
-    int64 flat index, -1 where the cell reaches no sink, None without
-    ``want_root``.  ``LAST_SOLVE["sweeps"]`` counts the sweeps run."""
+    with the lake connections (lake sink ``conn_from`` -> attach pixel
+    ``conn_to``, int64 flat indices from the host solver, each side
+    unique) after the taps: ``A[conn_to] += A[conn_from]`` and
+    ``vis[conn_from] |= vis[conn_to]``.  The masks and the connections are
+    packed once (``kernels.lakeflow``) and solved by K12
+    (``lakeflow.relax_solve``): on the card the tiled kernels, in rounds
+    until one writes none of A, vis and root; on the CPU the plain twin,
+    Jacobi sweeps checked every ``check_every`` on A and vis (root
+    follows the same flow paths), at most ``max_iters``.  Returns (A,
+    vis, root): root an int64 flat index, -1 where the cell reaches no
+    sink, None without ``want_root``.  ``LAST_SOLVE`` holds, on the CPU,
+    ``"sweeps"`` (the sweeps run, to the certifying check); on the card,
+    under ``"A"``, ``"vis"`` and ``"root"``, each tiled solve's rounds,
+    launches, host reads and tile visits, in ``kernels.flow.LAST_SOLVE``'s
+    words."""
     if conn_from is None:
         conn_from = conn_to = torch.zeros(0, dtype=torch.int64,
                                           device=code.device)
     conn_src, conn_dst = kl.conn_fields(conn_from, conn_to, grid.shape)
     packed = kl.pack_lake_masks(code, mouth, grid, conn_src, conn_dst)
-    area = area2d.contiguous()
-    A, vis = area, mouth.contiguous()
-    root = kl.root_start(packed) if want_root else None
-    it = 0
-    while it < max_iters:
-        prev, prev_v = A, vis
-        A, vis, root = kl.relax_sweep(packed, area, conn_src, conn_dst, A,
-                                      vis, root, grid, check_every)
-        it += check_every
-        if torch.equal(A, prev) and torch.equal(vis, prev_v):
-            break
-    LAST_SOLVE["sweeps"] = it
+    A, vis, root, stats = kl.relax_solve(
+        packed, area2d.contiguous(), conn_src, conn_dst, grid, want_root,
+        check_every, max_iters)
+    LAST_SOLVE.clear()
+    LAST_SOLVE.update(stats)
     return A, vis, None if root is None else root.to(torch.int64)
 
 

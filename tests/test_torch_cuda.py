@@ -570,15 +570,18 @@ def test_erosion_loop_on_the_card_matches_the_cpu(dev):
 
     grid, h = _terrain(256, 128, dev)
     cfg = erosion.ErosionConfig(lakes=True)
-    before = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS)
-    relax0 = kl.LAUNCHES
+    before = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS,
+              kl.LAUNCHES)
+    tiles0 = _lake_tile_launches()
     got = erosion.landscape_evolution(h, torch.ones_like(h), grid, cfg,
                                       iterations=3)
-    after = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS)
-    assert [b - a for a, b in zip(before, after)] == [3, 3, 0, 3]
-    # K12: each of the 3 relaxations runs at least one check's 64 sweeps
-    relaxed = kl.LAUNCHES - relax0
-    assert relaxed >= 3 * 64 and relaxed % 64 == 0
+    after = (kb.LAUNCHES, kd.LAUNCHES, kd.LAUNCHES_PACKED, nlakes.CALLS,
+             kl.LAUNCHES)
+    assert [b - a for a, b in zip(before, after)] == [3, 3, 0, 3, 0]
+    # K12's tiles: each of the 3 relaxations runs at least one batch of
+    # rounds of each of A, vis and root; the one-sweep kernel none
+    for a, b in zip(tiles0, _lake_tile_launches()):
+        assert b - a >= 3 * 16 and (b - a) % 16 == 0
     want = erosion.landscape_evolution(h.cpu(), torch.ones(grid.shape),
                                        grid, cfg, iterations=3)
     got = got.cpu()
@@ -592,13 +595,21 @@ def test_erosion_loop_on_the_card_matches_the_cpu(dev):
 # ---------------------------------------------------------------------------
 
 
+def _lake_tile_launches():
+    from demiurge_tpu_torch.kernels import lakeflow as kl
+
+    return (kl.LAUNCHES_AREA_TILES, kl.LAUNCHES_VIS_TILES,
+            kl.LAUNCHES_ROOT_TILES)
+
+
 def _lake_inputs(case, dev):
     """(grid, code, mouth, area, conn_from, conn_to, start state or None):
     the erosion CLI's inputs on a terrain with its native lake solution
     (no start: the solve's own, area, mouths and ``root_start``), or
     random codes with 40 random connections and a random start on a
     300x12 grid that 256-column blocks do not divide, on the globe or on
-    a regional grid (tests/test_torch_lakeflow.py's cases)."""
+    a regional grid (tests/test_torch_lakeflow.py's cases), or a smooth
+    terrain on a regional 300x12 grid with its native lake solution."""
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.native import lakes as nlakes
     from demiurge_tpu_torch.ops import flow
@@ -621,8 +632,12 @@ def _lake_inputs(case, dev):
                  torch.from_numpy(rng.integers(-1, 3600, (12, 300)).astype(
                      np.int32)).to(dev))
     else:
-        W, H = (2000, 1000) if case == "2000x1000" else (256, 128)
-        grid, h = _terrain(W, H, dev)
+        if case == "regional-300x12":
+            grid, h, _, _ = _case(300, 12, REGIONAL, dev)
+            h = (h - 0.05) * 20
+        else:
+            W, H = (2000, 1000) if case == "2000x1000" else (256, 128)
+            grid, h = _terrain(W, H, dev)
         code = flow.flow_directions(flow.blur(h, grid, 0.5),
                                     torch.ones_like(h), grid)
         mask, mouth, _ = flow.incoming_mask(code, grid)
@@ -675,18 +690,76 @@ def test_lake_relax_kernel_equals_twin(dev, case):
                     assert torch.equal(_bits(g), _bits(w)), (case, n)
     if case.startswith("random-300x12"):
         return   # random codes may hold cycles: no fixpoint to solve
-    before = kl.LAUNCHES
+    # the whole solve on the card: the tiled kernels, not the one-sweep
+    before, tiles0 = kl.LAUNCHES, _lake_tile_launches()
     got = flow.flow_solve_stencil(code, area, mouth, grid, conn_from=cfrom,
                                   conn_to=cto, want_root=True)
-    sweeps = flow.LAST_SOLVE["sweeps"]
-    assert kl.LAUNCHES - before == sweeps
+    stats = dict(flow.LAST_SOLVE)
+    assert kl.LAUNCHES == before
+    assert [b - a for a, b in zip(tiles0, _lake_tile_launches())] == [
+        stats[k]["launched"] for k in ("A", "vis", "root")]
     want = flow.flow_solve_stencil(code.cpu(), area.cpu(), mouth.cpu(),
                                    grid, conn_from=cfrom.cpu(),
                                    conn_to=cto.cpu(), want_root=True)
-    assert flow.LAST_SOLVE["sweeps"] == sweeps
+    assert flow.LAST_SOLVE["sweeps"] > 0
     for g, w in zip(got, want):
         assert torch.equal(_bits(g.cpu()), _bits(w))
     assert bool(want[1].any()) and int((want[2] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["256x128", "no-connections", "2000x1000",
+                                  "regional-300x12"])
+def test_lake_tiled_solve_equals_twin_solve(dev, case):
+    """K12's tiled solve against the twin's solve on the card's tensors: A
+    bit for bit, vis and root exactly, with and without root; each solve
+    certified by a round that wrote nothing, one host read a batch, the
+    one-sweep kernel not launched."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import lakeflow as kl
+
+    grid, code, mouth, area, cfrom, cto, _ = _lake_inputs(case, dev)
+    assert grid.wrap_x == (case != "regional-300x12")
+    src, dst = kl.conn_fields(cfrom, cto, grid.shape)
+    packed = kl.pack_lake_masks(code, mouth, grid, src, dst)
+    assert (int((src >= 0).sum()) == 0) == (case == "no-connections")
+    for want_root in (True, False):
+        before = kl.LAUNCHES
+        A, vis, root, stats = kl.relax_solve(packed, area, src, dst, grid,
+                                             want_root)
+        torch.cuda.synchronize()
+        assert kl.LAUNCHES == before
+        wA, wvis, wroot, twin = kl.relax_solve_twin(packed, area, src, dst,
+                                                    grid, want_root)
+        assert torch.equal(_bits(A), _bits(wA)), case
+        assert torch.equal(vis, wvis), case
+        if want_root:
+            assert root.dtype == torch.int32 and torch.equal(root, wroot)
+        else:
+            assert root is None and wroot is None
+        assert set(stats) == ({"A", "vis", "root"} if want_root
+                              else {"A", "vis"})
+        for st in stats.values():
+            assert 1 <= st["rounds"] <= st["launched"]
+            assert st["launched"] % kf.BATCH == 0
+            assert st["host_reads"] == st["launched"] // kf.BATCH
+        assert twin["sweeps"] > 0 and bool(wvis.any())
+        assert not want_root or int((wroot >= 0).sum()) > 0
+
+
+def test_lake_tiled_solve_raises_on_a_refused_launch(dev, monkeypatch):
+    """A tile the library was not built for is refused by the entry point
+    and the wrapper raises; nothing is counted."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import lakeflow as kl
+
+    grid, code, mouth, area, cfrom, cto, _ = _lake_inputs("256x128", dev)
+    src, dst = kl.conn_fields(cfrom, cto, grid.shape)
+    packed = kl.pack_lake_masks(code, mouth, grid, src, dst)
+    monkeypatch.setattr(kf, "TILE", (8, 128))
+    before = _lake_tile_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kl.relax_solve(packed, area, src, dst, grid, True)
+    assert _lake_tile_launches() == before
 
 
 def test_lake_relax_raises_on_a_refused_launch(dev):

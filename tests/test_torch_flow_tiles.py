@@ -56,19 +56,33 @@ def _port_case(W, H, seed=2):
         tf.cell_area_lower_edge(grid, "cpu")
 
 
-def _jump(local, bits, real):
+def _slots(ty, tx):
+    """(ty, tx, 8): the halo'd tile's flat slot of each cell's neighbour
+    along each bit, at the bit's offset."""
+    q = (np.arange(1, ty + 1)[:, None] * (tx + 2)
+         + np.arange(1, tx + 1)[None, :])
+    return np.stack([q + dy * (tx + 2) + dx for dx, dy in SCAN], -1)
+
+
+def _jump(local, bits, real, slots=None, links=None):
     """K8's visit: every cell of the halo'd tile ``local`` points down its
-    path (ends at themselves), and the pointers jump, all at once, until
-    none changes; a cell turns to 1 when it points at a 1.  Returns the
-    passes it took."""
+    path (ends at themselves; its target the slot ``slots`` gives, by
+    default the bit's offset; a cell without an out bit at the slot
+    ``links`` gives where that is not -1), and the pointers jump, all at
+    once, until none changes; a cell turns to 1 when it points at a 1.
+    Returns the passes it took."""
     ty, tx = bits.shape
     flat = local.reshape(-1)
     q = (np.arange(1, ty + 1)[:, None] * (tx + 2)
          + np.arange(1, tx + 1)[None, :])
+    slots = _slots(ty, tx) if slots is None else slots
     nxt = np.arange(flat.size)
-    for k, (dx, dy) in enumerate(SCAN):
+    for k in range(8):
         on = real & ((bits >> k) & 1 == 1)
-        nxt[q[on]] = q[on] + dy * (tx + 2) + dx
+        nxt[q[on]] = slots[..., k][on]
+    if links is not None:
+        on = real & (bits == 0) & (links >= 0)
+        nxt[q[on]] = links[on]
     passes = 0
     while True:
         passes += 1
@@ -82,14 +96,24 @@ def _jump(local, bits, real):
             return passes
 
 
-def _relax(local, bits, feed, real, area, strip, rng):
+def _relax(local, bits, feed, real, area, strip, rng, slots=None,
+           conn=None, links=None, first_dirty=None):
     """K7's visit: the relaxation of the halo'd tile ``local`` in place,
     in strips of ``strip`` columns (the kernel's warps), each with its own
     dirty rows; the strips of a pass run one after another in a random
-    order (the kernel runs them at once).  Returns the passes it took."""
+    order (the kernel runs them at once).  A tap reads the slot ``slots``
+    gives (by default the bit's offset); ``conn`` (where, value, slot): a
+    term added after the taps, the tile's cell at the slot where that is
+    not -1, else the value; ``links``: the tile cell (row * tx + column)
+    whose term reads a cell, or -1, marked dirty for the next pass when
+    the cell changes; ``first_dirty`` (strips, rows): the rows that start
+    dirty (default all).  Returns the passes it took."""
     ty, tx = bits.shape
+    flat = local.reshape(-1)
+    slots = _slots(ty, tx) if slots is None else slots
     ns = tx // strip
-    dirty = np.ones((ns, ty), bool)
+    dirty = np.ones((ns, ty), bool) if first_dirty is None \
+        else first_dirty.copy()
     marks = np.zeros((ns, ty), bool)
     passes = 0
     while dirty.any():
@@ -104,11 +128,16 @@ def _relax(local, bits, feed, real, area, strip, rng):
                 while True:
                     cur = local[li + 1, 1 + cols.start:1 + cols.stop]
                     new = area[li, cols].copy()
-                    for k, (dx, dy) in enumerate(SCAN):
+                    for k in range(8):
                         on = (bits[li, cols] >> k) & 1 == 1
-                        nb = local[li + 1 + dy, 1 + dx + cols.start:
-                                   1 + dx + cols.stop]
+                        nb = flat[slots[li, cols, k]]
                         new = np.where(on, new + nb, new).astype(np.float32)
+                    if conn is not None:
+                        at = conn[2][li, cols]
+                        term = np.where(at >= 0, flat[np.maximum(at, 0)],
+                                        conn[1][li, cols])
+                        new = np.where(conn[0][li, cols], new + term,
+                                       new).astype(np.float32)
                     ch = real[li, cols] & (new.view(np.int32)
                                            != cur.view(np.int32))
                     local[li + 1, 1 + cols.start:1 + cols.stop] = \
@@ -120,6 +149,10 @@ def _relax(local, bits, feed, real, area, strip, rng):
                         marks[w - 1, near] = True
                     if ch[-1] and w < ns - 1:
                         marks[w + 1, near] = True
+                    if links is not None:
+                        for d in links[li, cols][ch & (links[li, cols]
+                                                       >= 0)]:
+                            marks[(d % tx) // strip, d // tx] = True
                     if not (ch & feed[li, cols]).any():
                         break
         passes += 1
@@ -133,6 +166,7 @@ def _relax(local, bits, feed, real, area, strip, rng):
 # last real row and column of a ragged tile)
 TOP, BOTTOM, LEFT, RIGHT, TL, TR, BL, BR = (1 << i for i in range(8))
 ALL_EDGES = 255
+REMOTE = 1 << 8   # K12's wake word: a cell read remotely was written
 
 
 def _edge_bits(moved, h, w):
@@ -143,9 +177,11 @@ def _edge_bits(moved, h, w):
             | BL * moved[h - 1, 0] | BR * moved[h - 1, w - 1])
 
 
-def _woken(edges):
-    """(nby, nbx) bool: the tiles whose halo a neighbour tile wrote (x
-    wraps, y clips)."""
+def _woke(edges):
+    """(nby, nbx) int: the neighbours' edge bits that face each tile's
+    halo (BOTTOM from the tile above, TOP from the one below, RIGHT from
+    the left, and so on; x wraps, y clips), 0 where no neighbour wrote
+    a cell of its halo."""
     e = np.pad(edges, ((1, 1), (0, 0)))
 
     def at(di, dj):  # the bits of the tile at (i + di, j + dj)
@@ -153,15 +189,28 @@ def _woken(edges):
 
     return ((at(-1, 0) & BOTTOM) | (at(1, 0) & TOP) | (at(0, -1) & RIGHT)
             | (at(0, 1) & LEFT) | (at(-1, -1) & BR) | (at(-1, 1) & BL)
-            | (at(1, -1) & TR) | (at(1, 1) & TL)) != 0
+            | (at(1, -1) & TR) | (at(1, 1) & TL))
 
 
-def _rounds(start, visit, tile, variant, order_seed, own_only=False):
+def _woken(edges):
+    """(nby, nbx) bool: the tiles whose halo a neighbour tile wrote."""
+    return _woke(edges) != 0
+
+
+def _rounds(start, visit, tile, variant, order_seed, own_only=False,
+            remote=False, wakes=None):
     """Tiled rounds from ``start`` (H, W) until a round writes nothing.
     ``visit(local, cells, real, rng)`` solves the halo'd tile ``local`` in
     place (``cells(a)``: the tile's cells of a grid array, 0 beyond the
     grid) and returns the passes it took.  ``own_only``: the wrong rule, a
-    tile woken by its own writes only.  Returns (field, stats)."""
+    tile woken by its own writes only.  K12's remote reads (``remote``):
+    the visit also gets ``read`` (flat indices -> the field there as the
+    visit's start sees it: the round's start in "concurrent", the state
+    the visits before it left "in place") and ``at``, its tile's (row,
+    column) and ``woke``, what woke it (``_woke``'s bits, REMOTE where a
+    cell it reads remotely was written, every bit in the first round);
+    ``wakes(flat indices written)`` names the cells whose tiles a write
+    wakes for the next round.  Returns (field, stats)."""
     H, W = start.shape
     ty, tx = tile
     nby, nbx = -(-H // ty), -(-W // tx)
@@ -174,11 +223,14 @@ def _rounds(start, visit, tile, variant, order_seed, own_only=False):
     wrote = np.ones((nby, nbx), bool)
     rng = np.random.default_rng(order_seed)
     visits, most = 0, 0
+    woken = np.zeros((nby, nbx), bool)  # by a remote write last round
     for rnd in range(1, H * W + 2):
-        awake = wrote if own_only else _woken(edges)
+        bits, was_woken = _woke(edges), woken
+        awake = wrote if own_only else (bits != 0) | woken
         src = X.copy() if variant == "concurrent" else X
         wrote = np.zeros((nby, nbx), bool)
         edges = np.zeros((nby, nbx), int)
+        woken = np.zeros((nby, nbx), bool)
         for t in rng.permutation(nby * nbx):
             i, j = divmod(int(t), nbx)
             if not awake[i, j]:
@@ -196,7 +248,13 @@ def _rounds(start, visit, tile, variant, order_seed, own_only=False):
                 return np.where(real, a[inner], 0)
 
             before = local[1:-1, 1:-1].copy()
-            most = max(most, visit(local, cells, real, rng))
+            extra = {}
+            if remote:
+                extra = {"read": lambda g, src=src: src.reshape(-1)[g],
+                         "at": (i, j),
+                         "woke": -1 if rnd == 1 else int(
+                             bits[i, j] | REMOTE * was_woken[i, j])}
+            most = max(most, visit(local, cells, real, rng, **extra))
             visits += 1
             after = local[1:-1, 1:-1]
             if X.dtype == np.float32:
@@ -204,8 +262,12 @@ def _rounds(start, visit, tile, variant, order_seed, own_only=False):
             else:
                 moved = real & (after != before)
             if moved.any():
-                X[rr[:, None].repeat(tx, 1)[moved],
-                  cc[None, :].repeat(ty, 0)[moved]] = after[moved]
+                mr = rr[:, None].repeat(tx, 1)[moved]
+                mc = cc[None, :].repeat(ty, 0)[moved]
+                X[mr, mc] = after[moved]
+                if wakes is not None:
+                    g = np.asarray(wakes(mr * W + mc), np.int64)
+                    woken[(g // W) // ty, (g % W) // tx] = True
                 wrote[i, j] = True
                 edges[i, j] = _edge_bits(moved, min(ty, H - i * ty),
                                          min(tx, W - j * tx))

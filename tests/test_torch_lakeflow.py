@@ -17,6 +17,9 @@ what the port ran before it and to the reference.  Tolerances: none.
   the rim that points off the grid reads its clamped neighbour, as the
   twin's ``shift`` does;
 - ``conn_fields`` raises on a repeated source or target;
+- ``pack_lake_masks`` equals ``kernels.flow.pack_masks`` with the lake
+  bits ORed in, on globes, regional grids and one-column or one-row
+  grids;
 - the whole ``flow_solve_stencil`` against the reference's with its
   connections: A bit for bit, vis and root exactly, on the globe and on
   a regional grid.
@@ -139,6 +142,34 @@ def test_lake_masks_keep_the_scan_order():
     assert torch.equal(kl.root_start(packed), torch.where(
         code == 5, torch.arange(48 * 24, dtype=torch.int32).reshape(
             tg.shape), -1))
+
+
+@pytest.mark.parametrize("shape, coords", [
+    ((48, 24), ()), ((50, 26), ()), ((1, 5), ()), ((7, 1), ()),
+    ((300, 12), ((-0.4, 0.3, -1.0, 0.5),)), ((40, 20), ((-1.0, 0.9, -2.5,
+                                                         1.0),))],
+    ids=["globe", "ragged", "one-column", "one-row", "regional",
+         "regional-2"])
+def test_lake_masks_equal_pack_masks_with_the_lake_bits(shape, coords):
+    """``pack_lake_masks`` (8 views of one padded copy) equals
+    ``kernels.flow.pack_masks`` with the sink and connection bits ORed
+    in, on random codes, globes and regional grids, one column or row."""
+    tg = TGrid(*shape, *coords)
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        code = torch.from_numpy(rng.integers(0, 10, tg.shape).astype(
+            np.int32))
+        _, mouth, _ = tf.incoming_mask(code, tg)
+        src = torch.from_numpy(np.where(rng.random(tg.shape) < 0.1, 3,
+                                        -1).astype(np.int32))
+        dst = torch.from_numpy(np.where(rng.random(tg.shape) < 0.1, 2,
+                                        -1).astype(np.int32))
+        want = kf.pack_masks(code, mouth, tg) | (
+            torch.where(code == 5, kl.SINK_BIT, 0)
+            | torch.where(src >= 0, kl.SRC_BIT, 0)
+            | torch.where(dst >= 0, kl.DST_BIT, 0)).to(torch.int32)
+        got = kl.pack_lake_masks(code, mouth, tg, src, dst)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("sweeps", [1, 7, 64])

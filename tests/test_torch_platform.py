@@ -187,8 +187,9 @@ def test_launch_counts_name_every_counter():
             "flow_solve_wave", "flow_banded_rounds", "jacobi_packed",
             "advect_stage", "advect_stage_one_row",
             "flow_directions_packed", "blur_strip",
-            "flow_directions_strip", "lake_relax"} <= names
-    assert len(names) == 22
+            "flow_directions_strip", "lake_relax", "lake_area_tiles",
+            "lake_vis_tiles", "lake_root_tiles"} <= names
+    assert len(names) == 25
 
 
 def test_interop_round_trip_and_config():
