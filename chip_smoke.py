@@ -96,11 +96,19 @@
    ``tools.flow_tune``'s run in this process at 2048x1024 (on the flow
    masks after 10 coupled steps: K11a-d each bit for bit against its
    twin, A bit for bit against K7, the wave within rtol 1e-5, atol 1e-7,
-   vis equal to K8, each timed beside K7+K8) and the packed Jacobi (K11e)
-   at the coupled depths (200 pressure sweeps, 50 viscosity sweeps on u
-   and v), bit for bit against its twin and within phase 3's bounds of K2
-   and K3, timed beside them; at 8192x4096, K7+K8 with their rounds and
-   tile visits, and K11a-d against them without twins, one call each;
+   vis equal to K8, each timed beside K7+K8) and the packed Jacobi (K11e,
+   8 sweeps a launch on shared-memory tiles) at the coupled depths (200
+   pressure sweeps, 50 viscosity sweeps on u and v: 25 + 7 launches),
+   bit for bit against its twin (and 61 sweeps, the remainder launch) and
+   within phase 3's bounds of K2 and K3, timed beside them and beside its
+   earlier one-launch-a-sweep design (the yardstick); K11b (one
+   persistent launch on K7/K8's tiles, one host read a solve) in modes
+   "both", "A" and "vis" against its twin, K7 and K8 (A bit for bit, vis
+   exact) on flow_tune's masks, on the CLI's terrain at 2000x1000 and at
+   8192x4096, with its rounds, tile visits, launches and host reads,
+   "both" timed beside its earlier design (band windows, the yardstick)
+   and K7+K8; at 8192x4096 also K7+K8 with their rounds and tile visits,
+   and K11a-d against them without twins, one call each;
 10. BASELINE config 1 with every launch counter at 0: the ``erosion`` CLI
    at its default 1024x512 for 5 steps (the full flow filter with lakes,
    then the erosion pass); fails unless K5 and K6's codes form launched
@@ -174,7 +182,8 @@
    tiled kernels count the erosion and tectonic-erosion runs, K1-K6 and
    K12's tiled kernels the editor session (the one-sweep K12 0 on every
    path), and
-   every kernel phase 13's CLI runs launched),
+   every kernel phase 13's CLI runs launched; K11b's and K11e's earlier
+   designs, the yardsticks, 0 on every path),
    the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -283,7 +292,7 @@ def main() -> int:
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
     from demiurge_tpu_torch.ops import flow as of
     from demiurge_tpu_torch.tools import flow_tune as ft
-    from demiurge_tpu_torch.tools import serpentine
+    from demiurge_tpu_torch.tools import flow_inputs, serpentine
     from demiurge_tpu_torch.tools.timing import device_ms
 
     # -- 1. setup ------------------------------------------------------------
@@ -320,6 +329,8 @@ def main() -> int:
                 "flow_solve_wave": (kx, "LAUNCHES_WAVE"),
                 "flow_banded_rounds": (kx, "LAUNCHES_BANDED"),
                 "jacobi_packed": (kp, "LAUNCHES"),
+                "jacobi_packed_sweeps": (kp, "LAUNCHES_SWEEPS"),
+                "flow_solve_fused_bands": (kx, "LAUNCHES_FUSED_BANDS"),
                 "advect_stage": (ka, "LAUNCHES_STAGE"),
                 "advect_stage_one_row": (ka, "LAUNCHES_STAGE_ONE_ROW"),
                 "flow_directions_packed": (kd, "LAUNCHES_PACKED"),
@@ -1730,13 +1741,11 @@ def main() -> int:
     tab_v = kp.row_table(grid, "viscosity", dev)
     p0 = torch.zeros_like(div_e)
 
-    def packed_pressure():
-        return kp.resident_call_packed(ob_p, tab_p, co_e[5], [p0], grid, 200,
-                                       True, False)
+    def packed_pressure(fn=kp.resident_call_packed, iters=200):
+        return fn(ob_p, tab_p, co_e[5], [p0], grid, iters, True, False)
 
-    def packed_viscosity():
-        return kp.resident_call_packed(ob_v, tab_v, None, [u, v], grid, 50,
-                                       False, True)
+    def packed_viscosity(fn=kp.resident_call_packed):
+        return fn(ob_v, tab_v, None, [u, v], grid, 50, False, True)
 
     (got_p,) = packed_pressure()
     got_u, got_v = packed_viscosity()
@@ -1746,6 +1755,12 @@ def main() -> int:
           f"{k11_launches}")
     for name, n in k11_launches.items():
         assert n > 0, f"{name} was never launched on its path"
+    # K11b one launch a solve: flow_tune's "both" and its split (A, then
+    # vis), each checked once and timed REPS times; K11e 25 + 7 launches
+    assert k11_launches["flow_solve_fused"] == 3 * (1 + ft.REPS), \
+        k11_launches
+    assert k11_launches["jacobi_packed"] == kp.launches(200) + kp.launches(
+        50) == 25 + 7, k11_launches
 
     (want_p,) = kp.resident_call_packed_plain(ob_p, tab_p, co_e[5], [p0],
                                               grid, 200, True, False)
@@ -1753,32 +1768,122 @@ def main() -> int:
                                                    grid, 50, False, True)
     k2_p = kj.pressure_solve_cuda(*co_e, p0, grid, 200)
     k3_u, k3_v = kj.diffusion_solve_cuda(*dco_e, u, v, grid, 50)
+    # a count that is not a multiple of k: the remainder launch
+    (got_r,) = packed_pressure(iters=61)
+    (want_r,) = packed_pressure(kp.resident_call_packed_plain, 61)
+    # the earlier design (one launch a sweep), the yardstick
+    (old_p,) = packed_pressure(kp.resident_call_packed_sweeps_cuda)
+    old_u, old_v = packed_viscosity(kp.resident_call_packed_sweeps_cuda)
     torch.cuda.synchronize()
     assert torch.equal(got_p, want_p)
     assert torch.equal(got_u, want_u) and torch.equal(got_v, want_v)
+    assert torch.equal(got_r, want_r)
+    assert torch.equal(old_p, want_p)
+    assert torch.equal(old_u, want_u) and torch.equal(old_v, want_v)
     scale_p, scale_u = float(k2_p.abs().max()), float(k3_u.abs().max())
     err_p = max_err(got_p, k2_p)
     err_u = max(max_err(got_u, k3_u), max_err(got_v, k3_v))
     assert err_p <= 1e-4 * scale_p and err_u <= 2e-5 * scale_u, \
         (err_p, scale_p, err_u, scale_u)
-    ms_p = cuda_ms(packed_pressure, 10)
+    # in turns: the earlier design, this one, this one, the earlier one
+    ms_old = [cuda_ms(lambda: packed_pressure(
+        kp.resident_call_packed_sweeps_cuda), 10)]
+    ms_p = [cuda_ms(packed_pressure, 10), cuda_ms(packed_pressure, 10)]
+    ms_old.append(cuda_ms(lambda: packed_pressure(
+        kp.resident_call_packed_sweeps_cuda), 10))
     ms_v = cuda_ms(packed_viscosity, 10)
+    ms_v_old = cuda_ms(lambda: packed_viscosity(
+        kp.resident_call_packed_sweeps_cuda), 10)
     ms_k2 = cuda_ms(lambda: kj.pressure_solve_cuda(*co_e, p0, grid, 200), 10)
     ms_k3 = cuda_ms(lambda: kj.diffusion_solve_cuda(*dco_e, u, v, grid, 50),
                     10)
     plain_ms = cuda_ms(lambda: kp.resident_call_packed_plain(
         ob_p, tab_p, co_e[5], [p0], grid, 200, True, False), 1)
-    print(f"  packed viscosity (50 sweeps on u, v): bit-exact against its "
-          f"twin, err/max against K3 {err_u / scale_u:.3e}; {ms_v:.3f} ms "
-          f"against K3 {ms_k3:.3f} ms ({card})")
+    print(f"  packed pressure: 200 sweeps in {kp.launches(200)} launches "
+          f"(was 200), 61 in {kp.launches(61)}, bit-exact against the twin; "
+          f"{min(ms_p):.3f} ms ({', '.join(f'{t:.3f}' for t in ms_p)}), the "
+          f"one-launch-a-sweep design {', '.join(f'{t:.3f}' for t in ms_old)}"
+          f" ms, K2 {ms_k2:.3f} ms ({card})")
+    print(f"  packed viscosity (50 sweeps on u, v, {kp.launches(50)} "
+          f"launches): bit-exact against its twin, err/max against K3 "
+          f"{err_u / scale_u:.3e}; {ms_v:.3f} ms, the earlier design "
+          f"{ms_v_old:.3f} ms, K3 {ms_k3:.3f} ms ({card})")
     # a pressure sweep: cx*(pE+pW) + cy*(pN+pS) + b, 6 operations a pixel
     record("jacobi_packed", "demiurge_tpu_torch/csrc/jacobi_packed.cu",
-           "attic/jacobi_packed.py:212", 0.0, ms_p, plain_ms, 4 * plane,
-           200 * 6 * N,
-           f"pressure, 200 sweeps: bit-exact against its twin, err/max "
-           f"against K2 {err_p / scale_p:.3e}; K2 {ms_k2:.3f} ms in the "
-           f"same run")
-    del want_p, want_u, want_v, k2_p, k3_u, k3_v
+           "attic/jacobi_packed.py:212", 0.0, min(ms_p), plain_ms,
+           4 * plane, 200 * 6 * N,
+           f"pressure, 200 sweeps in {kp.launches(200)} launches of k="
+           f"{kp.SWEEPS_PER_LAUNCH} on {kp.TILES[1][0]}x{kp.TILES[1][1]} "
+           f"tiles, two blocks an SM: bit-exact against its twin (and 61 "
+           f"sweeps), err/max against K2 {err_p / scale_p:.3e}; the "
+           f"earlier design {min(ms_old):.3f} ms, K2 {ms_k2:.3f} ms in the "
+           f"same run; viscosity {ms_v:.3f} ms (earlier {ms_v_old:.3f}, K3 "
+           f"{ms_k3:.3f})")
+    record("jacobi_packed_sweeps", "demiurge_tpu_torch/csrc/jacobi_packed.cu",
+           "attic/jacobi_packed.py:212", 0.0, min(ms_old), plain_ms,
+           4 * plane, 200 * 6 * N,
+           "K11e's earlier design, the yardstick off every path: one launch "
+           "a sweep, 200 pressure sweeps")
+    del want_p, want_u, want_v, k2_p, k3_u, k3_v, old_p, old_u, old_v
+
+    def hold_k11b(label, pk, area_, g_, band):
+        """K11b in every mode against its twin, K7 and K8: A bit for bit,
+        vis exactly, one launch and one host read a solve; then "both"
+        timed beside the earlier design and K7+K8 (CUDA events, one call
+        each after the checks, in turns).  Returns (ms, bands ms, K7+K8
+        ms, the stats of "both")."""
+        A7 = kf.flow_solve_area_cuda(pk, area_, g_)
+        vis8 = kf.vis_solve_cuda(pk, g_)
+        mouth_ = ((pk >> 16) & 1).bool()
+        notes = {}
+        for mode in kx.MODES:
+            before = kx.LAUNCHES_FUSED
+            A, vis, st = kx.flow_solve_fused_cuda(pk, area_, g_, band=band,
+                                                  mode=mode)
+            tA, tvis, _ = kx.flow_solve_fused_plain(pk, area_, g_,
+                                                    band=band, mode=mode)
+            torch.cuda.synchronize()
+            assert kx.LAUNCHES_FUSED - before == st["launched"] == 1
+            assert st["host_reads"] == 1, st
+            assert torch.equal(A, tA) and torch.equal(vis, tvis), \
+                (label, mode)
+            assert torch.equal(A, area_ if mode == "vis" else A7), \
+                (label, mode)
+            assert torch.equal(vis, mouth_ if mode == "A" else vis8), \
+                (label, mode)
+            notes[mode] = st
+            del A, vis, tA, tvis
+        A, vis, sb = kx.flow_solve_fused_bands_cuda(pk, area_, g_, band=band)
+        torch.cuda.synchronize()
+        assert torch.equal(A, A7) and torch.equal(vis, vis8), label
+        del A, vis
+        ms_k78 = cuda_ms(lambda: (kf.flow_solve_area_cuda(pk, area_, g_),
+                                  kf.vis_solve_cuda(pk, g_)), 1)
+        ms_new = cuda_ms(lambda: kx.flow_solve_fused_cuda(pk, area_, g_,
+                                                          band=band), 1)
+        ms_bands = cuda_ms(lambda: kx.flow_solve_fused_bands_cuda(
+            pk, area_, g_, band=band), 1)
+        ms_new2 = cuda_ms(lambda: kx.flow_solve_fused_cuda(pk, area_, g_,
+                                                           band=band), 1)
+        print(f"  K11b at {label}: every mode bit-exact against its twin, A "
+              f"against K7, vis against K8; "
+              + "; ".join(f"{m}: {st['rounds']} rounds, {st['tiles_run']} "
+                          f"tile visits, at most {st['max_inner_sweeps']} "
+                          f"passes a visit, {st['launched']} launch, "
+                          f"{st['host_reads']} host read, {st['blocks']} "
+                          f"blocks" for m, st in notes.items())
+              + f". 'both' {ms_new:.3f}, {ms_new2:.3f} ms; the earlier "
+              f"design {ms_bands:.3f} ms ({sb['rounds']} rounds, "
+              f"{sb['sweeps']} sweeps); K7+K8 {ms_k78:.3f} ms ({card})")
+        return min(ms_new, ms_new2), ms_bands, ms_k78, notes["both"]
+
+    k11b_ms = {f"{W}x{H}": hold_k11b(f"{W}x{H}", pk10, of.cell_area_lower_edge(
+        grid, dev), grid, 64)}
+    g_r = Grid(*RAGGED)
+    pk_r, area_r = flow_inputs(cli._terrain(g_r, SEED, dev), g_r)
+    k11b_ms[f"{RAGGED[0]}x{RAGGED[1]}"] = hold_k11b(
+        f"{RAGGED[0]}x{RAGGED[1]}", pk_r, area_r, g_r, 40)
+    del pk_r, area_r
 
     # K11a-d from flow_tune's rows: bit-exact against their twins there
     edges10 = float(sum(((pk10 >> i) & 1).sum() for i in range(8)))
@@ -1794,9 +1899,21 @@ def main() -> int:
                 f"{row['differ']} A cells differ, vis equal to K8; stats "
                 f"{row['stats']}; K7+K8 {k78_ms:.3f} ms")
         if name == "flow_solve_fused":
-            note += f"; split A then vis {split_row['ms']:.3f} ms"
+            new_ms, bands_ms, _, _ = k11b_ms[f"{W}x{H}"]
+            note += (f"; split A then vis {split_row['ms']:.3f} ms; one "
+                     f"call on the same masks {new_ms:.3f} ms, the earlier "
+                     f"design {bands_ms:.3f} ms")
         record(name, "demiurge_tpu_torch/csrc/flow_deadends.cu", where, 0.0,
                row["ms"], row["twin_ms"], 3 * plane + N, edges10 + N, note)
+    new_ms, bands_ms, _, _ = k11b_ms[f"{W}x{H}"]
+    record("flow_solve_fused_bands", "demiurge_tpu_torch/csrc/flow_deadends.cu",
+           "attic/flow_deadends.py:319", 0.0, bands_ms,
+           next(r for r in tune_rows
+                if r["kernel"] == "flow_solve_fused")["twin_ms"],
+           3 * plane + N, edges10 + N,
+           "K11b's earlier design, the yardstick off every path: band "
+           "windows, one pixel a thread, one grid sync a sweep, 'both' on "
+           "flow_tune's masks")
     del pk10
 
     def timed(fn):
@@ -1832,9 +1949,19 @@ def main() -> int:
               f"{ms_b:.3f} ms (one call); stats "
               f"{ {k: v for k, v in st.items() if k != 'active'} }")
         del A, vis
+    del A7b, vis8b
+    k11b_ms[f"{BIG[0]}x{BIG[1]}"] = hold_k11b(f"{BIG[0]}x{BIG[1]}", pk_big,
+                                              area_big, big_grid, 128)
+    big_ms["K11b fused both, held"] = round(k11b_ms[
+        f"{BIG[0]}x{BIG[1]}"][0], 3)
+    big_ms["K11b earlier design"] = round(k11b_ms[f"{BIG[0]}x{BIG[1]}"][1], 3)
     print(f"K11 at {BIG[0]}x{BIG[1]} (one call each, CUDA events, {card}): "
           f"{json.dumps(big_ms)}")
-    del A7b, vis8b, pk_big, area_big
+    print(f"K11b (ms, the earlier design's ms, K7+K8 ms, rounds) a size "
+          f"({card}): " + json.dumps({
+              k: [round(a, 3), round(b, 3), round(c, 3), st["rounds"]]
+              for k, (a, b, c, st) in k11b_ms.items()}))
+    del pk_big, area_big
     torch.cuda.empty_cache()
 
     # -- 10. BASELINE config 1: the erosion CLI, counted -------------------

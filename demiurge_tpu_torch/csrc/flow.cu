@@ -126,147 +126,49 @@
 
 namespace {
 
-// K10: whether a cell of band row rl with out bits `out` leaves its band
-__device__ __forceinline__ bool crossing(int out, int rl, int band) {
-  return (rl == 0 && (out & kNegOut)) || (rl == band - 1 && (out & kPosOut));
-}
-
-template <int TY, int TX>
-constexpr size_t area_smem() {
-  return sizeof(float) * ((TY + 2) * (TX + 2) + TY * TX) +
-         sizeof(uint16_t) * TY * TX;
-}
-
-template <int TY, int TX>
-constexpr size_t vis_smem() {
-  return ((TY + 2) * (TX + 2) + 15) / 16 * 16 +
-         sizeof(int16_t) * (TY + 2) * (TX + 2);
-}
-
 template <int TY, int TX>
 constexpr size_t exit_smem() {
   return (sizeof(int) + sizeof(int16_t)) * (TY + 2) * (TX + 2);
 }
 
+// K7: one round of the tiled A relaxation (area_visit)
 template <int TY, int TX>
 __global__ void __launch_bounds__(TX)
     area_tile_kernel(const int* __restrict__ packed,
                      const float* __restrict__ area, float* A,
                      const int* __restrict__ prev, int* cur, int* stats,
                      int slot, int H, int W, int nby, int nbx) {
-  constexpr int SW = TX + 2;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int out;
-  volatile float* sA = reinterpret_cast<float*>(smem);
-  float* sArea = reinterpret_cast<float*>(smem) + (TY + 2) * SW;
-  uint16_t* sMeta = reinterpret_cast<uint16_t*>(sArea + TY * TX);
   if (!tile_awake(prev, cur, nby, nbx, &out)) return;
 
-  const int t = threadIdx.x;
   const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
-  const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
-  load_halo<TY, TX>(sA, A, r0, c0, H, W);
-  for (int li = 0; li < TY; ++li) {
-    int m = 0;
-    float ar = 0.0f;
-    if (c < W && r0 + li < H) {
-      const long i = (long)(r0 + li) * W + c;
-      const int p = __ldg(packed + i);
-      m = kReal | (p & 0xff) | ((p >> 8) & kRowOut ? kFeed : 0);
-      ar = __ldg(area + i);
-    }
-    sMeta[li * TX + t] = (uint16_t)m;
-    sArea[li * TX + t] = ar;
-  }
-  // (relax's barrier orders these stores before the first pass)
-
+  const int r0 = ti * TY, c0 = tj * TX;
   int passes;
-  const uint64_t touched = relax<TY, TX>(
-      [&](int li) {
-        const int m = sMeta[li * TX + t];
-        if (!(m & kReal)) return 0;
-        const int ctr = (li + 1) * SW + t + 1;
-        float acc = sArea[li * TX + t];
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if ((m >> k) & 1)
-            acc = __fadd_rn(acc, sA[ctr + dyk(k) * SW + dxk(k)]);
-        if (__float_as_int(acc) == __float_as_int(sA[ctr])) return 0;
-        sA[ctr] = acc;
-        return m & kFeed ? 3 : 1;
-      },
-      &passes);
-
-  uint64_t wrote = 0;
-  for (int li = 0; li < TY; ++li) {
-    if (!((touched >> li) & 1)) continue;
-    const long i = (long)(r0 + li) * W + c;
-    const float v = sA[(li + 1) * SW + t + 1];
-    if (__float_as_int(v) != __float_as_int(__ldcg(A + i))) {
-      __stcg(A + i, v);
-      wrote |= 1ull << li;
-    }
-  }
-  finish<TY, TX>(wrote, c, r0, c0, H, W, &out, cur, stats, slot, passes);
+  const uint64_t wrote =
+      area_visit<TY, TX>(smem, packed, area, A, r0, c0, H, W, &passes);
+  finish<TY, TX>(wrote, c0 + threadIdx.x, r0, c0, H, W, &out, cur, stats,
+                 slot, passes);
 }
 
-// K8's step 3: each cell of the halo'd tile points at a cell further down
-// its path (at first its target; a sink, a halo cell or a cell beyond the
-// grid at itself, and for K10b a crossing cell), and the pointers jump
-// (next = next of next) until a cell reaches a 1 or points at an end.  In
-// place: a pointer read at any time points further down the same path, and
-// a cell only turns to 1 from a 1 on its path.  A pass that changes
-// nothing leaves every cell either 1 or pointing at an end that holds 0:
-// the tile's local fixpoint, in about log2 of its longest path passes.
-// band == 0 is K8 (no crossing cells); band > 0 is K10b, whose crossing
-// cells are ends and keep the seed they start from.
+// K8 (band 0) and K10b (band > 0): one round of the tiled vis solve
+// (vis_visit: pointer jumping in the tile)
 template <int TY, int TX>
 __global__ void __launch_bounds__(TX)
     vis_tile_kernel(const int* __restrict__ packed, uint8_t* vis, int band,
                     const int* __restrict__ prev, int* cur, int* stats,
                     int slot, int H, int W, int nby, int nbx) {
-  constexpr int SW = TX + 2, SN = (TY + 2) * SW;
-  static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
-  static_assert(SN <= 32767, "a halo'd tile's cells are int16 indices");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int out;
-  volatile uint8_t* sV = smem;
-  volatile int16_t* sNext =
-      reinterpret_cast<int16_t*>(smem + (SN + 15) / 16 * 16);
   if (!tile_awake(prev, cur, nby, nbx, &out)) return;
 
-  const int t = threadIdx.x;
   const int ti = blockIdx.x / nbx, tj = blockIdx.x - ti * nbx;
-  const int r0 = ti * TY, c0 = tj * TX, c = c0 + t;
-  load_halo<TY, TX>(sV, vis, r0, c0, H, W);
-  point_down<TY, TX>(sNext, packed, r0, c, H, W, [&](int o, int r, int) {
-    return band > 0 && crossing(o, r % band, band);
-  });
-
-  uint64_t touched = 0;
-  int passes = 0;
-  for (bool changed = true; changed && passes <= SN; ++passes) {
-    changed = false;
-    for (int li = 0; li < TY; ++li) {
-      const int q = (li + 1) * SW + t + 1;
-      const int n = sNext[q];
-      if (n == q || sV[q]) continue;
-      if (sV[n]) {
-        sV[q] = 1;
-        touched |= 1ull << li;
-        changed = true;
-      } else if (sNext[n] != n) {
-        sNext[q] = sNext[n];
-        changed = true;
-      }
-    }
-    changed = __syncthreads_or(changed);
-  }
-
-  // a touched cell went from 0 to 1, and only this block writes it
-  for (int li = 0; li < TY; ++li)
-    if ((touched >> li) & 1) vis[(long)(r0 + li) * W + c] = 1;
-  finish<TY, TX>(touched, c, r0, c0, H, W, &out, cur, stats, slot, passes);
+  const int r0 = ti * TY, c0 = tj * TX;
+  int passes;
+  const uint64_t touched =
+      vis_visit<TY, TX>(smem, packed, vis, band, r0, c0, H, W, &passes);
+  finish<TY, TX>(touched, c0 + threadIdx.x, r0, c0, H, W, &out, cur, stats,
+                 slot, passes);
 }
 
 // K10a's exit ids: the ends are the crossing cells, pinned to their own

@@ -9,8 +9,9 @@
 //           :34): 2-D tiles that skip when their 3x3 tile neighbourhood was
 //           quiet last round;
 //   - K11b  attic/flow_deadends.py flow_solve_fused (:319, _kernel_fused
-//           :182): the whole solve in one launch, per-band active column
-//           windows and the stop test on the device;
+//           :182): the whole solve in one launch with the stop test on the
+//           device.  Here on K7/K8's tiles (below); the TPU design's band
+//           windows, k sweeps a round and narrow windows go;
 //   - K11c  attic/flow_deadends.py flow_solve_wave (:804, _kernel_wave
 //           :534): the delta wave.
 //
@@ -22,7 +23,8 @@
 //     vis[p] = vis[p] | OR_i (out_i & vis[neighbour_i])
 // and writes only when its bits change.
 //
-// Why skipping is sound under in-place sweeps (K11a, b, d).  Concurrent
+// Why skipping is sound under in-place sweeps (K11a, d, and the earlier
+// K11b kept as the yardstick, demiurge_flow_fused_bands).  Concurrent
 // blocks see each other's writes within a sweep, so how far a change
 // travels in one sweep is not bounded; the skip rules below do not rely on
 // such a bound.  Let D_t be the cells written in round t and S_{t+1} the
@@ -57,14 +59,57 @@
 // Bound on this card: device-memory bytes, as K7: read the masks, the area
 // and write A and vis once (about 19 bytes a pixel); the sweeps stay in the
 // 50 MB L2 at 2048x1024.  The designs test the reference's answers to the
-// sweep count: tile and band skipping (K11a, K11d), one launch with device
-// windows (K11b), and a wave that touches only what moved (K11c, which here
-// still sweeps every pixel).
+// sweep count: tile and band skipping (K11a, K11d), one launch with the
+// stop test on the device (K11b), and a wave that touches only what moved
+// (K11c, which here still sweeps every pixel).
+//
+// K11b, the whole solve in one persistent cooperative launch on K7/K8's
+// tiles (csrc/flow_tiles.cuh), as many blocks as the card holds at once,
+// one thread a column of a 16 x 128 tile.  An entry is a (field, tile)
+// pair: A's entries and, in mode "both", vis's.
+//   - Round t walks a list of entries: every entry in round 0 (A's
+//     first, the slower), after that the entries whose halo a visit of
+//     the same field wrote in round t - 1.  A block takes the next entry
+//     by an atomic counter, so a slow visit holds up only its own block,
+//     and A's and vis's visits of a round run side by side on different
+//     blocks: a round costs its slowest visit, not an A visit and a vis
+//     visit one after the other.
+//   - A visit solves one field of its tile to the local fixpoint against
+//     its halo as loaded: A by K7's relaxation (area_visit), vis by K8's
+//     pointer jumping (vis_visit); it writes back the cells that changed
+//     and takes finish's edge bits.
+//   - Waking is a push where K7 pulls (tile_awake): eight threads of the
+//     visit each OR one set edge bit into the wake word of the same
+//     field's entry of the tile it faces (the same 8 facing pairs, x
+//     wraps, y clips), and the write that turns a word from 0 appends
+//     that entry to the next round's list.  So a quiet round costs its
+//     short list, not a test of every tile.
+//   - One grid.sync ends a round.  Every block then reads the next list's
+//     length: 0 ends the solve, since the last round's writes faced no
+//     entry's halo, so by csrc/flow.cu's stale-halo argument every tile
+//     satisfies both fields' equations; the round limit sets status 2
+//     instead.  The host reads the status and the stats once, after the
+//     launch.
+// The argument is K7's for each field on its own: A's equations read only
+// A and vis's only vis, a field's cells are written by its own entry's
+// visit only, a visit solves against a halo that is stale only where a
+// write of that field will wake it, and each fixpoint is unique, so A
+// equals K7's bit for bit and vis K8's.  A write of one field must wake
+// that field's entries: tests/test_torch_flow_fused_tiles.py runs this
+// schedule in numpy and shows that dropping either field's writes from
+// the wake stops that field short.
+// Storage that a round reuses is laid out so no read races a clear: the
+// lists and wake words in two slots by round parity, each wake word
+// cleared by its entry's visit; the list lengths and walk counters in
+// three, the lead thread clearing round t + 2's during round t, when the
+// last reads of that slot (round t - 1's) have passed a grid.sync.
 
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flow_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -216,7 +261,121 @@ __global__ void wave_sweep_kernel(const int* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------------------
-// K11b: the whole solve in one cooperative launch.
+// K11b: the whole solve in one persistent cooperative launch on K7/K8's
+// tiles (the design is in the header).
+//
+// Workspace (int32), ne entries (nt tiles, times 2 in mode "both"; entry
+// f * nt + tile is field f of the tile, f 0 for A):
+//   edges  [ne]     finish's edge bits of each entry's last visit
+//   wake   [2][ne]  round t + 1's wake words, in slot (t + 1) & 1
+//   list   [2][ne]  round t's entries, in slot t & 1 (the caller fills
+//                   slot 0 with every entry in order)
+//   ctl: 0..2 list lengths of round t in slot t % 3 (the caller sets slot
+//        0 to ne), 3..5 walk counters, 6..8 finish's stats (visits, most
+//        passes a visit, some visit wrote), 9 status (1 converged, 2 out
+//        of rounds), 10 rounds run
+// Everything else zero.
+// ---------------------------------------------------------------------------
+
+constexpr int kFusedCtl = 5;  // ctl's offset, in ne
+
+// A visit's shared memory: one field's solve
+template <int MODE>
+constexpr size_t fused_tile_smem() {
+  constexpr size_t a = MODE == kOnlyVis ? 0 : area_smem<kTileRows, kTileCols>();
+  constexpr size_t v = MODE == kOnlyA ? 0 : vis_smem<kTileRows, kTileCols>();
+  return a > v ? a : v;
+}
+
+// The tile each edge bit faces (kBottom the tile below, kTopRight the one
+// above and to the right, ...): tile rows down, tile columns right
+__constant__ int kFaceBit[8] = {kBottom,      kTop,        kRight,
+                                kLeft,        kBottomRight, kBottomLeft,
+                                kTopRight,    kTopLeft};
+__constant__ int kFaceDi[8] = {1, -1, 0, 0, 1, 1, -1, -1};
+__constant__ int kFaceDj[8] = {0, 0, 1, -1, 1, -1, 1, -1};
+
+// Edge bit d of a visit's bits, pushed: it wakes the same field's entry
+// (base + tile) of the tile whose halo it faces (x wraps, y clips), and
+// the first bit to reach an entry appends it to the next round's list.
+__device__ void wake_facing(int d, int base, int tile, int bits, int* wake,
+                            int* list, int* count, int nby, int nbx) {
+  const int bit = kFaceBit[d];
+  const int ti = tile / nbx, tj = tile - ti * nbx;
+  const int ii = ti + kFaceDi[d];
+  if (!(bits & bit) || ii < 0 || ii >= nby) return;
+  const int nb = base + ii * nbx + (tj + kFaceDj[d] + nbx) % nbx;
+  if (atomicOr(wake + nb, bit) == 0) list[atomicAdd(count, 1)] = nb;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kTileCols)
+    fused_tiles_kernel(const int* __restrict__ packed,
+                       const float* __restrict__ area, float* A,
+                       uint8_t* vis, int* ws, int H, int W, int max_rounds) {
+  constexpr int TY = kTileRows, TX = kTileCols;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int out, entry;
+  const int nby = (H + TY - 1) / TY, nbx = (W + TX - 1) / TX;
+  const int nt = nby * nbx, ne = (MODE == kBoth ? 2 : 1) * nt;
+  int* const edges = ws;
+  int* const wake = ws + ne;
+  int* const list = ws + 3 * ne;
+  int* const ctl = ws + kFusedCtl * ne;
+  int* const stats = ctl + 6;
+  const bool lead = blockIdx.x == 0 && threadIdx.x == 0;
+
+  for (int t = 0;; ++t) {
+    const int n = ld_cg(ctl + t % 3);  // the same in every block
+    if (n == 0 || t >= max_rounds) {
+      if (lead) ctl[9] = n == 0 ? 1 : 2;
+      return;
+    }
+    if (lead) {
+      ctl[(t + 2) % 3] = 0;
+      ctl[3 + (t + 2) % 3] = 0;
+      ctl[10] = t + 1;
+    }
+    int* const now = list + (t & 1) * ne;
+    int* const next_wake = wake + ((t + 1) & 1) * ne;
+    int* const next_list = list + ((t + 1) & 1) * ne;
+    int* const next_n = ctl + (t + 1) % 3;
+    for (;;) {
+      if (threadIdx.x == 0) {
+        const int j = atomicAdd(ctl + 3 + t % 3, 1);
+        entry = j < n ? ld_cg(now + j) : -1;
+        if (entry >= 0) wake[(t & 1) * ne + entry] = 0;
+        out = 0;
+      }
+      __syncthreads();
+      const int e = entry;
+      if (e < 0) break;
+      const bool vis_field = MODE == kOnlyVis || (MODE == kBoth && e >= nt);
+      const int base = MODE == kBoth && e >= nt ? nt : 0, tl = e - base;
+      const int ti = tl / nbx, tj = tl - ti * nbx;
+      const int r0 = ti * TY, c0 = tj * TX;
+      int passes;
+      const uint64_t wrote =
+          vis_field
+              ? vis_visit<TY, TX>(smem, packed, vis, 0, r0, c0, H, W, &passes)
+              : area_visit<TY, TX>(smem, packed, area, A, r0, c0, H, W,
+                                   &passes);
+      finish<TY, TX>(wrote, c0 + threadIdx.x, r0, c0, H, W, &out, edges,
+                     stats, 0, passes, e);
+      // finish's barrier has made `out` whole: eight threads push its bits
+      if (threadIdx.x < 8)
+        wake_facing(threadIdx.x, base, tl, out & 0xff, next_wake, next_list,
+                    next_n, nby, nbx);
+      __syncthreads();  // before thread 0 takes the next entry
+    }
+    grid.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The earlier K11b, kept callable as the yardstick: the TPU design, one
+// pixel a thread, one grid.sync a sweep.
 //
 // Workspace (int32, zeroed but for prev_hi = W - 1 by the caller), nb bands:
 //   cur_lo, cur_hi    [nb] this round's change range of each band
@@ -233,7 +392,7 @@ __global__ void wave_sweep_kernel(const int* __restrict__ packed,
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kFusedThreads)
-    fused_kernel(const int* __restrict__ packed,
+    fused_bands_kernel(const int* __restrict__ packed,
                  const float* __restrict__ area, float* A, uint8_t* vis,
                  int* ws, int H, int W, int band, int k, int narrow, int mode,
                  int max_rounds) {
@@ -407,26 +566,67 @@ int demiurge_flow_wave_sweeps(const int* packed, float* d0, float* d1,
   return (int)cudaGetLastError();
 }
 
-// K11b: the whole solve in one cooperative launch on as many blocks as fit
-// on the card at once (written to *blocks); ws as described above.
+// K11b: the whole solve in one persistent cooperative launch on as many
+// blocks as the card holds at once, at most one an entry (written to
+// *blocks); ws as described above; mode 0 both, 1 A, 2 vis.  (ty, tx) must
+// be the built tile, else cudaErrorInvalidValue.
 int demiurge_flow_fused(const int* packed, const float* area, float* A,
-                        uint8_t* vis, int* ws, int H, int W, int band, int k,
-                        int narrow, int mode, int max_rounds, int* blocks,
+                        uint8_t* vis, int* ws, int H, int W, int ty, int tx,
+                        int mode, int max_rounds, int* blocks,
                         void* stream) {
+  if (ty != kTileRows || tx != kTileCols || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel =
+      mode == kBoth ? (const void*)fused_tiles_kernel<kBoth>
+                    : (mode == kOnlyA ? (const void*)fused_tiles_kernel<kOnlyA>
+                                      : (const void*)fused_tiles_kernel<
+                                            kOnlyVis>);
+  const size_t smem = mode == kBoth ? fused_tile_smem<kBoth>()
+                                    : (mode == kOnlyA
+                                           ? fused_tile_smem<kOnlyA>()
+                                           : fused_tile_smem<kOnlyVis>());
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kTileCols, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int ne = (mode == kBoth ? 2 : 1) * ((H + ty - 1) / ty) *
+                 ((W + tx - 1) / tx);
+  *blocks = per_sm * sms < ne ? per_sm * sms : ne;
+  void* args[] = {&packed, &area, &A, &vis, &ws, &H, &W, &max_rounds};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(*blocks), dim3(kTileCols),
+                                    args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The earlier K11b (the yardstick): the solve in one cooperative launch of
+// band windows, one pixel a thread, on as many blocks as fit on the card at
+// once (written to *blocks); ws as described at fused_bands_kernel.
+int demiurge_flow_fused_bands(const int* packed, const float* area, float* A,
+                              uint8_t* vis, int* ws, int H, int W, int band,
+                              int k, int narrow, int mode, int max_rounds,
+                              int* blocks, void* stream) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_kernel, kFusedThreads, 0);
+        &per_sm, fused_bands_kernel, kFusedThreads, 0);
   if (err != cudaSuccess) return (int)err;
   *blocks = per_sm * sms;
   void* args[] = {&packed, &area, &A,      &vis,  &ws,         &H,
                   &W,      &band, &k,      &narrow, &mode, &max_rounds};
-  err = cudaLaunchCooperativeKernel((const void*)fused_kernel, dim3(*blocks),
-                                    dim3(kFusedThreads), args, 0,
-                                    (cudaStream_t)stream);
+  err = cudaLaunchCooperativeKernel((const void*)fused_bands_kernel,
+                                    dim3(*blocks), dim3(kFusedThreads), args,
+                                    0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -163,11 +163,12 @@ __device__ uint64_t relax(Cell cell, int* passes,
 }
 
 // Step 4's bookkeeping: the edge bits of the rows `wrote` of this thread's
-// column c, OR-ed over the block into *out; thread 0 then publishes them.
+// column c, OR-ed over the block into *out; thread 0 then publishes them
+// as cur[tile] (tile < 0: the block's own, blockIdx.x).
 template <int TY, int TX>
 __device__ void finish(uint64_t wrote, int c, int r0, int c0, int H, int W,
                        int* out, int* cur, int* stats, int slot,
-                       int passes) {
+                       int passes, int tile = -1) {
   if (wrote) {
     const bool top = wrote & 1;
     const bool bottom = (wrote >> (min(TY, H - r0) - 1)) & 1;
@@ -180,7 +181,7 @@ __device__ void finish(uint64_t wrote, int c, int r0, int c0, int H, int W,
   }
   __syncthreads();
   if (threadIdx.x != 0) return;
-  cur[blockIdx.x] = *out & 0xff;
+  cur[tile < 0 ? (int)blockIdx.x : tile] = *out & 0xff;
   atomicAdd(stats, 1);
   atomicMax(stats + 1, passes);
   if (*out) atomicOr(stats + kStatsHead + slot, 1);
@@ -207,6 +208,138 @@ __device__ void point_down(volatile int16_t* sNext, const int* packed,
     sNext[q] = (int16_t)(q + dyk(k) * SW + dxk(k));
   }
   __syncthreads();
+}
+
+// K10: whether a cell of band row rl with out bits `out` leaves its band
+__device__ __forceinline__ bool crossing(int out, int rl, int band) {
+  return (rl == 0 && (out & kNegOut)) || (rl == band - 1 && (out & kPosOut));
+}
+
+// shared memory of K7's visit (the halo'd A, the area and the cells'
+// metadata) and of K8's (the halo'd vis and the pointers), in bytes
+template <int TY, int TX>
+constexpr size_t area_smem() {
+  return sizeof(float) * ((TY + 2) * (TX + 2) + TY * TX) +
+         sizeof(uint16_t) * TY * TX;
+}
+
+template <int TY, int TX>
+constexpr size_t vis_smem() {
+  return ((TY + 2) * (TX + 2) + 15) / 16 * 16 +
+         sizeof(int16_t) * (TY + 2) * (TX + 2);
+}
+
+// K7's steps 2-4 on the tile at (r0, c0), in `smem` (area_smem bytes, 16
+// aligned): load the halo'd A and the cells' metadata, relax to the local
+// fixpoint, write back the cells that changed.  Returns the rows of this
+// thread's column it wrote; *passes gets relax's passes.
+template <int TY, int TX>
+__device__ __forceinline__ uint64_t area_visit(
+    unsigned char* smem, const int* __restrict__ packed,
+    const float* __restrict__ area, float* A, int r0, int c0, int H, int W,
+    int* passes) {
+  constexpr int SW = TX + 2;
+  volatile float* sA = reinterpret_cast<float*>(smem);
+  float* sArea = reinterpret_cast<float*>(smem) + (TY + 2) * SW;
+  uint16_t* sMeta = reinterpret_cast<uint16_t*>(sArea + TY * TX);
+  const int t = threadIdx.x, c = c0 + t;
+  load_halo<TY, TX>(sA, A, r0, c0, H, W);
+  for (int li = 0; li < TY; ++li) {
+    int m = 0;
+    float ar = 0.0f;
+    if (c < W && r0 + li < H) {
+      const long i = (long)(r0 + li) * W + c;
+      const int p = __ldg(packed + i);
+      m = kReal | (p & 0xff) | ((p >> 8) & kRowOut ? kFeed : 0);
+      ar = __ldg(area + i);
+    }
+    sMeta[li * TX + t] = (uint16_t)m;
+    sArea[li * TX + t] = ar;
+  }
+  // (relax's barrier orders these stores before the first pass)
+
+  const uint64_t touched = relax<TY, TX>(
+      [&](int li) {
+        const int m = sMeta[li * TX + t];
+        if (!(m & kReal)) return 0;
+        const int ctr = (li + 1) * SW + t + 1;
+        float acc = sArea[li * TX + t];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if ((m >> k) & 1)
+            acc = __fadd_rn(acc, sA[ctr + dyk(k) * SW + dxk(k)]);
+        if (__float_as_int(acc) == __float_as_int(sA[ctr])) return 0;
+        sA[ctr] = acc;
+        return m & kFeed ? 3 : 1;
+      },
+      passes);
+
+  uint64_t wrote = 0;
+  for (int li = 0; li < TY; ++li) {
+    if (!((touched >> li) & 1)) continue;
+    const long i = (long)(r0 + li) * W + c;
+    const float v = sA[(li + 1) * SW + t + 1];
+    if (__float_as_int(v) != __float_as_int(__ldcg(A + i))) {
+      __stcg(A + i, v);
+      wrote |= 1ull << li;
+    }
+  }
+  return wrote;
+}
+
+// K8's steps 2-4 on the tile at (r0, c0), in `smem` (vis_smem bytes, 16
+// aligned): each cell of the halo'd tile points at a cell further down
+// its path (at first its target; a sink, a halo cell or a cell beyond the
+// grid at itself, and for K10b a crossing cell), and the pointers jump
+// (next = next of next) until a cell reaches a 1 or points at an end.  In
+// place: a pointer read at any time points further down the same path, and
+// a cell only turns to 1 from a 1 on its path.  A pass that changes
+// nothing leaves every cell either 1 or pointing at an end that holds 0:
+// the tile's local fixpoint, in about log2 of its longest path passes.
+// band == 0 is K8 (no crossing cells); band > 0 is K10b, whose crossing
+// cells are ends and keep the seed they start from.  Returns the rows of
+// this thread's column it wrote (each from 0 to 1); *passes the passes.
+template <int TY, int TX>
+__device__ __forceinline__ uint64_t vis_visit(
+    unsigned char* smem, const int* __restrict__ packed, uint8_t* vis,
+    int band, int r0, int c0, int H, int W, int* passes) {
+  constexpr int SW = TX + 2, SN = (TY + 2) * SW;
+  static_assert(TY <= 64, "a thread's rows are one 64-bit mask");
+  static_assert(SN <= 32767, "a halo'd tile's cells are int16 indices");
+  volatile uint8_t* sV = smem;
+  volatile int16_t* sNext =
+      reinterpret_cast<int16_t*>(smem + (SN + 15) / 16 * 16);
+  const int t = threadIdx.x, c = c0 + t;
+  load_halo<TY, TX>(sV, vis, r0, c0, H, W);
+  point_down<TY, TX>(sNext, packed, r0, c, H, W, [&](int o, int r, int) {
+    return band > 0 && crossing(o, r % band, band);
+  });
+
+  uint64_t touched = 0;
+  int p = 0;
+  for (bool changed = true; changed && p <= SN; ++p) {
+    changed = false;
+    for (int li = 0; li < TY; ++li) {
+      const int q = (li + 1) * SW + t + 1;
+      const int n = sNext[q];
+      if (n == q || sV[q]) continue;
+      if (sV[n]) {
+        sV[q] = 1;
+        touched |= 1ull << li;
+        changed = true;
+      } else if (sNext[n] != n) {
+        sNext[q] = sNext[n];
+        changed = true;
+      }
+    }
+    changed = __syncthreads_or(changed);
+  }
+  *passes = p;
+
+  // a touched cell went from 0 to 1, and only this block writes it
+  for (int li = 0; li < TY; ++li)
+    if ((touched >> li) & 1) vis[(long)(r0 + li) * W + c] = 1;
+  return touched;
 }
 
 // n rounds, the first of them the solve's round `first`: round t reads the

@@ -25,9 +25,11 @@ def launch_counts() -> dict:
             "advect_sample_pallas": advect.LAUNCHES_ONE_ROW,
             "flow_solve_2d": flow_deadends.LAUNCHES_2D,
             "flow_solve_fused": flow_deadends.LAUNCHES_FUSED,
+            "flow_solve_fused_bands": flow_deadends.LAUNCHES_FUSED_BANDS,
             "flow_solve_wave": flow_deadends.LAUNCHES_WAVE,
             "flow_banded_rounds": flow_deadends.LAUNCHES_BANDED,
             "jacobi_packed": jacobi_packed.LAUNCHES,
+            "jacobi_packed_sweeps": jacobi_packed.LAUNCHES_SWEEPS,
             "advect_stage": advect.LAUNCHES_STAGE,
             "advect_stage_one_row": advect.LAUNCHES_STAGE_ONE_ROW,
             "flow_directions_packed": directions.LAUNCHES_PACKED,

@@ -81,12 +81,17 @@ SIGNATURES = {
     "demiurge_flow_tiles_round": [_P] * 7 + [_I] * 5 + [_P],
     # packed d0 d1 A vis flags, H W first n, stream
     "demiurge_flow_wave_sweeps": [_P] * 6 + [_I] * 4 + [_P],
+    # packed area A vis ws, H W ty tx mode max_rounds, blocks(host), stream
+    "demiurge_flow_fused": [_P] * 5 + [_I] * 6 + [_P] * 2,
     # packed area A vis ws, H W band k narrow mode max_rounds, blocks(host),
     # stream
-    "demiurge_flow_fused": [_P] * 5 + [_I] * 7 + [_P] * 2,
+    "demiurge_flow_fused_bands": [_P] * 5 + [_I] * 7 + [_P] * 2,
     # ob rowtab b in0 in1 ping0 pong0 ping1 pong1, H W wrap_x wrap_s wrap_n
-    # pole_shift sea_mask negate iters, stream
-    "demiurge_jacobi_packed": [_P] * 9 + [_I] * 9 + [_P],
+    # pole_shift sea_mask negate th tw k iters, stream
+    "demiurge_jacobi_packed": [_P] * 9 + [_I] * 12 + [_P],
+    # the same, one launch a sweep: ... pole_shift sea_mask negate iters,
+    # stream
+    "demiurge_jacobi_packed_sweeps": [_P] * 9 + [_I] * 9 + [_P],
     # packed area conn_src conn_dst A0 vis0 root0 A1 vis1 root1 A2 vis2
     # root2, H W wrap_x n, stream
     "demiurge_lake_relax": [_P] * 13 + [_I] * 4 + [_P],

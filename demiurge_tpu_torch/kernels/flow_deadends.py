@@ -15,10 +15,14 @@ the card:
 - ``flow_solve_2d`` (K11a): rounds of k sweeps on 2-D tiles that run when
   a tile of their 3x3 tile neighbourhood changed last round (x wraps, y
   clips); the skip test is on the device;
-- ``flow_solve_fused`` (K11b): the whole solve in one cooperative launch:
-  per-band column windows from the last round's change ranges, a round
-  ended early by a sweep that wrote nothing, the stop test on the device;
-  modes "both", "A" and "vis";
+- ``flow_solve_fused`` (K11b): the whole solve in one launch with the
+  stop test on the device; modes "both", "A" and "vis".  The twin keeps
+  the reference's design (per-band column windows from the last round's
+  change ranges, a round ended early by a sweep that wrote nothing); the
+  card runs K7/K8's tiles in one persistent cooperative launch, each
+  round's list of (field, tile) visits and the stop test on the device,
+  one host read after it (``flow_solve_fused_bands_cuda`` is the earlier,
+  the reference's, design on the card, kept as the yardstick);
 - ``flow_solve_wave`` (K11c): the delta wave, delta' = sum_i inc_i *
   delta[neighbour_i], A += delta', until delta is zero and vis still.
 
@@ -28,7 +32,8 @@ skip rules keep it) but for the wave, whose A adds arrivals in hop order.
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 twin (Jacobi sweeps under the same rules) for CPU tensors.  The
 ``LAUNCHES_*`` counters count kernel launches: one a sweep for K11c and d,
-one a sweep and one activity pass a round for K11a, one a solve for K11b.
+one a sweep and one activity pass a round for K11a, one a solve for K11b
+(``LAUNCHES_FUSED_BANDS`` the yardstick's, 0 on every other path).
 """
 
 from __future__ import annotations
@@ -39,12 +44,13 @@ import torch
 from ..core.grid import Grid
 from ..core.platform import check_kernel_inputs, use_cuda_kernels
 from ..core.topology import NEIGHBORS_FLOW_ORDER, shift
-from .flow import solve_rounds_cuda
+from . import flow as kf
 from .flow2 import pick_band
 
 LAUNCHES_BANDED = 0
 LAUNCHES_2D = 0
 LAUNCHES_FUSED = 0
+LAUNCHES_FUSED_BANDS = 0
 LAUNCHES_WAVE = 0
 
 MODES = ("both", "A", "vis")
@@ -419,10 +425,61 @@ def flow_solve_fused_plain(packed, area, grid: Grid, k: int = 16,
 
 def flow_solve_fused_cuda(packed, area, grid: Grid, k: int = 16,
                           band: int = 0, narrow: int = 512,
-                          mode: str = "both"):
-    """K11b on the card: one cooperative launch, no host read inside it;
-    the stats are read after it."""
+                          mode: str = "both", *, max_rounds=None):
+    """K11b on the card: the whole solve in one persistent cooperative
+    launch on K7/K8's tiles (``kernels.flow.TILE``), the rounds' lists of
+    (field, tile) entries and the stop test on the device, and one host
+    read after it (the status and the stats).  ``k``, ``band`` and
+    ``narrow`` are the twin's: they are validated as the twin validates
+    them and otherwise ignored, since the card's rounds are tile rounds.
+    ``max_rounds`` (default: the longest path an acyclic graph on the grid
+    can hold) bounds the rounds: reaching it raises.  Stats in
+    ``kernels.flow.LAST_SOLVE``'s words: rounds (that visited an entry),
+    launched (1), host_reads (1), tiles_run (the visits, A's and vis's),
+    max_inner_sweeps (the most passes of a visit), and the blocks of the
+    launch."""
     global LAUNCHES_FUSED
+    _check_cuda(packed, area, grid)
+    _check_fused(grid, k, band, narrow, mode)
+    rounds_cap = _max_sweeps(grid) if max_rounds is None else max_rounds
+    if rounds_cap < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {rounds_cap}")
+    H, W = grid.shape
+    ty, tx = kf.TILE
+    # entries: (field, tile) pairs, A's and in mode "both" vis's
+    ne = (2 if mode == "both" else 1) * -(-H // ty) * -(-W // tx)
+    from . import build
+
+    A, vis = area.clone(), _mouths_u8(packed)
+    # edges, two slots of wake words and of lists, then the control words
+    ws = torch.zeros(5 * ne + 11, dtype=torch.int32, device=A.device)
+    ws[3 * ne:4 * ne] = torch.arange(ne, dtype=torch.int32,
+                                     device=A.device)  # round 0: all
+    ws[5 * ne] = ne
+    blocks = np.zeros(1, np.int32)
+    build.check(build.library().demiurge_flow_fused(
+        packed.data_ptr(), area.data_ptr(), A.data_ptr(), vis.data_ptr(),
+        ws.data_ptr(), H, W, ty, tx, MODES.index(mode), rounds_cap,
+        blocks.ctypes.data, _stream(A)), "demiurge_flow_fused")
+    LAUNCHES_FUSED += 1
+    visits, passes, _, status, rounds = ws[5 * ne + 6:].tolist()  # one read
+    if status != 1:
+        raise RuntimeError(f"fused solve: no fixpoint after {rounds} rounds "
+                           f"(the round limit; a flow graph with a cycle "
+                           f"never certifies)")
+    return A, vis.bool(), {"rounds": rounds, "launched": 1,
+                           "host_reads": 1, "tiles_run": visits,
+                           "max_inner_sweeps": passes,
+                           "blocks": int(blocks[0])}
+
+
+def flow_solve_fused_bands_cuda(packed, area, grid: Grid, k: int = 16,
+                                band: int = 0, narrow: int = 512,
+                                mode: str = "both"):
+    """The earlier K11b on the card, the yardstick: the twin's design (band
+    windows, k sweeps a round, one pixel a thread, one grid sync a sweep)
+    in one cooperative launch; the stats are read after it."""
+    global LAUNCHES_FUSED_BANDS
     _check_cuda(packed, area, grid)
     band = _check_fused(grid, k, band, narrow, mode)
     H, W = grid.shape
@@ -433,12 +490,12 @@ def flow_solve_fused_cuda(packed, area, grid: Grid, k: int = 16,
     ws = torch.zeros(7 * nb + 9, dtype=torch.int32, device=A.device)
     ws[3 * nb:4 * nb] = W - 1  # round 0 sweeps every band in full
     blocks = np.zeros(1, np.int32)
-    build.check(build.library().demiurge_flow_fused(
+    build.check(build.library().demiurge_flow_fused_bands(
         packed.data_ptr(), area.data_ptr(), A.data_ptr(), vis.data_ptr(),
         ws.data_ptr(), H, W, band, k, narrow, MODES.index(mode),
         _max_sweeps(grid), blocks.ctypes.data, _stream(A)),
-        "demiurge_flow_fused")
-    LAUNCHES_FUSED += 1
+        "demiurge_flow_fused_bands")
+    LAUNCHES_FUSED_BANDS += 1
     done, rounds, sweeps, visits, narrow_n = ws[7 * nb + 1:7 * nb + 9][
         [0, 4, 5, 6, 7]].tolist()
     if done != 1:
@@ -453,7 +510,8 @@ def flow_solve_fused(packed, area, grid: Grid, k: int = 16, band: int = 0,
                      narrow: int = 512, mode: str = "both"):
     """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
     Mode "A" leaves vis at the mouths, mode "vis" leaves A at the area.
-    Returns (A, vis, stats): rounds, sweeps, band visits, narrow visits."""
+    Returns (A, vis, stats): the twin's rounds, sweeps, band visits and
+    narrow visits; the kernel's as ``flow_solve_fused_cuda`` says."""
     if use_cuda_kernels(packed, area):
         return flow_solve_fused_cuda(packed, area, grid, k, band, narrow,
                                      mode)
@@ -512,7 +570,7 @@ def flow_solve_wave_cuda(packed, area, grid: Grid):
         first[0] += n
         return a
 
-    stats = solve_rounds_cuda("demiurge_flow_wave_sweeps", args, A.device,
+    stats = kf.solve_rounds_cuda("demiurge_flow_wave_sweeps", args, A.device,
                               _max_sweeps(grid))
     LAUNCHES_WAVE += stats["launched"]
     return A, vis.bool(), {"rounds": stats["host_reads"],

@@ -12,14 +12,21 @@ per-pixel coefficient planes folded into
 and a sweep ``f' = cx*(fE + fW) + cy*(fN + fS) + (b or c0*f)``, zero on
 land when ``sea_mask`` is set, the neighbour across a pole negated for
 velocities (``negate``).  The reference pads both tables with k pole-halo
-rows; the port keeps them unpadded (H rows) and indexes the pole
-neighbour directly (``utils.interop.packed_jacobi_from_reference`` cuts
-the reference's padded tables down).
+rows; the port keeps them unpadded (H rows): the twin indexes the pole
+neighbour directly, the kernel reads it in K2's unfolded frame
+(``utils.interop.packed_jacobi_from_reference`` cuts the reference's
+padded tables down).
 
 ``resident_call_packed`` launches the CUDA kernel
 (``csrc/jacobi_packed.cu``) for CUDA tensors and runs the plain twin for
 CPU tensors; both round every operation alike, so on one card they agree
-bit for bit.  ``LAUNCHES`` counts kernel launches (one a sweep).
+bit for bit.  A launch runs ``SWEEPS_PER_LAUNCH`` sweeps (k) on
+shared-memory tiles of ``TILES[number of fields]`` output cells, each with
+a halo of k cells (K2's temporal blocking, ``kernels.jacobi``); a solve of
+``iters`` sweeps is ``launches(iters)`` launches, the last one running the
+remainder.  ``LAUNCHES`` counts them.  ``resident_call_packed_sweeps_cuda``
+is the earlier design, one launch a sweep, kept as the yardstick the smoke
+times beside it (``LAUNCHES_SWEEPS``, 0 on every other path).
 """
 
 from __future__ import annotations
@@ -32,6 +39,17 @@ from ..core.topology import _pole_col_shift, shift
 from .jacobi import _pole_rows, _topology_args
 
 LAUNCHES = 0
+LAUNCHES_SWEEPS = 0
+
+# csrc/jacobi_packed.cu's build (PERF.md has the shapes raced); its entry
+# point refuses any other
+SWEEPS_PER_LAUNCH = 8          # k: sweeps a launch, the halo's depth
+TILES = {1: (32, 128), 2: (32, 64)}  # output cells of a block by fields
+
+
+def launches(iters: int) -> int:
+    """Kernel launches of a solve of ``iters`` sweeps: ceil(iters / k)."""
+    return -(-iters // SWEEPS_PER_LAUNCH)
 
 
 def pack_ob(terrain: torch.Tensor, grid: Grid, sea_bit: bool
@@ -122,12 +140,9 @@ def resident_call_packed_plain(ob, rowtab, b, fields, grid: Grid,
     return out
 
 
-def resident_call_packed_cuda(ob, rowtab, b, fields, grid: Grid, iters: int,
-                              sea_mask: bool, negate: bool):
-    """``iters`` sweeps on the card: one launch a sweep on the current
-    stream, no synchronisation."""
-    global LAUNCHES
-    fields = list(fields)
+def _cuda_args(ob, rowtab, b, fields, grid: Grid, iters: int):
+    """Checks for the card, then (output buffers, pointer arguments), or
+    None when there is no sweep to run."""
     _check(ob, rowtab, b, fields, grid, iters)
     check_kernel_inputs(("ob",), (ob,), dtype=torch.int32)
     floats = [rowtab] + ([b] if b is not None else []) + fields
@@ -135,21 +150,60 @@ def resident_call_packed_cuda(ob, rowtab, b, fields, grid: Grid, iters: int,
     if ob.device != rowtab.device:
         raise ValueError(f"ob on {ob.device}, rowtab on {rowtab.device}")
     if iters == 0:
-        return [f.clone() for f in fields]
-    from . import build
-
+        return None
     bufs = [torch.empty_like(f) for f in fields for _ in range(2)]
     pp = [t.data_ptr() for t in bufs] + [None, None] * (2 - len(fields))
     H, W = grid.shape
     wrap_x, wrap_s, wrap_n, _ = _topology_args(grid)
+    args = (ob.data_ptr(), rowtab.data_ptr(),
+            None if b is None else b.data_ptr(), fields[0].data_ptr(),
+            fields[1].data_ptr() if len(fields) == 2 else None, *pp, H, W,
+            wrap_x, wrap_s, wrap_n, _pole_col_shift(grid))
+    return bufs, args
+
+
+def resident_call_packed_cuda(ob, rowtab, b, fields, grid: Grid, iters: int,
+                              sea_mask: bool, negate: bool):
+    """``iters`` sweeps on the card: ``launches(iters)`` launches of k
+    sweeps on shared-memory tiles, on the current stream, no
+    synchronisation."""
+    global LAUNCHES
+    fields = list(fields)
+    call = _cuda_args(ob, rowtab, b, fields, grid, iters)
+    if call is None:
+        return [f.clone() for f in fields]
+    from . import build
+
+    bufs, args = call
     err = build.library().demiurge_jacobi_packed(
-        ob.data_ptr(), rowtab.data_ptr(),
-        None if b is None else b.data_ptr(), fields[0].data_ptr(),
-        fields[1].data_ptr() if len(fields) == 2 else None, *pp, H, W,
-        wrap_x, wrap_s, wrap_n, _pole_col_shift(grid), int(sea_mask),
-        int(negate), iters, torch.cuda.current_stream(ob.device).cuda_stream)
+        *args, int(sea_mask), int(negate), *TILES[len(fields)],
+        SWEEPS_PER_LAUNCH, iters,
+        torch.cuda.current_stream(ob.device).cuda_stream)
     build.check(err, "demiurge_jacobi_packed")
-    LAUNCHES += iters
+    n = launches(iters)
+    LAUNCHES += n
+    last = (n - 1) % 2
+    return [bufs[2 * i + last] for i in range(len(fields))]
+
+
+def resident_call_packed_sweeps_cuda(ob, rowtab, b, fields, grid: Grid,
+                                     iters: int, sea_mask: bool,
+                                     negate: bool):
+    """The earlier design on the card, the yardstick: one launch a sweep
+    on the current stream, no synchronisation."""
+    global LAUNCHES_SWEEPS
+    fields = list(fields)
+    call = _cuda_args(ob, rowtab, b, fields, grid, iters)
+    if call is None:
+        return [f.clone() for f in fields]
+    from . import build
+
+    bufs, args = call
+    err = build.library().demiurge_jacobi_packed_sweeps(
+        *args, int(sea_mask), int(negate), iters,
+        torch.cuda.current_stream(ob.device).cuda_stream)
+    build.check(err, "demiurge_jacobi_packed_sweeps")
+    LAUNCHES_SWEEPS += iters
     last = (iters - 1) % 2
     return [bufs[2 * i + last] for i in range(len(fields))]
 

@@ -905,17 +905,24 @@ def _deadend_solvers():
             lambda p, a, g, m=m: kd.flow_solve_fused_plain(
                 p, a, g, band=32, narrow=128, mode=m),
             "LAUNCHES_FUSED") for m in ("both", "A", "vis")},
+        "fused-bands": (
+            lambda p, a, g: kd.flow_solve_fused_bands_cuda(
+                p, a, g, band=32, narrow=128),
+            lambda p, a, g: kd.flow_solve_fused_plain(
+                p, a, g, band=32, narrow=128), "LAUNCHES_FUSED_BANDS"),
         "wave": (kd.flow_solve_wave_cuda, kd.flow_solve_wave_plain,
                  "LAUNCHES_WAVE"),
     }
 
 
 @pytest.mark.parametrize("name", ["banded", "tiles", "fused-both", "fused-A",
-                                  "fused-vis", "wave"])
+                                  "fused-vis", "fused-bands", "wave"])
 def test_deadend_flow_kernels_equal_plain_twins(dev, name):
     """A bit for bit and vis exactly against the twin; A bit for bit
     against K7 (the wave within rtol 1e-5, atol 1e-7: it adds arrivals in
-    hop order) and vis against K8."""
+    hop order) and vis against K8.  The fused solve (K11b) is one launch
+    and one host read; "fused-bands" is its earlier design, the
+    yardstick."""
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.kernels import flow_deadends as kd
 
@@ -933,7 +940,10 @@ def test_deadend_flow_kernels_equal_plain_twins(dev, name):
     A, vis, stats = cuda(packed, area, grid)
     wA, wvis, _ = plain(packed, area, grid)
     torch.cuda.synchronize()
-    assert getattr(kd, counter) - before == stats["launches"] > 0
+    launched = stats["launched"] if "launched" in stats else stats["launches"]
+    assert getattr(kd, counter) - before == launched > 0
+    if name.startswith("fused-") and name != "fused-bands":
+        assert launched == stats["host_reads"] == 1
     if name == "tiles":  # the activity pass and k = 8 sweeps a round
         assert stats["launches"] == 9 * stats["rounds"]
     assert torch.equal(A, wA) and torch.equal(vis, wvis)
@@ -968,7 +978,7 @@ def test_packed_jacobi_kernel_equals_plain_twin(dev, coords):
                                             41, True, False)
     k2 = kj.pressure_solve_cuda(*coeffs, p0, grid, 41)
     torch.cuda.synchronize()
-    assert kp.LAUNCHES - before == 41
+    assert kp.LAUNCHES - before == kp.launches(41) == 6
     assert torch.equal(got, want)
     assert _rel_err(got, k2) <= 1e-4
 
@@ -983,3 +993,124 @@ def test_packed_jacobi_kernel_equals_plain_twin(dev, coords):
     torch.cuda.synchronize()
     assert torch.equal(gu, wu) and torch.equal(gv, wv)
     assert _rel_err(gu, ku) <= 2e-5 and _rel_err(gv, kv) <= 2e-5
+
+
+@pytest.mark.parametrize("name", list(JACOBI_GRIDS))
+def test_packed_jacobi_tiles_equal_plain_twin(dev, name):
+    """K11e on its tiles (tests/test_torch_jacobi_packed_tiles.py runs the
+    schedule on the CPU): pressure with the sea mask and viscosity on (u,
+    v) with the pole sign, bit for bit against the twin in ceil(iters / k)
+    launches, on K2's grids and every remainder; the earlier one-launch-a-
+    sweep design (the yardstick) bit for bit too."""
+    from demiurge_tpu_torch.kernels import jacobi_packed as kp
+
+    grid, h, u, v = _case(*JACOBI_GRIDS[name], dev)
+    div = ocean.divergence(u, v, h, grid, ocean.OceanConfig())
+    b = kj.coefficients(div, h, grid)[5]
+    solves = [(kp.pack_ob(h, grid, True), kp.row_table(grid, "pressure", dev),
+               b, [torch.zeros_like(div)], True, False, 200),
+              (kp.pack_ob(h, grid, False),
+               kp.row_table(grid, "viscosity", dev), None, [u, v], False,
+               True, 50)]
+    for ob, tab, bb, fields, sea, neg, depth in solves:
+        for iters in _jacobi_iters(name, depth):
+            before = (kp.LAUNCHES, kp.LAUNCHES_SWEEPS)
+            got = kp.resident_call_packed_cuda(ob, tab, bb, fields, grid,
+                                               iters, sea, neg)
+            want = kp.resident_call_packed_plain(ob, tab, bb, fields, grid,
+                                                 iters, sea, neg)
+            torch.cuda.synchronize()
+            assert (kp.LAUNCHES - before[0], kp.LAUNCHES_SWEEPS
+                    - before[1]) == (math.ceil(iters / 8), 0)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), iters
+        old = kp.resident_call_packed_sweeps_cuda(ob, tab, bb, fields, grid,
+                                                  depth, sea, neg)
+        want = kp.resident_call_packed_plain(ob, tab, bb, fields, grid,
+                                             depth, sea, neg)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(old, want))
+
+
+def test_packed_jacobi_raises_on_a_refused_launch(dev, monkeypatch):
+    """Sweeps a launch or a tile that csrc/jacobi_packed.cu was not built
+    for are refused by its entry point, and the wrapper raises; nothing is
+    counted."""
+    from demiurge_tpu_torch.kernels import jacobi_packed as kp
+
+    grid, h, u, v = _case(256, 128, GLOBAL, dev)
+    ob, tab = kp.pack_ob(h, grid, True), kp.row_table(grid, "pressure", dev)
+    before = kp.LAUNCHES
+    with monkeypatch.context() as m:
+        m.setattr(kp, "SWEEPS_PER_LAUNCH", kp.SWEEPS_PER_LAUNCH + 1)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kp.resident_call_packed_cuda(ob, tab, None, [u], grid, 20, True,
+                                         False)
+    monkeypatch.setattr(kp, "TILES", {1: (48, 128), 2: (32, 64)})
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kp.resident_call_packed_cuda(ob, tab, None, [u], grid, 20, True,
+                                     False)
+    assert kp.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["256x128", "serpentine", "2000x1000"])
+def test_fused_tiles_equal_twin_and_k7_k8(dev, case):
+    """K11b's one persistent launch (tests/test_torch_flow_fused_tiles.py
+    runs the schedule on the CPU), in every mode: A bit for bit with the
+    twin and with K7, vis equal to the twin's and K8's; one launch and
+    one host read a solve; a terrain, the serpentine over the dateline and
+    a grid the tiles do not divide."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+    from demiurge_tpu_torch.tools import serpentine
+
+    if case == "serpentine":
+        grid = Grid(1000, 200)
+        packed, area = serpentine(grid, dev, 990, 24, 150)
+    else:
+        W, H = (256, 128) if case == "256x128" else (2000, 1000)
+        grid, _, _, area, packed = _flow_inputs(W, H, dev)
+    band = 8 if case == "serpentine" else (40 if case == "2000x1000"
+                                           else 32)
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    mouth = ((packed >> 16) & 1).bool()
+    for mode in kd.MODES:
+        before = kd.LAUNCHES_FUSED
+        A, vis, st = kd.flow_solve_fused_cuda(packed, area, grid, k=8,
+                                              band=band, mode=mode)
+        wA, wvis, _ = kd.flow_solve_fused_plain(packed, area, grid, k=8,
+                                                band=band, mode=mode)
+        torch.cuda.synchronize()
+        assert kd.LAUNCHES_FUSED - before == st["launched"] == 1
+        assert st["host_reads"] == 1 and st["rounds"] >= 1
+        assert st["tiles_run"] >= st["rounds"] and st["blocks"] >= 1
+        assert torch.equal(A, wA) and torch.equal(vis, wvis), mode
+        assert torch.equal(A, area if mode == "vis" else A7), mode
+        assert torch.equal(vis, mouth if mode == "A" else vis8), mode
+
+
+def test_fused_tiles_raise_on_a_round_limit_and_a_refused_launch(
+        dev, monkeypatch):
+    """A solve that has not certified by ``max_rounds`` raises (the
+    kernel stops, the host reads the status); a tile the library was not
+    built for is refused by the entry point and the wrapper raises.  Both
+    launches are counted only where the kernel ran."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+    from demiurge_tpu_torch.tools import serpentine
+
+    grid = Grid(1000, 200)
+    packed, area = serpentine(grid, dev, 990, 24, 150)
+    _, _, st = kd.flow_solve_fused_cuda(packed, area, grid, band=8, k=8)
+    assert st["rounds"] >= 2
+    kd.flow_solve_fused_cuda(packed, area, grid, band=8, k=8,
+                             max_rounds=st["rounds"])
+    before = kd.LAUNCHES_FUSED
+    with pytest.raises(RuntimeError, match="no fixpoint after"):
+        kd.flow_solve_fused_cuda(packed, area, grid, band=8, k=8,
+                                 max_rounds=st["rounds"] - 1)
+    assert kd.LAUNCHES_FUSED == before + 1
+    monkeypatch.setattr(kf, "TILE", (48, 128))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kd.flow_solve_fused_cuda(packed, area, grid, band=8, k=8)
+    assert kd.LAUNCHES_FUSED == before + 1

@@ -164,18 +164,24 @@ def test_k11_kernel_wrappers_raise_on_cpu_tensors():
     z = torch.zeros(g.shape)
     packed = torch.zeros(g.shape, dtype=torch.int32)
     counts = (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
-              kx.LAUNCHES_BANDED, kp.LAUNCHES)
+              kx.LAUNCHES_BANDED, kp.LAUNCHES, kx.LAUNCHES_FUSED_BANDS,
+              kp.LAUNCHES_SWEEPS)
     for call in (lambda: kx.flow_solve_2d_cuda(packed, z, g),
                  lambda: kx.flow_solve_fused_cuda(packed, z, g),
+                 lambda: kx.flow_solve_fused_bands_cuda(packed, z, g),
                  lambda: kx.flow_solve_wave_cuda(packed, z, g),
                  lambda: kx.flow_solve_banded_rounds_cuda(packed, z, g),
                  lambda: kp.resident_call_packed_cuda(
+                     packed, torch.zeros(128, 3), None, [z], g, 2, False,
+                     True),
+                 lambda: kp.resident_call_packed_sweeps_cuda(
                      packed, torch.zeros(128, 3), None, [z], g, 2, False,
                      True)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
-            kx.LAUNCHES_BANDED, kp.LAUNCHES) == counts
+            kx.LAUNCHES_BANDED, kp.LAUNCHES, kx.LAUNCHES_FUSED_BANDS,
+            kp.LAUNCHES_SWEEPS) == counts
 
 
 def test_launch_counts_name_every_counter():
@@ -188,8 +194,9 @@ def test_launch_counts_name_every_counter():
             "advect_stage", "advect_stage_one_row",
             "flow_directions_packed", "blur_strip",
             "flow_directions_strip", "lake_relax", "lake_area_tiles",
-            "lake_vis_tiles", "lake_root_tiles"} <= names
-    assert len(names) == 25
+            "lake_vis_tiles", "lake_root_tiles", "flow_solve_fused_bands",
+            "jacobi_packed_sweeps"} <= names
+    assert len(names) == 27
 
 
 def test_interop_round_trip_and_config():
