@@ -108,7 +108,13 @@
    8192x4096, with its rounds, tile visits, launches and host reads,
    "both" timed beside its earlier design (band windows, the yardstick)
    and K7+K8; at 8192x4096 also K7+K8 with their rounds and tile visits,
-   and K11a-d against them without twins, one call each;
+   and K11a-d against them without twins, one call each; the redesigned
+   K11a (one persistent launch, TMA windows) and K11c (the wave blocked
+   in time on tiles that skip where it died, K8's vis beside it) at
+   2048x1024, 2000x1000 and 8192x4096 against their twins (K11a's on the
+   card's tiles), K7 (K11a's A) and K8 (both vis) bit for bit, one launch
+   and one host read a solve, K11c's wave tile-sweeps beside the twin's
+   sweeps x tiles, each timed beside its earlier design and K7+K8;
 10. BASELINE config 1 with every launch counter at 0: the ``erosion`` CLI
    at its default 1024x512 for 5 steps (the full flow filter with lakes,
    then the erosion pass); fails unless K5 and K6's codes form launched
@@ -325,8 +331,10 @@ def main() -> int:
                 "flow_local_vis": (k2, "LAUNCHES_LOCAL_VIS"),
                 "advect_sample_pallas": (ka, "LAUNCHES_ONE_ROW"),
                 "flow_solve_2d": (kx, "LAUNCHES_2D"),
+                "flow_solve_2d_tma": (kx, "LAUNCHES_2D_TMA"),
                 "flow_solve_fused": (kx, "LAUNCHES_FUSED"),
                 "flow_solve_wave": (kx, "LAUNCHES_WAVE"),
+                "flow_solve_wave_tiles": (kx, "LAUNCHES_WAVE_TILES"),
                 "flow_banded_rounds": (kx, "LAUNCHES_BANDED"),
                 "jacobi_packed": (kp, "LAUNCHES"),
                 "jacobi_packed_sweeps": (kp, "LAUNCHES_SWEEPS"),
@@ -1713,6 +1721,7 @@ def main() -> int:
     assert cli_launches["flow_local_vis"] > 0
 
     # -- 9. K11: the alternative flow solvers and the packed Jacobi --------
+    t9 = time.perf_counter()
     rounds_cmd = [sys.executable, "-m", "demiurge_tpu_torch.tools.flow_rounds",
                   str(W), str(H)]
     t0 = time.perf_counter()
@@ -1727,7 +1736,8 @@ def main() -> int:
 
     # flow_tune's run in this process, each solver also held to its twin;
     # then K11e at the coupled depths, on the ocean of phase 4
-    k11_names = ["flow_solve_2d", "flow_solve_fused", "flow_solve_wave",
+    k11_names = ["flow_solve_2d_tma", "flow_solve_2d", "flow_solve_fused",
+                 "flow_solve_wave_tiles", "flow_solve_wave",
                  "flow_banded_rounds", "jacobi_packed"]
     zero_counts()
     pk10, tune_rows, tune_ok = ft.run(W, H, DEVICE, twins=True)
@@ -1759,6 +1769,10 @@ def main() -> int:
     # vis), each checked once and timed REPS times; K11e 25 + 7 launches
     assert k11_launches["flow_solve_fused"] == 3 * (1 + ft.REPS), \
         k11_launches
+    # the redesigned K11a and K11c: one launch a solve, checked once and
+    # timed REPS times
+    assert k11_launches["flow_solve_2d_tma"] == 1 + ft.REPS, k11_launches
+    assert k11_launches["flow_solve_wave_tiles"] == 1 + ft.REPS, k11_launches
     assert k11_launches["jacobi_packed"] == kp.launches(200) + kp.launches(
         50) == 25 + 7, k11_launches
 
@@ -1877,20 +1891,113 @@ def main() -> int:
               f"{sb['sweeps']} sweeps); K7+K8 {ms_k78:.3f} ms ({card})")
         return min(ms_new, ms_new2), ms_bands, ms_k78, notes["both"]
 
+    def hold_new_k11(label, pk, area_, g_, earlier=None):
+        """The redesigned K11a (TMA windows) and K11c (the wave blocked in
+        time) against their twins (K11a's on the card's tiles), K7 (K11a's
+        A) and K8 (both vis) bit for bit, one launch and one host read a
+        solve; then timed in turns with K7+K8 and the earlier designs
+        (CUDA events, one call each after a warm-up; the earlier K11a only
+        where the reference's tiles divide the grid).  ``earlier``: the
+        earlier designs' ms where the caller has timed them on these
+        masks already.  Returns the numbers for the summary line."""
+        A7 = kf.flow_solve_area_cuda(pk, area_, g_)
+        vis8 = kf.vis_solve_cuda(pk, g_)
+        before = (kx.LAUNCHES_2D_TMA, kx.LAUNCHES_WAVE_TILES)
+        A, vis, sa = kx.flow_solve_2d_tma_cuda(pk, area_, g_)
+        tA, tvis, sta = kx.flow_solve_2d_plain(pk, area_, g_, k=16,
+                                               tiles=kf.TILE)
+        torch.cuda.synchronize()
+        assert sa["launched"] == sa["host_reads"] == 1, sa
+        assert torch.equal(A, tA) and torch.equal(vis, tvis), label
+        assert torch.equal(A, A7) and torch.equal(vis, vis8), label
+        del A, vis, tA, tvis
+        A, vis, sw = kx.flow_solve_wave_tiles_cuda(pk, area_, g_)
+        wA, wvis, stw = kx.flow_solve_wave_plain(pk, area_, g_)
+        torch.cuda.synchronize()
+        assert (kx.LAUNCHES_2D_TMA, kx.LAUNCHES_WAVE_TILES) == (
+            before[0] + 1, before[1] + 1)
+        assert sw["launched"] == sw["host_reads"] == 1, sw
+        assert torch.equal(A, wA) and torch.equal(vis, wvis), label
+        assert torch.equal(vis, vis8), label
+        assert sw["wave_depth"] < stw["sweeps"], (sw, stw)
+        wave_err = max_err(A, A7) / float(A7.abs().max())
+        del A, vis, wA, wvis, A7, vis8
+        old_2d = kx.pick_tiles(*g_.shape)[0] and kx.pick_tiles(*g_.shape)[1]
+
+        def k78():
+            return kf.flow_solve_area_cuda(pk, area_, g_), \
+                kf.vis_solve_cuda(pk, g_)
+
+        ms = {"K7+K8": [cuda_ms(k78, 1)]}
+        if earlier is not None:
+            ms.update({n: [t] for n, t in earlier.items()})
+        for turn in range(2):
+            ms.setdefault("K11a", []).append(cuda_ms(
+                lambda: kx.flow_solve_2d_tma_cuda(pk, area_, g_), 1))
+            ms.setdefault("K11c", []).append(cuda_ms(
+                lambda: kx.flow_solve_wave_tiles_cuda(pk, area_, g_), 1))
+            if turn == 0 and earlier is None:
+                if old_2d:
+                    ms["K11a earlier"] = [cuda_ms(
+                        lambda: kx.flow_solve_2d_cuda(pk, area_, g_), 1)]
+                ms["K11c earlier"] = [cuda_ms(
+                    lambda: kx.flow_solve_wave_cuda(pk, area_, g_), 1)]
+        ms["K7+K8"].append(cuda_ms(k78, 1))
+
+        def shares(st):
+            """Each phase's share of the blocks' cycles, in percent."""
+            c = st["block_kcycles"]
+            return {n: round(100.0 * v / max(c["all"], 1), 1)
+                    for n, v in c.items() if n != "all"}
+
+        print(f"  K11a (TMA) at {label}: bit-exact against its twin on "
+              f"{kf.TILE[0]}x{kf.TILE[1]} tiles ({sta['rounds']} rounds, "
+              f"{sta['sweeps']} sweeps), A against K7, vis against K8; "
+              f"{sa['rounds']} rounds, {sa['tiles_run']} visits, at most "
+              f"{sa['max_inner_sweeps']} sweeps a visit, 1 launch, 1 host "
+              f"read, {sa['blocks']} blocks. K11c (tiles) at {label}: A and "
+              f"vis bit-exact against the twin, vis against K8, A against "
+              f"K7 within {wave_err:.2e} of max; {sw['rounds']} rounds "
+              f"({sw['wave_rounds']} with the wave), {sw['sweeps']} sweeps "
+              f"(the last delta at sweep {sw['wave_depth']}, the twin "
+              f"certifies at {stw['sweeps']}), wave tile-sweeps "
+              f"{sw['wave_visits'] * sw['k']} against the twin's "
+              f"{stw['sweeps']} x {sw['tiles']} = "
+              f"{stw['sweeps'] * sw['tiles']}, {sw['vis_visits']} vis "
+              f"visits, {sw['blocks']} blocks; the blocks' cycles (%): "
+              f"K11a {shares(sa)}, K11c {shares(sw)}; ms "
+              + json.dumps({k: [round(t, 3) for t in v]
+                            for k, v in ms.items()}) + f" ({card})")
+        return {"ms": {k: min(v) for k, v in ms.items()}, "K11a": sa,
+                "K11c": sw, "twin_sweeps": stw["sweeps"],
+                "delta_cells": stw["delta_cells"]}
+
+    new_k11 = {f"{W}x{H}": hold_new_k11(
+        f"{W}x{H}", pk10, of.cell_area_lower_edge(grid, dev), grid)}
     k11b_ms = {f"{W}x{H}": hold_k11b(f"{W}x{H}", pk10, of.cell_area_lower_edge(
         grid, dev), grid, 64)}
     g_r = Grid(*RAGGED)
     pk_r, area_r = flow_inputs(cli._terrain(g_r, SEED, dev), g_r)
     k11b_ms[f"{RAGGED[0]}x{RAGGED[1]}"] = hold_k11b(
         f"{RAGGED[0]}x{RAGGED[1]}", pk_r, area_r, g_r, 40)
+    new_k11[f"{RAGGED[0]}x{RAGGED[1]}"] = hold_new_k11(
+        f"{RAGGED[0]}x{RAGGED[1]}", pk_r, area_r, g_r)
     del pk_r, area_r
 
     # K11a-d from flow_tune's rows: bit-exact against their twins there
     edges10 = float(sum(((pk10 >> i) & 1).sum() for i in range(8)))
-    replaces = {"flow_solve_2d": "attic/flow_deadends.py:115",
+    replaces = {"flow_solve_2d_tma": "attic/flow_deadends.py:115",
+                "flow_solve_2d": "attic/flow_deadends.py:115",
                 "flow_solve_fused": "attic/flow_deadends.py:319",
+                "flow_solve_wave_tiles": "attic/flow_deadends.py:804",
                 "flow_solve_wave": "attic/flow_deadends.py:804",
                 "flow_banded_rounds": "tools/flow_rounds.py:24"}
+    earlier = {"flow_solve_2d": "K11a's earlier design, the yardstick off "
+                                "every path: an activity pass and k "
+                                "one-sweep launches a round",
+               "flow_solve_wave": "K11c's earlier design, the yardstick off "
+                                  "every path: one launch a sweep of every "
+                                  "pixel"}
     k78_ms = tune_rows[0]["ms"]
     split_row = next(r for r in tune_rows if "split" in r["label"])
     for name, where in replaces.items():
@@ -1903,8 +2010,15 @@ def main() -> int:
             note += (f"; split A then vis {split_row['ms']:.3f} ms; one "
                      f"call on the same masks {new_ms:.3f} ms, the earlier "
                      f"design {bands_ms:.3f} ms")
+        if name in earlier:
+            note = f"{earlier[name]}; {note}"
+        flops = edges10 + N
+        if name == "flow_solve_wave_tiles":
+            # the wave's own work: 8 adds and A's add on each cell with a
+            # nonzero delta, summed over the twin's sweeps
+            flops = 9.0 * new_k11[f"{W}x{H}"]["delta_cells"]
         record(name, "demiurge_tpu_torch/csrc/flow_deadends.cu", where, 0.0,
-               row["ms"], row["twin_ms"], 3 * plane + N, edges10 + N, note)
+               row["ms"], row["twin_ms"], 3 * plane + N, flops, note)
     new_ms, bands_ms, _, _ = k11b_ms[f"{W}x{H}"]
     record("flow_solve_fused_bands", "demiurge_tpu_torch/csrc/flow_deadends.cu",
            "attic/flow_deadends.py:319", 0.0, bands_ms,
@@ -1955,14 +2069,30 @@ def main() -> int:
     big_ms["K11b fused both, held"] = round(k11b_ms[
         f"{BIG[0]}x{BIG[1]}"][0], 3)
     big_ms["K11b earlier design"] = round(k11b_ms[f"{BIG[0]}x{BIG[1]}"][1], 3)
+    new_k11[f"{BIG[0]}x{BIG[1]}"] = hold_new_k11(
+        f"{BIG[0]}x{BIG[1]}", pk_big, area_big, big_grid, earlier={
+            "K11a earlier": big_ms["K11a earlier: a launch a sweep, k=16"],
+            "K11c earlier": big_ms["K11c earlier: a launch a sweep"]})
     print(f"K11 at {BIG[0]}x{BIG[1]} (one call each, CUDA events, {card}): "
           f"{json.dumps(big_ms)}")
     print(f"K11b (ms, the earlier design's ms, K7+K8 ms, rounds) a size "
           f"({card}): " + json.dumps({
               k: [round(a, 3), round(b, 3), round(c, 3), st["rounds"]]
               for k, (a, b, c, st) in k11b_ms.items()}))
+    print(f"K11a and K11c redesigned (the least ms of each over one-call "
+          f"timings; rounds, visits, sweeps) a size ({card}): " + json.dumps({
+              k: {"ms": {n: round(t, 3) for n, t in v["ms"].items()},
+                  "K11a": [v["K11a"]["rounds"], v["K11a"]["tiles_run"],
+                           v["K11a"]["max_inner_sweeps"]],
+                  "K11c": [v["K11c"]["rounds"], v["K11c"]["wave_visits"],
+                           v["K11c"]["vis_visits"], v["K11c"]["sweeps"],
+                           v["K11c"]["wave_depth"], v["K11c"]["tiles"]],
+                  "twin_sweeps": v["twin_sweeps"],
+                  "delta_cells": v["delta_cells"]}
+              for k, v in new_k11.items()}))
     del pk_big, area_big
     torch.cuda.empty_cache()
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s")
 
     # -- 10. BASELINE config 1: the erosion CLI, counted -------------------
     from demiurge_tpu_torch.core.platform import host_to_device

@@ -24,9 +24,11 @@ def launch_counts() -> dict:
             "flow_local_vis": flow2.LAUNCHES_LOCAL_VIS,
             "advect_sample_pallas": advect.LAUNCHES_ONE_ROW,
             "flow_solve_2d": flow_deadends.LAUNCHES_2D,
+            "flow_solve_2d_tma": flow_deadends.LAUNCHES_2D_TMA,
             "flow_solve_fused": flow_deadends.LAUNCHES_FUSED,
             "flow_solve_fused_bands": flow_deadends.LAUNCHES_FUSED_BANDS,
             "flow_solve_wave": flow_deadends.LAUNCHES_WAVE,
+            "flow_solve_wave_tiles": flow_deadends.LAUNCHES_WAVE_TILES,
             "flow_banded_rounds": flow_deadends.LAUNCHES_BANDED,
             "jacobi_packed": jacobi_packed.LAUNCHES,
             "jacobi_packed_sweeps": jacobi_packed.LAUNCHES_SWEEPS,

@@ -86,6 +86,10 @@ SIGNATURES = {
     # packed area A vis ws, H W band k narrow mode max_rounds, blocks(host),
     # stream
     "demiurge_flow_fused_bands": [_P] * 5 + [_I] * 7 + [_P] * 2,
+    # packed area A vis ws, H W ty tx k max_rounds, blocks(host), stream
+    "demiurge_flow_2d_tma": [_P] * 5 + [_I] * 6 + [_P] * 2,
+    # packed A vis d0 d1 ws, H W ty tx k max_rounds, blocks(host), stream
+    "demiurge_flow_wave_tiles": [_P] * 6 + [_I] * 6 + [_P] * 2,
     # ob rowtab b in0 in1 ping0 pong0 ping1 pong1, H W wrap_x wrap_s wrap_n
     # pole_shift sea_mask negate th tw k iters, stream
     "demiurge_jacobi_packed": [_P] * 9 + [_I] * 12 + [_P],

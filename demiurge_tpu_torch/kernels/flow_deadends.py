@@ -14,7 +14,15 @@ the card:
   the flags every round and launches the sweeps on the woken bands only;
 - ``flow_solve_2d`` (K11a): rounds of k sweeps on 2-D tiles that run when
   a tile of their 3x3 tile neighbourhood changed last round (x wraps, y
-  clips); the skip test is on the device;
+  clips).  The twin keeps the reference's tiles and Jacobi sweeps; the
+  card runs K7's 16x128 tiles in one persistent cooperative launch, each
+  visit's window loaded by TMA into shared memory after the visit before
+  (no load in flight during a sweep), k in-place sweeps a visit, K7's
+  edge-bit wake, the round's lists and the stop test on the device, one
+  host read after it (``flow_solve_2d_cuda`` is the earlier, the
+  reference's, design on the card: an activity pass and k one-sweep
+  launches a round, kept as the yardstick; its tiles, the reference's,
+  need W a multiple of 128, the tensor maps a multiple of 16);
 - ``flow_solve_fused`` (K11b): the whole solve in one launch with the
   stop test on the device; modes "both", "A" and "vis".  The twin keeps
   the reference's design (per-band column windows from the last round's
@@ -24,16 +32,24 @@ the card:
   one host read after it (``flow_solve_fused_bands_cuda`` is the earlier,
   the reference's, design on the card, kept as the yardstick);
 - ``flow_solve_wave`` (K11c): the delta wave, delta' = sum_i inc_i *
-  delta[neighbour_i], A += delta', until delta is zero and vis still.
+  delta[neighbour_i], A += delta', until delta is zero and vis still.  On
+  the card the wave is blocked in time on K8's 16x128 tiles, k sweeps a
+  round on a window with a k-cell halo, tiles whose window holds no delta
+  skipped, and vis runs beside it on K8's tiles, in one persistent
+  cooperative launch (``flow_solve_wave_cuda`` is the earlier design, one
+  launch a sweep of every pixel, kept as the yardstick and run on the
+  grids the tiles do not take: ``wave_tiles_take``).
 
 Each returns (A float32, vis bool, stats).  A equals K7's bit for bit (the
 fixpoint is unique; ``csrc/flow_deadends.cu`` gives the argument that the
 skip rules keep it) but for the wave, whose A adds arrivals in hop order.
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 twin (Jacobi sweeps under the same rules) for CPU tensors.  The
-``LAUNCHES_*`` counters count kernel launches: one a sweep for K11c and d,
-one a sweep and one activity pass a round for K11a, one a solve for K11b
-(``LAUNCHES_FUSED_BANDS`` the yardstick's, 0 on every other path).
+``LAUNCHES_*`` counters count kernel launches: one a sweep for K11d, one a
+solve for K11a, b and c (``LAUNCHES_2D``, ``LAUNCHES_WAVE`` and
+``LAUNCHES_FUSED_BANDS`` count the earlier designs, the yardsticks: one a
+sweep and one activity pass a round, one a sweep, one a solve; 0 on every
+other path).
 """
 
 from __future__ import annotations
@@ -49,12 +65,17 @@ from .flow2 import pick_band
 
 LAUNCHES_BANDED = 0
 LAUNCHES_2D = 0
+LAUNCHES_2D_TMA = 0
 LAUNCHES_FUSED = 0
 LAUNCHES_FUSED_BANDS = 0
 LAUNCHES_WAVE = 0
+LAUNCHES_WAVE_TILES = 0
 
 MODES = ("both", "A", "vis")
 MAX_BANDS = 1024  # the banded kernel's by-value band list
+# on the card, K11a's in-place sweeps a visit and K11c's sweeps a round
+# (PERF.md has the race)
+TMA_K, WAVE_K = 8, 8
 
 
 def pick_tiles(H: int, W: int):
@@ -266,13 +287,22 @@ def tile_activity(flags: np.ndarray) -> np.ndarray:
     return rows | np.roll(rows, 1, 1) | np.roll(rows, -1, 1)
 
 
-def flow_solve_2d_plain(packed, area, grid: Grid, k: int = 16):
+def flow_solve_2d_plain(packed, area, grid: Grid, k: int = 16,
+                        tiles=None):
     """Plain twin of K11a: each round k Jacobi sweeps of the active
-    tiles."""
+    tiles.  ``tiles`` (ty, tx): the reference's ``_pick_tiles`` by default
+    (it raises where none divide the grid); given, any tiles, ragged at the
+    far edges, as the card's K11a runs K7's (the fixpoint is the same
+    whatever the tiles)."""
     _check(packed, area, grid)
-    ty, tx = _tiles(grid, k)
     H, W = grid.shape
-    nby, nbx = H // ty, W // tx
+    if tiles is None:
+        ty, tx = _tiles(grid, k)
+    else:
+        ty, tx = tiles
+        if not 1 <= k <= min(ty, tx):
+            raise ValueError(f"k must be in [1, min(ty, tx)], got {k}")
+    nby, nbx = -(-H // ty), -(-W // tx)
     sweep = _PlainSweep(packed, area, grid)
     A, vis = area, sweep.mouth
     flags = np.ones((nby, nbx), np.int32)
@@ -284,12 +314,12 @@ def flow_solve_2d_plain(packed, area, grid: Grid, k: int = 16):
         act = tile_activity(flags)
         runs += int(act.sum())
         mask = torch.from_numpy(act).to(area.device).repeat_interleave(
-            ty, 0).repeat_interleave(tx, 1)
-        changed = torch.zeros(grid.shape, dtype=torch.bool,
+            ty, 0).repeat_interleave(tx, 1)[:H, :W]
+        changed = torch.zeros((nby * ty, nbx * tx), dtype=torch.bool,
                               device=area.device)
         for _ in range(k):
             A, vis, ch = sweep.masked(A, vis, mask)
-            changed |= ch
+            changed[:H, :W] |= ch
         flags = changed.reshape(nby, ty, nbx, tx).any(3).any(1).cpu().numpy()
         rounds += 1
     return A, vis, {"rounds": rounds, "sweeps": rounds * k, "launches": 0,
@@ -297,9 +327,9 @@ def flow_solve_2d_plain(packed, area, grid: Grid, k: int = 16):
 
 
 def flow_solve_2d_cuda(packed, area, grid: Grid, k: int = 16):
-    """K11a on the card: per round an activity pass and k in-place sweeps,
-    quiet tiles' blocks returning at once; one host read of the tile flags
-    a round."""
+    """The earlier K11a on the card, the yardstick: per round an activity
+    pass and k in-place one-sweep launches, quiet tiles' blocks returning
+    at once; one host read of the tile flags a round."""
     global LAUNCHES_2D
     _check_cuda(packed, area, grid)
     ty, tx = _tiles(grid, k)
@@ -332,13 +362,75 @@ def flow_solve_2d_cuda(packed, area, grid: Grid, k: int = 16):
                            "tiles": (ty, tx)}
 
 
-def flow_solve_2d(packed, area, grid: Grid, k: int = 16):
+def flow_solve_2d_tma_cuda(packed, area, grid: Grid, k: int = TMA_K, *,
+                           max_rounds=None):
+    """K11a on the card, redesigned: the whole (A, vis) solve in one
+    persistent cooperative launch on K7's tiles (``kernels.flow.TILE``),
+    as many blocks as fit, A's and vis's (field, tile) entries side by
+    side; each visit's window (the tile, a row above and below, 4 columns
+    of A or 16 of vis each side: 16 bytes, and a side box over the
+    dateline) comes by TMA into shared memory; k in-place sweeps a visit,
+    down then up, stopping after a quiet one; a visit that wrote wakes the
+    tiles whose halo its edge bits face (K7's rule), and itself where its
+    last sweep still wrote.  W must be a multiple of 16 (the tensor maps'
+    rows).  ``max_rounds`` (default: the longest path an acyclic graph on
+    the grid can hold) bounds the rounds: reaching it raises.  Stats:
+    rounds, launched (1), host_reads (1), tiles_run (the visits, A's and
+    vis's), max_inner_sweeps (the most sweeps of a visit), blocks, tiles,
+    k, and block_kcycles: the blocks' clock cycles / 1024, summed, waiting
+    for a window, sweeping, writing back and waking, at the grid syncs,
+    and in all."""
+    global LAUNCHES_2D_TMA
+    _check_cuda(packed, area, grid)
+    if grid.width % 16 or k < 1:
+        raise ValueError(f"K11a's tensor maps need W a multiple of 16 (a "
+                         f"row of vis in whole 16-byte units) and k >= 1, "
+                         f"got W {grid.width}, k {k}")
+    rounds_cap = _max_sweeps(grid) if max_rounds is None else max_rounds
+    if rounds_cap < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {rounds_cap}")
+    H, W = grid.shape
+    ty, tx = kf.TILE
+    ne = 2 * -(-H // ty) * -(-W // tx)
+    from . import build
+
+    A, vis = area.clone(), _mouths_u8(packed)
+    # two slots of wake words and of lists, then the control words
+    ws = torch.zeros(4 * ne + 16, dtype=torch.int32, device=A.device)
+    ws[2 * ne:3 * ne] = torch.arange(ne, dtype=torch.int32,
+                                     device=A.device)  # round 0: all
+    ws[4 * ne] = ne
+    blocks = np.zeros(1, np.int32)
+    build.check(build.library().demiurge_flow_2d_tma(
+        packed.data_ptr(), area.data_ptr(), A.data_ptr(), vis.data_ptr(),
+        ws.data_ptr(), H, W, ty, tx, k, rounds_cap, blocks.ctypes.data,
+        _stream(A)), "demiurge_flow_2d_tma")
+    LAUNCHES_2D_TMA += 1
+    (visits, sweeps, _, status, rounds, *kcycles) = ws[4 * ne + 6:].tolist()
+    if status != 1:
+        raise RuntimeError(f"2-D tiles: no fixpoint after {rounds} rounds "
+                           f"(the round limit; a flow graph with a cycle "
+                           f"never certifies)")
+    return A, vis.bool(), {"rounds": rounds, "launched": 1,
+                           "host_reads": 1, "tiles_run": visits,
+                           "max_inner_sweeps": sweeps,
+                           "blocks": int(blocks[0]), "tiles": (ty, tx),
+                           "k": k, "block_kcycles": dict(zip(
+                               ("wait", "sweep", "write", "sync", "all"),
+                               kcycles))}
+
+
+def flow_solve_2d(packed, area, grid: Grid, k=None):
     """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
-    The tiles are the reference's ``_pick_tiles``.  Returns (A, vis,
-    stats): rounds, sweeps, launches, tile runs."""
+    The twin's tiles are the reference's ``_pick_tiles``, the card's K7's;
+    ``k`` (sweeps a round or a visit) defaults to the reference's 16 for
+    the twin and to the raced ``TMA_K`` on the card.  Returns (A, vis,
+    stats): the twin's rounds, sweeps, launches, tile runs; the kernel's
+    as ``flow_solve_2d_tma_cuda`` says."""
     if use_cuda_kernels(packed, area):
-        return flow_solve_2d_cuda(packed, area, grid, k)
-    return flow_solve_2d_plain(packed, area, grid, k)
+        return flow_solve_2d_tma_cuda(packed, area, grid,
+                                      TMA_K if k is None else k)
+    return flow_solve_2d_plain(packed, area, grid, 16 if k is None else k)
 
 
 # ---------------------------------------------------------------------------
@@ -525,38 +617,43 @@ def flow_solve_fused(packed, area, grid: Grid, k: int = 16, band: int = 0,
 
 def flow_solve_wave_plain(packed, area, grid: Grid):
     """Plain twin of K11c, in K7's rounds (8 sweeps, doubling to 512) with
-    one host read a round."""
+    one host read a round.  Stats: rounds, sweeps (to the certifying one),
+    launches (0), delta_cells (the cells with a nonzero delta, summed over
+    the sweeps: the wave's own work)."""
     from .flow import FIRST_ROUND, MAX_ROUND
 
     _check(packed, area, grid)
     sweep = _PlainSweep(packed, area, grid)
     zero = torch.zeros_like(area)
     A, vis, delta = area, sweep.mouth, area
-    n, sweeps, rounds = FIRST_ROUND, 0, 0
+    n, sweeps, rounds, cells = FIRST_ROUND, 0, 0, 0
     while sweeps < _max_sweeps(grid):
-        moved = []
+        moved, live = [], []
         for _ in range(n):
             d = zero
             for ok, (dx, dy) in zip(sweep.inc, NEIGHBORS_FLOW_ORDER):
                 d = d + torch.where(
                     ok, shift(delta, dx, dy, grid, pole_wrap=False), 0.0)
             _, newvis = sweep(A, vis, "vis")
-            moved.append((d != 0).any() | (newvis != vis).any())
+            live.append((d != 0).sum())
+            moved.append((live[-1] > 0) | (newvis != vis).any())
             A, vis, delta = A + d, newvis, d
         rounds += 1
         moved = torch.stack(moved).tolist()
+        cells += int(torch.stack(live).sum())
         if False in moved:
             return A, vis, {"rounds": rounds,
                             "sweeps": sweeps + moved.index(False) + 1,
-                            "launches": 0}
+                            "launches": 0, "delta_cells": cells}
         sweeps += n
         n = min(2 * n, MAX_ROUND)
     raise RuntimeError("wave: no fixpoint (the flow graph has a cycle)")
 
 
 def flow_solve_wave_cuda(packed, area, grid: Grid):
-    """K11c on the card: delta in ping-pong buffers, A and vis in place, in
-    K7's rounds."""
+    """The earlier K11c on the card, the yardstick: one launch a sweep of
+    every pixel, delta in ping-pong buffers, A and vis in place, in K7's
+    rounds."""
     global LAUNCHES_WAVE
     _check_cuda(packed, area, grid)
     H, W = grid.shape
@@ -578,10 +675,103 @@ def flow_solve_wave_cuda(packed, area, grid: Grid):
                            "launches": stats["launched"]}
 
 
+def wave_tiles_take(grid: Grid, k: int = WAVE_K) -> bool:
+    """Whether the wave's tiles (K8's) take the grid: W a multiple of 4 (a
+    copy of 4 floats lies in one tile) and, with more than three tile
+    columns, k at most the ragged last column's width (a window stays in
+    its 3x3 tiles)."""
+    tx, W = kf.TILE[1], grid.width
+    return W % 4 == 0 and not (W % tx and W % tx < k and -(-W // tx) > 3)
+
+
+def check_wave_tiles(grid: Grid, k: int) -> None:
+    """Raise unless the wave's tiles take (grid, k): k a multiple of 4 in
+    [4, the tile's rows] and ``wave_tiles_take``."""
+    rows = kf.TILE[0]
+    if not 4 <= k <= rows or k % 4:
+        raise ValueError(f"the wave's tiles: k a multiple of 4 in [4, "
+                         f"{rows}], got {k}")
+    if not wave_tiles_take(grid, k):
+        raise ValueError(f"the wave's tiles need W a multiple of 4 and, "
+                         f"with more than three tile columns, the last "
+                         f"column no narrower than k = {k}: got W "
+                         f"{grid.width}")
+
+
+def flow_solve_wave_tiles_cuda(packed, area, grid: Grid, k: int = WAVE_K, *,
+                               max_rounds=None):
+    """K11c on the card, redesigned: the wave blocked in time on K8's
+    tiles, k sweeps a round on the tile's window (a k-cell halo of delta
+    and of the incoming bits) in shared memory, A summed in registers in
+    sweep order and written once a round, the tile's last delta to the
+    other of two buffers; a tile runs only where a tile of its 3x3
+    neighbourhood left a nonzero delta, and a window reads a tile's delta
+    only where that tile's last nonzero output is the last round's.  vis
+    runs beside it as K8's visits on K8's tiles, all in one persistent
+    cooperative launch with one host read.  A is bit for bit the twin's.
+    Stats: rounds, wave_rounds, sweeps (wave_rounds * k), wave_depth (the
+    last sweep that left a nonzero delta), wave_visits, vis_visits, tiles
+    (the wave's), launched (1), host_reads (1), max_inner_sweeps (vis's),
+    blocks, k, and block_kcycles: the blocks' clock cycles / 1024,
+    summed, loading wave windows, sweeping them, writing out, in vis
+    visits, at the grid syncs, and in all."""
+    global LAUNCHES_WAVE_TILES
+    _check_cuda(packed, area, grid)
+    check_wave_tiles(grid, k)
+    rounds_cap = _max_sweeps(grid) if max_rounds is None else max_rounds
+    if rounds_cap < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {rounds_cap}")
+    H, W = grid.shape
+    ty, tx = kf.TILE
+    ntw = -(-H // ty) * -(-W // tx)
+    ne = 2 * ntw
+    from . import build
+
+    A, vis = area.clone(), _mouths_u8(packed)
+    d0, d1 = area.clone(), torch.empty_like(area)
+    # edges, two slots of wake words and of lists, the tiles' live rounds,
+    # then the control words
+    ws = torch.zeros(5 * ne + 2 * ntw + 22, dtype=torch.int32,
+                     device=A.device)
+    ws[3 * ne:4 * ne] = torch.arange(ne, dtype=torch.int32,
+                                     device=A.device)  # round 0: all
+    ws[5 * ne:5 * ne + ntw] = -2
+    ws[5 * ne + ntw:5 * ne + 2 * ntw] = -1  # round 0 reads the area
+    ctl = 5 * ne + 2 * ntw
+    ws[ctl] = ne
+    blocks = np.zeros(1, np.int32)
+    build.check(build.library().demiurge_flow_wave_tiles(
+        packed.data_ptr(), A.data_ptr(), vis.data_ptr(), d0.data_ptr(),
+        d1.data_ptr(), ws.data_ptr(), H, W, ty, tx, k, rounds_cap,
+        blocks.ctypes.data, _stream(A)), "demiurge_flow_wave_tiles")
+    LAUNCHES_WAVE_TILES += 1
+    (wave_visits, vis_visits, passes, _, status, rounds, wave_rounds,
+     depth, _, _, *kcycles) = ws[ctl + 6:].tolist()  # one read
+    if status != 1:
+        raise RuntimeError(f"wave tiles: no fixpoint after {rounds} rounds "
+                           f"(the round limit; a flow graph with a cycle "
+                           f"never certifies)")
+    return A, vis.bool(), {"rounds": rounds, "wave_rounds": wave_rounds,
+                           "sweeps": wave_rounds * k, "wave_depth": depth,
+                           "wave_visits": wave_visits,
+                           "vis_visits": vis_visits, "tiles": ntw,
+                           "launched": 1, "host_reads": 1,
+                           "max_inner_sweeps": passes,
+                           "blocks": int(blocks[0]), "k": k,
+                           "block_kcycles": dict(zip(
+                               ("load", "sweep", "write", "vis", "sync",
+                                "all"), kcycles))}
+
+
 def flow_solve_wave(packed, area, grid: Grid):
     """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
-    Returns (A, vis, stats): rounds (host reads), sweeps to the certifying
-    one, launches."""
+    On the card the wave on tiles where ``wave_tiles_take`` the grid, else
+    the earlier design, one launch a sweep.  Returns (A, vis, stats): the
+    twin's rounds (host reads), sweeps to the certifying one, launches and
+    delta cells; the earlier design's rounds, sweeps and launches; the
+    tiles' as ``flow_solve_wave_tiles_cuda`` says."""
     if use_cuda_kernels(packed, area):
+        if wave_tiles_take(grid):
+            return flow_solve_wave_tiles_cuda(packed, area, grid)
         return flow_solve_wave_cuda(packed, area, grid)
     return flow_solve_wave_plain(packed, area, grid)

@@ -1,18 +1,26 @@
 """Race the flow solvers on an evolved state and check each against K7/K8.
 
     python -m demiurge_tpu_torch.tools.flow_tune [W H] [--device D]
+    python -m demiurge_tpu_torch.tools.flow_tune [W H] --kernel 2d|wave
 
 Defaults 2048 1024, on ``cuda``.  Evolves the reference tool's terrain
 (fBm, 6 octaves, seed 7) by 10 ``coupled_step``s at ``CoupledConfig()``
 (longer rivers than the initial noise), makes the flow masks of the result
 and solves the (A, vis) fixpoint with: the production pair (K7's A and
-K8's vis), the 2-D tiles (K11a), the one-launch fused solve in mode
-"both" and split into "A" then "vis" (K11b), the delta wave (K11c) and
-the banded rounds (K11d).  Each is checked on its first call, then timed
-over ``REPS`` more, with CUDA events on the card (the host clock on the
-CPU), and prints ``ok`` only when its A equals K7's bit for bit (the
-wave's, which adds in another order, within rtol 1e-5, atol 1e-7) and its
-vis equals K8's.  Nothing is caught: a mismatch exits 1, a failure raises.
+K8's vis), the 2-D tiles (K11a: the TMA design, and the earlier one
+launch a sweep), the one-launch fused solve in mode "both" and split into
+"A" then "vis" (K11b), the delta wave (K11c: blocked in time on tiles,
+and the earlier one launch a sweep) and the banded rounds (K11d).  Each is
+checked on its first call, then timed over ``REPS`` more, with CUDA
+events on the card (the host clock on the CPU), and prints ``ok`` only
+when its A equals K7's bit for bit (the wave's, which adds in another
+order, within rtol 1e-5, atol 1e-7) and its vis equals K8's.  On the CPU
+every row runs the twins.  Nothing is caught: a mismatch exits 1, a
+failure raises.
+
+``--kernel 2d`` races the TMA design's sweeps a visit (4, 8, 16),
+``--kernel wave`` the wave's sweeps a round (4, 8, 16): a row each, bit
+for bit against the default, K7+K8 timed first and last.  Card only.
 
 ``run`` is the tool less its argument parsing; ``chip_smoke.py`` calls it
 with ``twins=True``, which also holds each solver to its plain twin.
@@ -36,8 +44,10 @@ from . import flow_inputs, terrain
 REPS = 3  # timed calls of each solver, after the one that is checked
 
 COUNTERS = ((kf, "LAUNCHES_A", "flow_solve"), (kf, "LAUNCHES_VIS", "flow_vis"),
+            (kd, "LAUNCHES_2D_TMA", "flow_solve_2d_tma"),
             (kd, "LAUNCHES_2D", "flow_solve_2d"),
             (kd, "LAUNCHES_FUSED", "flow_solve_fused"),
+            (kd, "LAUNCHES_WAVE_TILES", "flow_solve_wave_tiles"),
             (kd, "LAUNCHES_WAVE", "flow_solve_wave"),
             (kd, "LAUNCHES_BANDED", "flow_banded_rounds"))
 
@@ -79,9 +89,14 @@ def solvers(packed, area, grid: Grid):
     checks), and ``exact`` says whether A must equal K7's bit for bit."""
     H = grid.height
     band = 64 if H % 64 == 0 else kd.pick_band(H)
+    on_card = use_cuda_kernels(area)
+    tiles_take = kd.wave_tiles_take(grid)
 
     def call(fn, *args):
         return lambda: fn(packed, area, grid, *args)
+
+    def earlier(cuda, plain):  # an earlier design: its twin on the CPU
+        return call(cuda if on_card else plain)
 
     def split(fused):
         def solve():
@@ -96,13 +111,23 @@ def solvers(packed, area, grid: Grid):
 
     return [
         ("K7+K8 (production)", None, production, None, True),
-        ("K11a 2-D tiles k=16", "flow_solve_2d", call(kd.flow_solve_2d),
+        (f"K11a TMA tiles k={kd.TMA_K}", "flow_solve_2d_tma",
+         call(kd.flow_solve_2d), call(kd.flow_solve_2d_plain), True),
+        ("K11a earlier: a launch a sweep, k=16", "flow_solve_2d",
+         earlier(kd.flow_solve_2d_cuda, kd.flow_solve_2d_plain),
          call(kd.flow_solve_2d_plain), True),
         (f"K11b fused both k=16 band={kd.pick_band(H)}", "flow_solve_fused",
          call(kd.flow_solve_fused), call(kd.flow_solve_fused_plain), True),
         ("K11b fused split (A, then vis)", "flow_solve_fused",
          split(kd.flow_solve_fused), split(kd.flow_solve_fused_plain), True),
-        ("K11c wave", "flow_solve_wave", call(kd.flow_solve_wave),
+        # (the public entry runs the earlier design where the tiles do not
+        # take the grid)
+        (f"K11c wave tiles k={kd.WAVE_K}" if tiles_take else
+         "K11c (W not for the tiles): a launch a sweep",
+         "flow_solve_wave_tiles" if tiles_take else "flow_solve_wave",
+         call(kd.flow_solve_wave), call(kd.flow_solve_wave_plain), False),
+        ("K11c earlier: a launch a sweep", "flow_solve_wave",
+         earlier(kd.flow_solve_wave_cuda, kd.flow_solve_wave_plain),
          call(kd.flow_solve_wave_plain), False),
         (f"K11d banded rounds band={band} k=16", "flow_banded_rounds",
          call(kd.flow_solve_banded_rounds, band, 16),
@@ -152,6 +177,43 @@ def race(packed, area, grid: Grid, twins: bool = False):
     return rows, all_ok
 
 
+def variants(kernel: str):
+    """[(label, keyword arguments)] of ``--kernel``'s race, the default
+    first."""
+    name, first = {"2d": ("K11a", kd.TMA_K), "wave": ("K11c", kd.WAVE_K)}[
+        kernel]
+    return [(f"{name} k={k}", {"k": k})
+            for k in [first] + [k for k in (4, 8, 16) if k != first]]
+
+
+def race_variants(packed, area, grid: Grid, kernel: str):
+    """Each of ``variants(kernel)``, held bit for bit to the default's A
+    and vis and timed (``REPS`` calls, CUDA events), between two timings
+    of K7+K8.  Returns the rows ({label, ms, stats})."""
+    solve = {"2d": kd.flow_solve_2d_tma_cuda,
+             "wave": kd.flow_solve_wave_tiles_cuda}[kernel]
+
+    def production():
+        return kf.flow_solve_area(packed, area, grid), \
+            kf.vis_solve(packed, grid)
+
+    _, k78 = _timed(production, True, REPS)
+    print(f"{'K7+K8':40s} {k78:10.3f} ms", flush=True)
+    rows, want = [], None
+    for label, kw in variants(kernel):
+        A, vis, stats = solve(packed, area, grid, **kw)
+        if want is None:
+            want = (A, vis)
+        ok = torch.equal(A, want[0]) and torch.equal(vis, want[1])
+        _, ms = _timed(lambda: solve(packed, area, grid, **kw), True, REPS)
+        print(f"{label:40s} {ms:10.3f} ms  "
+              f"{'bit-exact' if ok else 'DIFFERS'}  {stats}", flush=True)
+        rows.append({"label": label, "ms": ms, "ok": ok, "stats": stats})
+    _, k78b = _timed(production, True, REPS)
+    print(f"{'K7+K8':40s} {k78b:10.3f} ms", flush=True)
+    return rows, [k78, k78b]
+
+
 def run(W: int, H: int, device, twins: bool = False):
     """Evolve, race and print the launches of every counter, zeroed first.
     Returns (packed masks, rows, ok)."""
@@ -175,10 +237,21 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("size", nargs="*", type=int, metavar="W H")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--kernel", choices=("2d", "wave"))
     args = p.parse_args(argv)
     if len(args.size) > 2:
         p.error("at most two numbers: W H")
+    if args.kernel and args.device != "cuda":
+        p.error("--kernel races the card's kernels: it needs --device cuda")
     W, H = list(args.size) + [2048, 1024][len(args.size):]
+    if args.kernel:
+        grid = Grid(W, H)
+        packed, area = evolved_inputs(grid, torch.device("cuda"))
+        print(f"flow_tune --kernel {args.kernel} {W}x{H} after 10 coupled "
+              f"steps on {torch.cuda.get_device_name()}; ms per solve, "
+              f"{REPS} reps (CUDA events)", flush=True)
+        rows, _ = race_variants(packed, area, grid, args.kernel)
+        return 0 if all(r["ok"] for r in rows) else 1
     return 0 if run(W, H, args.device)[2] else 1
 
 

@@ -1114,3 +1114,144 @@ def test_fused_tiles_raise_on_a_round_limit_and_a_refused_launch(
     with pytest.raises(RuntimeError, match="CUDA error"):
         kd.flow_solve_fused_cuda(packed, area, grid, band=8, k=8)
     assert kd.LAUNCHES_FUSED == before + 1
+
+
+# K11a on TMA windows and K11c blocked in time (tests/test_torch_flow_2d_tma.py
+# and tests/test_torch_flow_wave_tiles.py run their schedules on the CPU):
+# a terrain at 128x64 and at 2000x1000 (the tiles divide neither side), one
+# tile row, one tile column, and the serpentine over the dateline
+NEW_K11_CASES = ["128x64", "2000x1000", "one-row", "one-column",
+                 "serpentine"]
+
+
+def _new_k11_inputs(case, dev):
+    from demiurge_tpu_torch.tools import serpentine
+
+    if case == "serpentine":
+        grid = Grid(1024, 200)
+        packed, area = serpentine(grid, dev, 1000, 48, 150)
+        return grid, packed, area
+    W, H = {"128x64": (128, 64), "2000x1000": (2000, 1000),
+            "one-row": (2048, 16), "one-column": (128, 512)}[case]
+    grid, _, _, area, packed = _flow_inputs(W, H, dev)
+    return grid, packed, area
+
+
+@pytest.mark.parametrize("case", NEW_K11_CASES)
+def test_tma_tiles_equal_twin_and_k7_k8(dev, case):
+    """K11a's one persistent launch on TMA windows: A bit for bit with the
+    twin (on the card's tiles) and with K7, vis equal to the twin's and
+    K8's; one launch and one host read a solve; k 8 (the public entry's),
+    16, 4 and 1."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+
+    grid, packed, area = _new_k11_inputs(case, dev)
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    wA, wvis, _ = kd.flow_solve_2d_plain(packed, area, grid, k=16,
+                                         tiles=kf.TILE)
+    assert torch.equal(wA, A7) and torch.equal(wvis, vis8)
+    for k in (None, 16, 4, 1):
+        before = kd.LAUNCHES_2D_TMA
+        if k is None:
+            A, vis, st = kd.flow_solve_2d(packed, area, grid)
+            k = kd.TMA_K
+        else:
+            A, vis, st = kd.flow_solve_2d_tma_cuda(packed, area, grid, k)
+        torch.cuda.synchronize()
+        assert kd.LAUNCHES_2D_TMA - before == st["launched"] == 1
+        assert st["host_reads"] == 1 and st["rounds"] >= 1 and st["k"] == k
+        assert 1 <= st["max_inner_sweeps"] <= k and st["blocks"] >= 1
+        assert torch.equal(A, wA) and torch.equal(vis, wvis), k
+
+
+@pytest.mark.parametrize("case", NEW_K11_CASES)
+def test_wave_tiles_equal_twin_and_k8(dev, case):
+    """K11c blocked in time: A and vis bit for bit with the twin, vis equal
+    to K8's, A within the reference's bound of K7's; one launch and one
+    host read a solve; k 8 (the public entry's), 4, 12 and 16.  The last
+    sweep that left a delta comes before the twin's certifying sweep."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+
+    grid, packed, area = _new_k11_inputs(case, dev)
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    wA, wvis, wst = kd.flow_solve_wave_plain(packed, area, grid)
+    for k in (None, 4, 12, 16):
+        before = kd.LAUNCHES_WAVE_TILES
+        if k is None:
+            A, vis, st = kd.flow_solve_wave(packed, area, grid)
+            k = kd.WAVE_K
+        else:
+            A, vis, st = kd.flow_solve_wave_tiles_cuda(packed, area, grid, k)
+        torch.cuda.synchronize()
+        assert kd.LAUNCHES_WAVE_TILES - before == st["launched"] == 1
+        assert st["host_reads"] == 1 and st["sweeps"] == st["wave_rounds"] * k
+        # the twin certifies one sweep after the last delta, or later
+        # where vis takes longer
+        assert st["wave_depth"] < wst["sweeps"]
+        assert st["sweeps"] >= st["wave_depth"] and st["blocks"] >= 1
+        assert torch.equal(A, wA) and torch.equal(vis, wvis), k
+    assert torch.equal(wvis, vis8)
+    torch.testing.assert_close(wA, A7, rtol=1e-5, atol=1e-7)
+
+
+def test_new_k11_raise_on_a_round_limit_and_a_refused_launch(dev,
+                                                             monkeypatch):
+    """A solve that has not certified by ``max_rounds`` raises; a tile the
+    library was not built for, and wave tiles the kernel does not take,
+    are refused by the entry point and the wrapper raises; a launch is
+    counted only where the kernel ran."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+
+    grid, packed, area = _new_k11_inputs("serpentine", dev)
+    for solve, counter in ((kd.flow_solve_2d_tma_cuda, "LAUNCHES_2D_TMA"),
+                           (kd.flow_solve_wave_tiles_cuda,
+                            "LAUNCHES_WAVE_TILES")):
+        _, _, st = solve(packed, area, grid)
+        assert st["rounds"] >= 2
+        solve(packed, area, grid, max_rounds=st["rounds"])
+        before = getattr(kd, counter)
+        with pytest.raises(RuntimeError, match="no fixpoint after"):
+            solve(packed, area, grid, max_rounds=st["rounds"] - 1)
+        assert getattr(kd, counter) == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(kf, "TILE", (48, 128))
+        before = kd.LAUNCHES_2D_TMA
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.flow_solve_2d_tma_cuda(packed, area, grid)
+        assert kd.LAUNCHES_2D_TMA == before
+    with monkeypatch.context() as m:
+        m.setattr(kf, "TILE", (16, 64))
+        before = kd.LAUNCHES_WAVE_TILES
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.flow_solve_wave_tiles_cuda(packed, area, grid)
+        assert kd.LAUNCHES_WAVE_TILES == before
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kd.flow_solve_2d_tma_cuda(packed[:, :1000].contiguous(),
+                                  area[:, :1000].contiguous(),
+                                  Grid(1000, 200))
+
+
+@pytest.mark.parametrize("W", [1022, 516])
+def test_wave_takes_the_earlier_design_where_the_tiles_do_not_fit(dev, W):
+    """The wave's tiles need W a multiple of 4 (1022 is not) and, with more
+    than three tile columns, a last column no narrower than k (516 leaves
+    4): there ``flow_solve_wave`` runs the earlier design, one launch a
+    sweep, bit for bit with the twin; the tiles' entry refuses the grid."""
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+
+    grid, _, _, area, packed = _flow_inputs(W, 256, dev)
+    assert not kd.wave_tiles_take(grid)
+    tA, tvis, tst = kd.flow_solve_wave_plain(packed, area, grid)
+    before = (kd.LAUNCHES_WAVE, kd.LAUNCHES_WAVE_TILES)
+    A, vis, st = kd.flow_solve_wave(packed, area, grid)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES_WAVE - before[0] == st["launches"] > 0
+    assert kd.LAUNCHES_WAVE_TILES == before[1]
+    assert torch.equal(A, tA) and torch.equal(vis, tvis)
+    with pytest.raises(ValueError, match="the wave's tiles need"):
+        kd.flow_solve_wave_tiles_cuda(packed, area, grid)

@@ -165,8 +165,11 @@ def test_k11_kernel_wrappers_raise_on_cpu_tensors():
     packed = torch.zeros(g.shape, dtype=torch.int32)
     counts = (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
               kx.LAUNCHES_BANDED, kp.LAUNCHES, kx.LAUNCHES_FUSED_BANDS,
-              kp.LAUNCHES_SWEEPS)
+              kp.LAUNCHES_SWEEPS, kx.LAUNCHES_2D_TMA,
+              kx.LAUNCHES_WAVE_TILES)
     for call in (lambda: kx.flow_solve_2d_cuda(packed, z, g),
+                 lambda: kx.flow_solve_2d_tma_cuda(packed, z, g),
+                 lambda: kx.flow_solve_wave_tiles_cuda(packed, z, g),
                  lambda: kx.flow_solve_fused_cuda(packed, z, g),
                  lambda: kx.flow_solve_fused_bands_cuda(packed, z, g),
                  lambda: kx.flow_solve_wave_cuda(packed, z, g),
@@ -181,7 +184,8 @@ def test_k11_kernel_wrappers_raise_on_cpu_tensors():
             call()
     assert (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
             kx.LAUNCHES_BANDED, kp.LAUNCHES, kx.LAUNCHES_FUSED_BANDS,
-            kp.LAUNCHES_SWEEPS) == counts
+            kp.LAUNCHES_SWEEPS, kx.LAUNCHES_2D_TMA,
+            kx.LAUNCHES_WAVE_TILES) == counts
 
 
 def test_launch_counts_name_every_counter():
@@ -195,8 +199,9 @@ def test_launch_counts_name_every_counter():
             "flow_directions_packed", "blur_strip",
             "flow_directions_strip", "lake_relax", "lake_area_tiles",
             "lake_vis_tiles", "lake_root_tiles", "flow_solve_fused_bands",
-            "jacobi_packed_sweeps"} <= names
-    assert len(names) == 27
+            "jacobi_packed_sweeps", "flow_solve_2d_tma",
+            "flow_solve_wave_tiles"} <= names
+    assert len(names) == 29
 
 
 def test_interop_round_trip_and_config():

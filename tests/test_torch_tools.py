@@ -46,15 +46,16 @@ def test_flow_tune_checks_every_solver(capsys):
     assert lines[0].startswith("flow_tune 128x64 after 10 coupled steps on "
                                "cpu")
     rows = lines[1:-1]
-    names = ["K7+K8", "K11a", "K11b fused both", "K11b fused split", "K11c",
-             "K11d"]
+    names = ["K7+K8", "K11a TMA", "K11a earlier", "K11b fused both",
+             "K11b fused split", "K11c wave tiles", "K11c earlier", "K11d"]
     assert len(rows) == len(names)
     for name, row in zip(names, rows):
         assert row.startswith(name) and "  ok  " in row, row
     assert "differing from K7 0;" in rows[1]
     counts = json.loads(lines[-1])["kernel_launches"]
-    assert set(counts) == {"flow_solve", "flow_vis", "flow_solve_2d",
-                           "flow_solve_fused", "flow_solve_wave",
+    assert set(counts) == {"flow_solve", "flow_vis", "flow_solve_2d_tma",
+                           "flow_solve_2d", "flow_solve_fused",
+                           "flow_solve_wave_tiles", "flow_solve_wave",
                            "flow_banded_rounds"}
     assert not any(counts.values())
 
@@ -81,11 +82,12 @@ def test_flow_tune_run_holds_each_solver_to_its_twin(capsys):
     out = capsys.readouterr().out
     assert ok and packed.shape == (64, 128)
     assert [r["kernel"] for r in rows] == [
-        None, "flow_solve_2d", "flow_solve_fused", "flow_solve_fused",
-        "flow_solve_wave", "flow_banded_rounds"]
+        None, "flow_solve_2d_tma", "flow_solve_2d", "flow_solve_fused",
+        "flow_solve_fused", "flow_solve_wave_tiles", "flow_solve_wave",
+        "flow_banded_rounds"]
     assert rows[0]["twin_ms"] is None
     assert all(r["twin_ms"] >= 0 and r["ms"] >= 0 for r in rows[1:])
-    assert out.count("bit-exact") == 5 and "DIFFERS" not in out
+    assert out.count("bit-exact") == 7 and "DIFFERS" not in out
     assert rows[1]["differ"] == 0 and rows[1]["stats"]["rounds"] > 0
 
 
@@ -97,6 +99,17 @@ def test_tools_default_to_the_card(main):
         pytest.skip("a card is present; the tool would run for real")
     with pytest.raises((RuntimeError, AssertionError)):
         main(["64", "32"])
+
+
+def test_flow_tune_races_the_card_kernels_only_on_the_card():
+    """``--kernel`` races the new K11a's and K11c's sweeps, the default
+    first, each once; it asks for the card."""
+    two_d, wave = flow_tune.variants("2d"), flow_tune.variants("wave")
+    assert two_d[0][1] == {"k": kd.TMA_K} and wave[0][1] == {"k": kd.WAVE_K}
+    for runs in (two_d, wave):
+        assert sorted(kw["k"] for _, kw in runs) == [4, 8, 16]
+    with pytest.raises(SystemExit):
+        flow_tune.main(["64", "32", "--kernel", "2d", "--device", "cpu"])
 
 
 def test_tools_refuse_extra_numbers():
