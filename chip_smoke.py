@@ -336,6 +336,7 @@ def main() -> int:
                 "flow_solve_wave": (kx, "LAUNCHES_WAVE"),
                 "flow_solve_wave_tiles": (kx, "LAUNCHES_WAVE_TILES"),
                 "flow_banded_rounds": (kx, "LAUNCHES_BANDED"),
+                "flow_banded_sweeps": (kx, "LAUNCHES_BANDED_SWEEPS"),
                 "jacobi_packed": (kp, "LAUNCHES"),
                 "jacobi_packed_sweeps": (kp, "LAUNCHES_SWEEPS"),
                 "flow_solve_fused_bands": (kx, "LAUNCHES_FUSED_BANDS"),
@@ -1730,15 +1731,24 @@ def main() -> int:
     for line in run.stdout.splitlines():
         print(f"flow_rounds: {line}")
     assert run.returncode == 0, (run.returncode, run.stderr[-4000:])
-    rounds_launches = json_lines(run.stdout)[-1]["kernel_launches"]
-    assert rounds_launches["flow_banded_rounds"] > 0, rounds_launches
-    print(f"flow_rounds: {time.perf_counter() - t0:.1f} s with start-up")
+    rounds_line = json_lines(run.stdout)[-1]
+    rounds_launches = rounds_line["kernel_launches"]
+    rounds_n = int(run.stdout.split("rounds=")[1].split()[0])
+    # K11d on cluster windows: one launch and one host read a round
+    assert rounds_line["design"] == "cluster", rounds_line
+    assert rounds_launches == {"flow_banded_rounds": rounds_n,
+                               "flow_banded_sweeps": 0}, rounds_line
+    assert rounds_line["host_reads"] == rounds_n > 0, rounds_line
+    print(f"flow_rounds: {rounds_n} rounds, {rounds_n} launches, "
+          f"{rounds_line['host_reads']} host reads (the earlier design: "
+          f"k = 16 launches a round); {time.perf_counter() - t0:.1f} s "
+          f"with start-up")
 
     # flow_tune's run in this process, each solver also held to its twin;
     # then K11e at the coupled depths, on the ocean of phase 4
     k11_names = ["flow_solve_2d_tma", "flow_solve_2d", "flow_solve_fused",
                  "flow_solve_wave_tiles", "flow_solve_wave",
-                 "flow_banded_rounds", "jacobi_packed"]
+                 "flow_banded_rounds", "flow_banded_sweeps", "jacobi_packed"]
     zero_counts()
     pk10, tune_rows, tune_ok = ft.run(W, H, DEVICE, twins=True)
     assert tune_ok, "flow_tune: a solver disagrees with K7/K8 or its twin"
@@ -1773,6 +1783,12 @@ def main() -> int:
     # timed REPS times
     assert k11_launches["flow_solve_2d_tma"] == 1 + ft.REPS, k11_launches
     assert k11_launches["flow_solve_wave_tiles"] == 1 + ft.REPS, k11_launches
+    # the redesigned K11d: one launch and one host read a round
+    k11d_row = next(r for r in tune_rows
+                    if r["kernel"] == "flow_banded_rounds")
+    assert k11d_row["stats"]["design"] == "cluster", k11d_row
+    assert k11d_row["stats"]["launches"] == k11d_row["stats"][
+        "host_reads"] == k11d_row["stats"]["rounds"], k11d_row
     assert k11_launches["jacobi_packed"] == kp.launches(200) + kp.launches(
         50) == 25 + 7, k11_launches
 
@@ -1972,6 +1988,74 @@ def main() -> int:
                 "K11c": sw, "twin_sweeps": stw["sweeps"],
                 "delta_cells": stw["delta_cells"]}
 
+    def hold_k11d(label, pk, area_, g_, twin=True):
+        """The redesigned K11d (cluster windows, one launch a round,
+        ``flow_tune``'s band 64 and k) against K7 and K8 (and its twin
+        where ``twin``) bit for bit, one launch and one host read a
+        round; then timed in turns with the earlier design (k 16 launches
+        a round) and K7+K8 (CUDA events, one call each after a warm-up).
+        Returns the numbers for the summary line."""
+        band = 64
+        A7 = kf.flow_solve_area_cuda(pk, area_, g_)
+        vis8 = kf.vis_solve_cuda(pk, g_)
+        before = (kx.LAUNCHES_BANDED, kx.LAUNCHES_BANDED_SWEEPS)
+        A, vis, st = kx.flow_solve_banded_rounds(pk, area_, g_, band,
+                                                 kx.BANDED_K)
+        torch.cuda.synchronize()
+        assert st["design"] == "cluster", st
+        assert (kx.LAUNCHES_BANDED - before[0], kx.LAUNCHES_BANDED_SWEEPS
+                - before[1]) == (st["launches"], 0), st
+        assert st["launches"] == st["host_reads"] == st["rounds"], st
+        assert st["cluster_runs"] == st["band_runs"] * st["segments"], st
+        assert torch.equal(A, A7) and torch.equal(vis, vis8), label
+        if twin:
+            tA, tvis, _ = kx.flow_solve_banded_rounds_plain(
+                pk, area_, g_, band, kx.BANDED_K)
+            assert torch.equal(A, tA) and torch.equal(vis, tvis), label
+            del tA, tvis
+        A, vis, so = kx.flow_solve_banded_sweeps_cuda(pk, area_, g_, band,
+                                                      16)
+        torch.cuda.synchronize()
+        assert torch.equal(A, A7) and torch.equal(vis, vis8), label
+        del A, vis, A7, vis8
+
+        def k78():
+            return kf.flow_solve_area_cuda(pk, area_, g_), \
+                kf.vis_solve_cuda(pk, g_)
+
+        def new():
+            return kx.flow_solve_banded_rounds_cuda(pk, area_, g_, band,
+                                                    kx.BANDED_K)
+
+        def old():
+            return kx.flow_solve_banded_sweeps_cuda(pk, area_, g_, band, 16)
+
+        ms = {"K7+K8": [cuda_ms(k78, 1)], "K11d": [cuda_ms(new, 1)],
+              "K11d earlier": [cuda_ms(old, 1)]}
+        ms["K11d"].append(cuda_ms(new, 1))
+        ms["K7+K8"].append(cuda_ms(k78, 1))
+        c = st["block_kcycles"]
+        shares = {n: round(100.0 * v / max(sum(c.values()), 1), 1)
+                  for n, v in c.items()}
+        print(f"  K11d (cluster windows) at {label}: A against K7, vis "
+              f"against K8 bit for bit{' and the twin' if twin else ''}; "
+              f"band {band}, k {kx.BANDED_K}, clusters of {st['cluster']} "
+              f"({st['clusters_at_once']} at once), {st['segments']} "
+              f"segment(s) of {st['seg']} columns; a solve: {st['rounds']} "
+              f"rounds, {st['launches']} launches, {st['host_reads']} host "
+              f"reads, {st['band_runs']} band runs, {st['cluster_runs']} "
+              f"cluster visits, at most {st['max_inner_sweeps']} sweeps a "
+              f"window; the earlier design {so['rounds']} rounds, "
+              f"{so['launches']} launches, {so['host_reads']} host reads; "
+              f"the blocks' cycles (%): {shares}; ms "
+              + json.dumps({k: [round(t, 3) for t in v]
+                            for k, v in ms.items()}) + f" ({card})")
+        return {"ms": {k: min(v) for k, v in ms.items()},
+                "rounds": st["rounds"], "launches": st["launches"],
+                "host_reads": st["host_reads"],
+                "band_runs": st["band_runs"],
+                "earlier_launches": so["launches"]}
+
     new_k11 = {f"{W}x{H}": hold_new_k11(
         f"{W}x{H}", pk10, of.cell_area_lower_edge(grid, dev), grid)}
     k11b_ms = {f"{W}x{H}": hold_k11b(f"{W}x{H}", pk10, of.cell_area_lower_edge(
@@ -1983,6 +2067,8 @@ def main() -> int:
     new_k11[f"{RAGGED[0]}x{RAGGED[1]}"] = hold_new_k11(
         f"{RAGGED[0]}x{RAGGED[1]}", pk_r, area_r, g_r)
     del pk_r, area_r
+    k11d = {f"{W}x{H}": hold_k11d(f"{W}x{H}", pk10,
+                                  of.cell_area_lower_edge(grid, dev), grid)}
 
     # K11a-d from flow_tune's rows: bit-exact against their twins there
     edges10 = float(sum(((pk10 >> i) & 1).sum() for i in range(8)))
@@ -1991,10 +2077,14 @@ def main() -> int:
                 "flow_solve_fused": "attic/flow_deadends.py:319",
                 "flow_solve_wave_tiles": "attic/flow_deadends.py:804",
                 "flow_solve_wave": "attic/flow_deadends.py:804",
-                "flow_banded_rounds": "tools/flow_rounds.py:24"}
+                "flow_banded_rounds": "tools/flow_rounds.py:24",
+                "flow_banded_sweeps": "tools/flow_rounds.py:24"}
     earlier = {"flow_solve_2d": "K11a's earlier design, the yardstick off "
                                 "every path: an activity pass and k "
                                 "one-sweep launches a round",
+               "flow_banded_sweeps": "K11d's earlier design, the yardstick "
+                                     "off every path: k one-sweep launches "
+                                     "a round",
                "flow_solve_wave": "K11c's earlier design, the yardstick off "
                                   "every path: one launch a sweep of every "
                                   "pixel"}
@@ -2010,6 +2100,14 @@ def main() -> int:
             note += (f"; split A then vis {split_row['ms']:.3f} ms; one "
                      f"call on the same masks {new_ms:.3f} ms, the earlier "
                      f"design {bands_ms:.3f} ms")
+        if name == "flow_banded_rounds":
+            d = k11d[f"{W}x{H}"]
+            note += (f"; a solve {d['launches']} launches and "
+                     f"{d['host_reads']} host reads (the earlier design "
+                     f"{d['earlier_launches']} launches); one call on the "
+                     f"same masks {d['ms']['K11d']:.3f} ms, the earlier "
+                     f"design {d['ms']['K11d earlier']:.3f} ms, K7+K8 "
+                     f"{d['ms']['K7+K8']:.3f} ms")
         if name in earlier:
             note = f"{earlier[name]}; {note}"
         flops = edges10 + N
@@ -2073,8 +2171,13 @@ def main() -> int:
         f"{BIG[0]}x{BIG[1]}", pk_big, area_big, big_grid, earlier={
             "K11a earlier": big_ms["K11a earlier: a launch a sweep, k=16"],
             "K11c earlier": big_ms["K11c earlier: a launch a sweep"]})
+    k11d[f"{BIG[0]}x{BIG[1]}"] = hold_k11d(f"{BIG[0]}x{BIG[1]}", pk_big,
+                                          area_big, big_grid, twin=False)
     print(f"K11 at {BIG[0]}x{BIG[1]} (one call each, CUDA events, {card}): "
           f"{json.dumps(big_ms)}")
+    print(f"K11d on cluster windows (the least ms of each over one-call "
+          f"timings in turns; a solve's rounds, launches, host reads, band "
+          f"runs) a size ({card}): " + json.dumps(k11d))
     print(f"K11b (ms, the earlier design's ms, K7+K8 ms, rounds) a size "
           f"({card}): " + json.dumps({
               k: [round(a, 3), round(b, 3), round(c, 3), st["rounds"]]

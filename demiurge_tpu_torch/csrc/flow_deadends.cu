@@ -4,7 +4,10 @@
 // Replaces:
 //   - K11d  tools/flow_rounds.py main (:24), whose kernel is
 //           demiurge_tpu/pallas_kernels/flow.py _kernel (:83): banded rounds
-//           of k sweeps with 3-bit band flags, read by the host every round;
+//           of k sweeps with 3-bit band flags, read by the host every round.
+//           Here one launch a round, each band's window held in a thread-
+//           block cluster's distributed shared memory (below); the TPU
+//           design's one launch a sweep stays as the yardstick;
 //   - K11a  attic/flow_deadends.py flow_solve_pallas_2d (:115, _kernel2d
 //           :34): 2-D tiles that skip when their 3x3 tile neighbourhood was
 //           quiet last round.  Here in one persistent launch on TMA windows
@@ -27,12 +30,13 @@
 //     vis[p] = vis[p] | OR_i (out_i & vis[neighbour_i])
 // and writes only when its bits change.
 //
-// Why skipping is sound under in-place sweeps (K11d and the earlier K11a
-// and K11b, kept as the yardsticks).  Concurrent blocks see each other's
-// writes within a sweep, so how far a change travels in one sweep is not
-// bounded; the skip rules below do not rely on such a bound.  Let D_t be the cells written in round t and S_{t+1} the
-// cells that round t+1 sweeps.  Each rule puts every cell with a neighbour
-// (or itself) in D_t into S_{t+1}:
+// Why skipping is sound under in-place sweeps (K11d, both designs, and the
+// earlier K11a and K11b, kept as the yardsticks).  Concurrent blocks see
+// each other's writes within a sweep, so how far a change travels in one
+// sweep is not bounded; the skip rules below do not rely on such a bound.
+// Let D_t be the cells written in round t and S_{t+1} the cells that round
+// t+1 sweeps.  Each rule puts every cell with a neighbour (or itself) in
+// D_t into S_{t+1}:
 //   - K11d: band b runs if it changed (bit 0), if band b-1 changed within
 //     k >= 1 rows of its high edge (bit 2) or band b+1 within k rows of its
 //     low edge (bit 1), and a cell's neighbours lie in its own row band or
@@ -52,6 +56,47 @@
 // unique (D8 flow is acyclic), so A equals K7's bit for bit and vis K8's.
 // K11b also stops a round early after a sweep that wrote nothing: every
 // swept cell then holds its value, and the rest of the round is a no-op.
+//
+// K11d on windows: one launch a round, one cluster of C blocks for each
+// (woken band, column segment).  The window is the band's rows and k rows
+// above and below, and the segment's columns and k columns each side
+// (across the dateline where it lies there); where one segment spans the
+// whole width the window is the whole row, and its ends meet inside the
+// cluster.  Block `rank` holds a contiguous slice of the window's columns,
+// and one margin column each side: copies of its neighbours' edge
+// columns, which a write pushes into the neighbour's shared memory
+// (distributed shared memory), so a sweep reads only its own block.  The
+// window runs up to k in-place sweeps, one cluster barrier after each, and
+// stops after a sweep that changed nothing in the window (each block's
+// __syncthreads_or, ORed across the cluster).  The window's outermost row
+// and column are read but never recomputed (rows beyond the grid are not
+// computed either: no mask reads them).  Only the band's own cells that
+// changed go back to device memory, and the flags come from them, as the
+// TPU kernel's do.
+// The skip argument above needs one more step here: a cell of the window
+// is computed from window values that are not the device's (halo cells
+// the window recomputed and never writes back, margins a push has not
+// reached).  Every value the window holds is real: A starts at the area
+// and each write is area + a float32 sum in scan order of other such
+// values, and rounding is monotone, so every value lies between the start
+// and the fixpoint and only grows; vis only turns on.  So a window value
+// is at least what the device held when the round began.  Now take x in
+// band b that the round swept and whose band did not change (bit 0 clear):
+// x was computed at least once (its first sweep) and the result was its
+// loaded value, which is its device value at the round's start, G(x).  By
+// monotony G(x) = f(window values) >= f(G's neighbours) >= G(x), the last
+// since every value is at most f of any later neighbours.  So x satisfies
+// its equation at the round's start; if none of its neighbours changed in
+// the round, which is what a quiet wake says, it satisfies it at the end.
+// The rest of the claim is as above, with "band b changed" meaning a write
+// back: a band whose only changes were halo cells of its window wakes
+// nothing, and needs to, since the owner of those cells computes them
+// itself.  A cell whose band changed runs again next round.  So the last
+// round, which writes nothing, leaves every cell satisfied.
+// tests/test_torch_flow_banded_cluster.py runs this schedule in numpy and
+// shows three mutations stopping short: a window that does not wrap at the
+// dateline, a band woken by its own bit 0 alone, and an outer ring
+// recomputed with its absent neighbours read as 0.
 //
 // K11c is not in place for the wave: delta must be delivered exactly once,
 // so delta lives in ping-pong buffers (Jacobi), A accumulates the new
@@ -183,6 +228,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bands.cuh"
 #include "flow_tiles.cuh"
 
 namespace cg = cooperative_groups;
@@ -242,7 +288,8 @@ __device__ __forceinline__ bool sweep_cell(const int* __restrict__ packed,
 __device__ __forceinline__ int ld(const int* p) { return __ldcg(p); }
 
 // ---------------------------------------------------------------------------
-// K11d: a round of k sweeps over the rows of the bands the host listed.
+// K11d's earlier design, the yardstick: one in-place sweep a launch over
+// the rows of the bands the host listed, one thread a pixel.
 // ---------------------------------------------------------------------------
 
 struct BandList {
@@ -260,6 +307,250 @@ __global__ void banded_sweep_kernel(const int* __restrict__ packed,
       c < W && sweep_cell(packed, area, A, vis, b * band + rl, c, W, kBoth);
   if (__syncthreads_or(changed) && threadIdx.x == 0)
     atomicOr(flags + b, 1 | (rl < k ? 2 : 0) | (rl >= band - k ? 4 : 0));
+}
+
+// ---------------------------------------------------------------------------
+// K11d: a round on windows held in thread-block clusters (the design is in
+// the header).  Cluster y of the grid is segment y % nseg of listed band
+// y / nseg.  A block's shared memory, `sw` window columns of `rows` window
+// rows (sw + 2 with the margins):
+//   tail [2][kMaxCluster] the sweeps' cluster-wide OR, by parity, and one
+//        word of the block's flag bits
+//   A    [rows][sw + 2]  float
+//   area [rows][sw]      float
+//   inc  [rows][sw]      the incoming bits (packed & 0xff)
+//   out  [rows][sw]      the outgoing bits ((packed >> 8) & 0xff)
+//   vis  [rows][sw + 2]  bit 0 vis; bit 1 A changed here, bit 2 vis did
+// flags (zeroed) gets each band's 3 bits at [b], the clusters that ran at
+// [nb], the most sweeps a window ran at [nb + 1] and the blocks' clock
+// cycles / 1024, summed, at [nb + 2 .. nb + 5]: loading the window,
+// sweeping, at the sweeps' cluster barriers, writing back; next_flags,
+// the next round's (kFlagWords more than the bands), is zeroed here.
+// ---------------------------------------------------------------------------
+
+namespace banded {
+
+constexpr int kThreads = 512;
+constexpr int kTail = 4 * (2 * bands::kMaxCluster + 1);
+constexpr int kFlagWords = 6;  // past the bands' flags: see the kernel
+
+// a block's shared bytes: `sw` columns of `rows` window rows
+constexpr size_t smem(int rows, int sw) {
+  return kTail + (size_t)rows * (11 * sw + 10);
+}
+
+__host__ __device__ constexpr int slice(int ww, int c) {
+  return (ww + c - 1) / c;
+}
+
+// a window of `ww` columns on `c` blocks: every block has a column, and
+// a thread for each of its columns, and the slices fit shared memory
+bool window_ok(int rows, int ww, int c) {
+  const int sw = slice(ww, c);
+  return ww - (c - 1) * sw >= 1 && sw <= kThreads &&
+         smem(rows, sw) <= bands::kMaxSmem;
+}
+
+// The plan kernels/flow_deadends.py plan_banded makes, checked: a power-
+// of-two cluster of at most 16 blocks; one segment the whole width, or
+// several of `seg` columns (the last 1 to seg) whose windows do not wrap
+// onto themselves.
+bool accepted(int H, int W, int band, int k, int c, int nseg, int seg) {
+  if (c < 1 || c > bands::kMaxCluster || (c & (c - 1))) return false;
+  if (band < 1 || H < band || H % band || k < 1 || k > band || W < 1 ||
+      nseg < 1)
+    return false;
+  const int rows = band + 2 * k;
+  if (nseg == 1) return seg == W && window_ok(rows, W, c);
+  const int last = W - (nseg - 1) * seg;
+  return last >= 1 && last <= seg && seg + 2 * k <= W &&
+         window_ok(rows, seg + 2 * k, c) && window_ok(rows, last + 2 * k, c);
+}
+
+}  // namespace banded
+
+__global__ void __launch_bounds__(banded::kThreads)
+    banded_cluster_kernel(const int* __restrict__ packed,
+                          const float* __restrict__ area, float* A,
+                          uint8_t* vis, int* flags, int* next_flags, int H,
+                          int W, int band, int k, int nseg, int seg,
+                          BandList list) {
+  extern __shared__ __align__(16) unsigned char win[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int th = threadIdx.x, nb = H / band;
+  const int a = blockIdx.y / nseg, s = blockIdx.y - a * nseg;
+  const int b = list.band[a], r0 = b * band;
+  // one segment is the whole row: the window's ends meet at the dateline
+  const bool wrap = nseg == 1;
+  const int c0 = s * seg, segw = wrap ? W : min(seg, W - c0);
+  const int WH = band + 2 * k, WW = wrap ? W : segw + 2 * k;
+  const int sw = banded::slice(WW, C), stride = sw + 2;
+  const int wx0 = rank * sw, ncols = rank == C - 1 ? WW - wx0 : sw;
+  const int last_cols = WW - (C - 1) * sw;
+  int* const sweep_any = reinterpret_cast<int*>(win);
+  int* const block_bits = sweep_any + 2 * bands::kMaxCluster;
+  float* const sAb = reinterpret_cast<float*>(win + banded::kTail);
+  float* const sArea = sAb + WH * stride;
+  uint8_t* const sInc = reinterpret_cast<uint8_t*>(sArea + WH * sw);
+  uint8_t* const sOut = sInc + WH * sw;
+  uint8_t* const sVb = sOut + WH * sw;
+  volatile float* const sA = sAb;
+  volatile uint8_t* const sV = sVb;
+
+  if (blockIdx.y == 0 && rank == 0)
+    for (int i = th; i < nb + banded::kFlagWords; i += blockDim.x)
+      next_flags[i] = 0;
+  if (th == 0) *block_bits = 0;
+  // where this block's time goes (thread 0's clock): see flags nb + 2 ..
+  long long spent[4] = {0, 0, 0, 0};
+  long long clk = clock64();
+  // the slice and its margins: window column wx0 + j - 1 at local column j
+  const int cols2 = ncols + 2;
+  for (int idx = th; idx < WH * cols2; idx += blockDim.x) {
+    const int wr = idx / cols2, j = idx - wr * cols2;
+    const int gr = r0 - k + wr, wx = wx0 + j - 1;
+    bool in = gr >= 0 && gr < H;
+    int gx;
+    if (wrap) {
+      gx = wx < 0 ? wx + W : (wx >= W ? wx - W : wx);
+    } else {
+      in = in && wx >= 0 && wx < WW;
+      gx = (c0 - k + wx) % W;
+      if (gx < 0) gx += W;
+    }
+    const long g = (long)(in ? gr : 0) * W + gx;
+    sAb[wr * stride + j] = in ? __ldcg(A + g) : 0.0f;
+    sVb[wr * stride + j] = in ? ld_cg(vis + g) : (uint8_t)0;
+    if (j >= 1 && j <= ncols) {
+      const int o = wr * sw + j - 1;
+      const int p = in ? __ldg(packed + g) : 0;
+      sArea[o] = in ? __ldg(area + g) : 0.0f;
+      sInc[o] = (uint8_t)(p & 0xff);
+      sOut[o] = (uint8_t)((p >> 8) & 0xff);
+    }
+  }
+  // every block has loaded (and runs) before any push reaches it
+  cluster.sync();
+  spent[0] = clock64() - clk;
+
+  // this thread's cells: column jcol of the slice, a group of its rows;
+  // the window's outermost row and column, and rows beyond the grid, are
+  // never computed
+  const int G = blockDim.x / sw;
+  const int jcol = th % sw + 1, grp = th / sw, wx = wx0 + jcol - 1;
+  const int rlo = max(1, k - r0), rhi = min(WH - 1, H - r0 + k);
+  const int per = (rhi - rlo + G - 1) / G;
+  const int ra = rlo + grp * per, rb = min(rhi, ra + per);
+  const bool mine = grp < G && jcol <= ncols && ra < rb &&
+                    (wrap || (wx >= 1 && wx < WW - 1));
+  const int west = rank > 0 ? rank - 1 : (wrap ? C - 1 : -1);
+  const int east = rank < C - 1 ? rank + 1 : (wrap ? 0 : -1);
+  const int west_cols = west == C - 1 ? last_cols : sw;
+  const bool push_w = jcol == 1 && west >= 0;
+  const bool push_e = jcol == ncols && east >= 0;
+
+  int sweeps = 0;
+  clk = clock64();
+  for (int it = 0; it < k; ++it) {
+    bool ch = false;
+    if (mine) {
+      for (int q = 0; q < rb - ra; ++q) {
+        const int wr = (it & 1) ? rb - 1 - q : ra + q;  // down, then up
+        const int o = wr * sw + jcol - 1, ctr = wr * stride + jcol;
+        const int m = sInc[o];
+        if (m) {
+          // the eight reads in flight at once, then the sum in scan order
+          float nbv[8];
+#pragma unroll
+          for (int d = 0; d < 8; ++d)
+            nbv[d] = sA[ctr + dyk(d) * stride + dxk(d)];
+          float acc = sArea[o];
+#pragma unroll
+          for (int d = 0; d < 8; ++d)
+            if ((m >> d) & 1) acc = __fadd_rn(acc, nbv[d]);
+          if (__float_as_int(acc) != __float_as_int(sA[ctr])) {
+            sA[ctr] = acc;
+            sV[ctr] = sV[ctr] | 2;
+            ch = true;
+            if (push_w)
+              *cluster.map_shared_rank(sAb + wr * stride + west_cols + 1,
+                                       (unsigned)west) = acc;
+            if (push_e)
+              *cluster.map_shared_rank(sAb + wr * stride, (unsigned)east) =
+                  acc;
+          }
+        }
+        const int ob = sOut[o];
+        const int v = sV[ctr];
+        if (ob && !(v & 1)) {
+          int any = 0;
+#pragma unroll
+          for (int d = 0; d < 8; ++d)
+            any |= ((ob >> d) & 1) & sV[ctr + dyk(d) * stride + dxk(d)];
+          if (any) {
+            sV[ctr] = (uint8_t)(v | 5);
+            ch = true;
+            if (push_w)
+              *cluster.map_shared_rank(sVb + wr * stride + west_cols + 1,
+                                       (unsigned)west) = 1;
+            if (push_e)
+              *cluster.map_shared_rank(sVb + wr * stride, (unsigned)east) =
+                  1;
+          }
+        }
+      }
+    }
+    sweeps = it + 1;
+    {
+      const long long now = clock64();
+      spent[1] += now - clk;
+      clk = now;
+    }
+    // the cluster's OR of its blocks' changes: each block's to every
+    // block, in the slot of this sweep's parity
+    const int any_here = __syncthreads_or(ch);
+    if (th < C)
+      *cluster.map_shared_rank(
+          sweep_any + (it & 1) * bands::kMaxCluster + rank, (unsigned)th) =
+          any_here;
+    cluster.sync();
+    int any = 0;
+    for (int q = 0; q < C; ++q)
+      any |= sweep_any[(it & 1) * bands::kMaxCluster + q];
+    const long long now = clock64();
+    spent[2] += now - clk;
+    clk = now;
+    if (!any) break;  // a quiet sweep: the rest would change nothing
+  }
+  // the band's own cells that changed go back, and their flag bits
+  int bits = 0;
+  if (mine && (wrap || (wx >= k && wx < k + segw))) {
+    const int gx = wrap ? wx : c0 + wx - k;
+    for (int wr = max(ra, k); wr < min(rb, k + band); ++wr) {
+      const int ctr = wr * stride + jcol;
+      const int v = sV[ctr];
+      if (!(v & 6)) continue;
+      const long g = (long)(r0 - k + wr) * W + gx;
+      if (v & 2) __stcg(A + g, sA[ctr]);
+      if (v & 4) vis[g] = 1;
+      const int rl = wr - k;
+      bits |= 1 | (rl < k ? 2 : 0) | (rl >= band - k ? 4 : 0);
+    }
+  }
+  bits = __reduce_or_sync(0xffffffffu, bits);
+  if ((th & 31) == 0 && bits) atomicOr(block_bits, bits);
+  __syncthreads();
+  if (th == 0) {
+    if (*block_bits) atomicOr(flags + b, *block_bits);
+    if (rank == 0) {
+      atomicAdd(flags + nb, 1);
+      atomicMax(flags + nb + 1, sweeps);
+    }
+    spent[3] = clock64() - clk;
+    for (int q = 0; q < 4; ++q)
+      atomicAdd(flags + nb + 2 + q, (int)(spent[q] >> 10));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1182,14 +1473,52 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map,
 
 extern "C" {
 
-// K11d: one round, k in-place sweeps of (A, vis) over the rows of the nact
-// bands listed in `bands` (host memory); flags[b] (zeroed here) gets bit 0
-// if band b changed, bit 1 if within k rows of its low edge, bit 2 of its
-// high edge.
-int demiurge_flow_banded_round(const int* packed, const float* area, float* A,
-                               uint8_t* vis, int* flags, const int* bands,
-                               int nact, int H, int W, int band, int k,
-                               void* stream) {
+// K11d: one round on cluster windows, one launch: the nact bands listed
+// in `bands` (host memory), nseg segments of seg columns each (the plan
+// banded::accepted checks, else cudaErrorInvalidValue); flags (zeroed)
+// gets bit 0 if band b changed, bit 1 if within k rows of its low edge,
+// bit 2 of its high edge, then the clusters that ran, the most sweeps a
+// window ran and the blocks' cycles; next_flags (nb + kFlagWords words) is
+// zeroed for the next round.
+int demiurge_flow_banded_cluster(const int* packed, const float* area,
+                                 float* A, uint8_t* vis, int* flags,
+                                 int* next_flags, const int* bands_host,
+                                 int nact, int H, int W, int band, int k,
+                                 int cluster, int nseg, int seg,
+                                 void* stream) {
+  if (!banded::accepted(H, W, band, k, cluster, nseg, seg) || nact < 1 ||
+      nact > kMaxBands || (long)nact * nseg > 65535)
+    return (int)cudaErrorInvalidValue;
+  BandList list;
+  for (int a = 0; a < nact; ++a) {
+    if (bands_host[a] < 0 || bands_host[a] >= H / band)
+      return (int)cudaErrorInvalidValue;
+    list.band[a] = (unsigned short)bands_host[a];
+  }
+  const int ww = nseg == 1 ? W : seg + 2 * k;
+  const size_t smem =
+      banded::smem(band + 2 * k, banded::slice(ww, cluster));
+  return (int)bands::launch(banded_cluster_kernel, banded::kThreads, cluster,
+                            nact * nseg, smem, (cudaStream_t)stream, packed,
+                            area, A, vis, flags, next_flags, H, W, band, k,
+                            nseg, seg, list);
+}
+
+// K11d: how many clusters of `cluster` blocks, `smem` bytes each, the card
+// holds at once.
+int demiurge_flow_banded_cluster_clusters(int cluster, int smem) {
+  return bands::max_clusters(banded_cluster_kernel, banded::kThreads,
+                             cluster, (size_t)smem);
+}
+
+// K11d's earlier design (the yardstick): one round, k in-place sweeps of
+// (A, vis), one launch each, over the rows of the nact bands listed in
+// `bands` (host memory); flags[b] (zeroed here) gets bit 0 if band b
+// changed, bit 1 if within k rows of its low edge, bit 2 of its high edge.
+int demiurge_flow_banded_sweeps(const int* packed, const float* area,
+                                float* A, uint8_t* vis, int* flags,
+                                const int* bands, int nact, int H, int W,
+                                int band, int k, void* stream) {
   if (nact < 1 || nact > kMaxBands || nact * band > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;

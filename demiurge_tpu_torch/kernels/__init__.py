@@ -30,6 +30,7 @@ def launch_counts() -> dict:
             "flow_solve_wave": flow_deadends.LAUNCHES_WAVE,
             "flow_solve_wave_tiles": flow_deadends.LAUNCHES_WAVE_TILES,
             "flow_banded_rounds": flow_deadends.LAUNCHES_BANDED,
+            "flow_banded_sweeps": flow_deadends.LAUNCHES_BANDED_SWEEPS,
             "jacobi_packed": jacobi_packed.LAUNCHES,
             "jacobi_packed_sweeps": jacobi_packed.LAUNCHES_SWEEPS,
             "advect_stage": advect.LAUNCHES_STAGE,

@@ -75,8 +75,13 @@ SIGNATURES = {
     # packed E, band, flags stats, H W ty tx first n, stream
     "demiurge_flow_exit_tiles": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 6
     + [_P],
+    # packed area A vis flags next_flags bands(host), nact H W band k
+    # cluster nseg seg, stream
+    "demiurge_flow_banded_cluster": [_P] * 7 + [_I] * 8 + [_P],
+    # cluster smem -> clusters the card holds at once
+    "demiurge_flow_banded_cluster_clusters": [_I] * 2,
     # packed area A vis flags bands(host), nact H W band k, stream
-    "demiurge_flow_banded_round": [_P] * 6 + [_I] * 5 + [_P],
+    "demiurge_flow_banded_sweeps": [_P] * 6 + [_I] * 5 + [_P],
     # packed area A vis prev cur act, H W ty tx k, stream
     "demiurge_flow_tiles_round": [_P] * 7 + [_I] * 5 + [_P],
     # packed d0 d1 A vis flags, H W first n, stream

@@ -11,7 +11,13 @@ the card:
 - ``flow_solve_banded_rounds`` (K11d): rounds of k sweeps over the row
   bands the last round's 3-bit flags wake (bit 0 changed, bit 1 changed
   within k rows of the low edge, bit 2 of the high edge); the host reads
-  the flags every round and launches the sweeps on the woken bands only;
+  the flags every round.  On the card one launch a round: each woken
+  band's window (its rows, k halo rows each side, a column segment and k
+  halo columns each side) held in a thread-block cluster's distributed
+  shared memory, up to k in-place sweeps there (``plan_banded`` picks the
+  segments); ``flow_solve_banded_sweeps_cuda`` is the earlier design, k
+  one-sweep launches a round, kept as the yardstick and run where no plan
+  fits;
 - ``flow_solve_2d`` (K11a): rounds of k sweeps on 2-D tiles that run when
   a tile of their 3x3 tile neighbourhood changed last round (x wraps, y
   clips).  The twin keeps the reference's tiles and Jacobi sweeps; the
@@ -45,14 +51,16 @@ fixpoint is unique; ``csrc/flow_deadends.cu`` gives the argument that the
 skip rules keep it) but for the wave, whose A adds arrivals in hop order.
 Each wrapper launches the CUDA kernel for CUDA tensors and runs its plain
 twin (Jacobi sweeps under the same rules) for CPU tensors.  The
-``LAUNCHES_*`` counters count kernel launches: one a sweep for K11d, one a
-solve for K11a, b and c (``LAUNCHES_2D``, ``LAUNCHES_WAVE`` and
-``LAUNCHES_FUSED_BANDS`` count the earlier designs, the yardsticks: one a
-sweep and one activity pass a round, one a sweep, one a solve; 0 on every
-other path).
+``LAUNCHES_*`` counters count kernel launches: one a round for K11d, one a
+solve for K11a, b and c (``LAUNCHES_BANDED_SWEEPS``, ``LAUNCHES_2D``,
+``LAUNCHES_WAVE`` and ``LAUNCHES_FUSED_BANDS`` count the earlier designs,
+the yardsticks: one a sweep, one a sweep and one activity pass a round,
+one a sweep, one a solve; 0 on every other path).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -64,6 +72,7 @@ from . import flow as kf
 from .flow2 import pick_band
 
 LAUNCHES_BANDED = 0
+LAUNCHES_BANDED_SWEEPS = 0
 LAUNCHES_2D = 0
 LAUNCHES_2D_TMA = 0
 LAUNCHES_FUSED = 0
@@ -72,7 +81,7 @@ LAUNCHES_WAVE = 0
 LAUNCHES_WAVE_TILES = 0
 
 MODES = ("both", "A", "vis")
-MAX_BANDS = 1024  # the banded kernel's by-value band list
+MAX_BANDS = 1024  # the banded kernels' by-value band list
 # on the card, K11a's in-place sweeps a visit and K11c's sweeps a round
 # (PERF.md has the race)
 TMA_K, WAVE_K = 8, 8
@@ -186,9 +195,71 @@ def band_flags(changed, band: int, k: int) -> list:
     return flags.tolist()
 
 
-def _banded_stats(hist, k: int, launched: int) -> dict:
+def _banded_stats(hist, k: int, launched: int, host_reads: int) -> dict:
     return {"rounds": len(hist), "sweeps": len(hist) * k,
-            "launches": launched, "active": hist, "band_runs": sum(hist)}
+            "launches": launched, "active": hist, "band_runs": sum(hist),
+            "host_reads": host_reads}
+
+
+# on the card: a cluster's blocks, and the sweeps a round of flow_tune's
+# K11d row (PERF.md has the race)
+CLUSTER, BANDED_K = 16, 16
+SMEM_BYTES = 232448  # the shared memory a block may ask for (227 KB)
+BAND_THREADS = 512   # the cluster kernel's block: a thread a window column
+_SMEM_TAIL = 4 * (2 * 16 + 1)  # the sweeps' cluster flags, a block's bits
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedPlan:
+    """A round's geometry on the card: each woken band is ``segments``
+    clusters of ``CLUSTER`` blocks, one a column segment of ``seg``
+    columns (the last may be narrower; one segment is the whole row).  A
+    window holds the band's rows, k rows each side, the segment's columns
+    and k columns each side (none where one segment is the row: its ends
+    meet), cut into ``CLUSTER`` contiguous slices."""
+
+    segments: int
+    seg: int
+
+    def windows(self, W: int, k: int) -> list:
+        """The window widths: the full segments' and the last's."""
+        if self.segments == 1:
+            return [W]
+        last = W - (self.segments - 1) * self.seg
+        return [self.seg + 2 * k, last + 2 * k]
+
+    @staticmethod
+    def slices(ww: int) -> tuple:
+        """(columns a block, the last block's) of a window of ``ww``."""
+        sw = -(-ww // CLUSTER)
+        return sw, ww - (CLUSTER - 1) * sw
+
+
+def banded_smem(rows: int, sw: int) -> int:
+    """A block's shared bytes: ``sw`` columns of ``rows`` window rows (A
+    and vis with a margin column each side, the area, the in and out
+    bits), and the flags' tail."""
+    return _SMEM_TAIL + rows * (11 * sw + 10)
+
+
+def plan_banded(H: int, W: int, band: int, k: int):
+    """The fewest segments a band whose windows fit: every block of a
+    window holds a column (and at most ``BAND_THREADS``) in
+    ``SMEM_BYTES``, and a window of several segments does not wrap onto
+    itself (segment + 2k <= W).  None where no plan fits.  ``csrc/
+    flow_deadends.cu`` (``banded::accepted``) checks the same rules."""
+    _check_band(H, band, k)
+    rows = band + 2 * k
+    for n in range(1, W + 1):
+        seg = -(-W // n)
+        if n > 1 and (W - (n - 1) * seg < 1 or seg + 2 * k > W):
+            continue
+        plan = BandedPlan(n, seg)
+        if all(last >= 1 and sw <= BAND_THREADS
+               and banded_smem(rows, sw) <= SMEM_BYTES
+               for sw, last in map(plan.slices, plan.windows(W, k))):
+            return plan
+    return None
 
 
 def flow_solve_banded_rounds_plain(packed, area, grid: Grid, band: int = 64,
@@ -205,7 +276,7 @@ def flow_solve_banded_rounds_plain(packed, area, grid: Grid, band: int = 64,
     while True:
         act = active_bands(flags)
         if not act:
-            return A, vis, _banded_stats(hist, k, 0)
+            return A, vis, _banded_stats(hist, k, 0, len(hist))
         if len(hist) >= _max_sweeps(grid):
             raise RuntimeError("banded rounds: no fixpoint (the flow graph "
                                "has a cycle)")
@@ -220,26 +291,117 @@ def flow_solve_banded_rounds_plain(packed, area, grid: Grid, band: int = 64,
         hist.append(len(act))
 
 
-def flow_solve_banded_rounds_cuda(packed, area, grid: Grid, band: int = 64,
-                                  k: int = 16):
-    """K11d on the card: the host reads the band flags once a round and
-    launches k in-place sweeps over the woken bands' rows."""
-    global LAUNCHES_BANDED
+def _check_banded_cuda(packed, area, grid: Grid, band: int, k: int):
     _check_cuda(packed, area, grid)
-    H, W = grid.shape
+    H = grid.height
     _check_band(H, band, k)
     if H // band > MAX_BANDS:
         raise ValueError(f"{H // band} bands, at most {MAX_BANDS}")
+
+
+def _rounds_cap(grid: Grid, max_rounds) -> int:
+    cap = _max_sweeps(grid) if max_rounds is None else max_rounds
+    if cap < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {cap}")
+    return cap
+
+
+def flow_solve_banded_rounds_cuda(packed, area, grid: Grid, band: int = 64,
+                                  k: int = 16, *, max_rounds=None):
+    """K11d on the card, redesigned: one launch a round.  Each woken band
+    is ``plan_banded``'s segments, a cluster of ``CLUSTER`` blocks each,
+    whose window (the band's rows and k each side, the segment's columns
+    and k each side) lives in the blocks' shared memory; up to k in-place
+    sweeps there, a cluster barrier after each, stopping after a quiet
+    one; the band's own cells that changed go back with its 3-bit flags.
+    The host reads the flags once a round (with the clusters that ran, the
+    most sweeps a window ran and the blocks' clock cycles).  Raises where
+    no plan fits (the public entry then takes the earlier design) and when
+    ``max_rounds`` (default: the longest path an acyclic graph on the grid
+    can hold) is reached.  Stats: the twin's (rounds, sweeps = rounds * k,
+    launches, active, band_runs, host_reads) and cluster_runs,
+    max_inner_sweeps, the plan (segments, seg), clusters_at_once
+    (as the card reports it), design "cluster", and block_kcycles: the
+    blocks' clock cycles / 1024, summed, loading windows, sweeping, at the
+    sweeps' cluster barriers and writing back."""
+    global LAUNCHES_BANDED
+    _check_banded_cuda(packed, area, grid, band, k)
+    H, W = grid.shape
+    plan = plan_banded(H, W, band, k)
+    if plan is None:
+        raise ValueError(f"no cluster plan takes band {band}, k {k} at "
+                         f"{W}x{H} in {CLUSTER}-block clusters")
+    cap = _rounds_cap(grid, max_rounds)
+    from . import build
+
+    from .bands import card_clusters
+
+    nb = H // band
+    A, vis = area.clone(), _mouths_u8(packed)
+    # two rounds' flags, each nb band words, the clusters run, the most
+    # sweeps and 4 words of cycles: a round writes one and zeroes the other
+    dflags = torch.zeros((2, nb + 6), dtype=torch.int32, device=A.device)
+    fn = build.library().demiurge_flow_banded_cluster
+    flags, hist, launched, runs, most = [7] * nb, [], 0, 0, 0
+    kcycles = [0] * 4
+    while True:
+        act = active_bands(flags)
+        if not act:
+            sw = plan.slices(plan.windows(W, k)[0])[0]
+            stats = _banded_stats(hist, k, launched, launched)
+            stats.update(cluster_runs=runs, max_inner_sweeps=most,
+                         cluster=CLUSTER, segments=plan.segments,
+                         seg=plan.seg, clusters_at_once=card_clusters(
+                             "demiurge_flow_banded_cluster_clusters",
+                             CLUSTER, banded_smem(band + 2 * k, sw)),
+                         design="cluster", block_kcycles=dict(zip(
+                             ("load", "sweep", "sync", "write"), kcycles)))
+            return A, vis.bool(), stats
+        t = len(hist)
+        if t >= cap:
+            raise RuntimeError(f"banded rounds: no fixpoint after {t} "
+                               f"rounds (the round limit; a flow graph "
+                               f"with a cycle never certifies)")
+        bands = np.asarray(act, np.int32)
+        build.check(fn(packed.data_ptr(), area.data_ptr(), A.data_ptr(),
+                       vis.data_ptr(), dflags[t & 1].data_ptr(),
+                       dflags[(t + 1) & 1].data_ptr(), bands.ctypes.data,
+                       len(act), H, W, band, k, CLUSTER,
+                       plan.segments, plan.seg, _stream(A)),
+                    "demiurge_flow_banded_cluster")
+        LAUNCHES_BANDED += 1
+        launched += 1
+        row = dflags[t & 1].tolist()  # the round's one host read
+        flags, ran = row[:nb], row[nb]
+        if ran != len(act) * plan.segments:
+            raise RuntimeError(f"banded rounds: {ran} clusters ran, "
+                               f"{len(act) * plan.segments} launched")
+        runs += ran
+        most = max(most, row[nb + 1])
+        kcycles = [a + b for a, b in zip(kcycles, row[nb + 2:])]
+        hist.append(len(act))
+
+
+def flow_solve_banded_sweeps_cuda(packed, area, grid: Grid, band: int = 64,
+                                  k: int = 16):
+    """The earlier K11d on the card, the yardstick: the host reads the
+    band flags once a round and launches k in-place one-sweep kernels over
+    the woken bands' rows.  Stats as the twin's, design "sweeps"."""
+    global LAUNCHES_BANDED_SWEEPS
+    _check_banded_cuda(packed, area, grid, band, k)
+    H, W = grid.shape
     from . import build
 
     A, vis = area.clone(), _mouths_u8(packed)
     dflags = torch.empty(H // band, dtype=torch.int32, device=A.device)
-    fn = build.library().demiurge_flow_banded_round
+    fn = build.library().demiurge_flow_banded_sweeps
     flags, hist, launched = [7] * (H // band), [], 0
     while True:
         act = active_bands(flags)
         if not act:
-            return A, vis.bool(), _banded_stats(hist, k, launched)
+            stats = _banded_stats(hist, k, launched, len(hist))
+            stats["design"] = "sweeps"
+            return A, vis.bool(), stats
         if len(hist) >= _max_sweeps(grid):
             raise RuntimeError("banded rounds: no fixpoint (the flow graph "
                                "has a cycle)")
@@ -247,8 +409,8 @@ def flow_solve_banded_rounds_cuda(packed, area, grid: Grid, band: int = 64,
         build.check(fn(packed.data_ptr(), area.data_ptr(), A.data_ptr(),
                        vis.data_ptr(), dflags.data_ptr(), bands.ctypes.data,
                        len(act), H, W, band, k, _stream(A)),
-                    "demiurge_flow_banded_round")
-        LAUNCHES_BANDED += k
+                    "demiurge_flow_banded_sweeps")
+        LAUNCHES_BANDED_SWEEPS += k
         launched += k
         flags = dflags.tolist()  # the round's one host read
         hist.append(len(act))
@@ -257,10 +419,17 @@ def flow_solve_banded_rounds_cuda(packed, area, grid: Grid, band: int = 64,
 def flow_solve_banded_rounds(packed, area, grid: Grid, band: int = 64,
                              k: int = 16):
     """The CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
-    Returns (A, vis, stats): rounds, sweeps (rounds * k), launches, the
-    active bands of each round and their sum."""
+    On the card the cluster windows where ``plan_banded`` finds a plan,
+    else the earlier design, k one-sweep launches a round (stats'
+    ``design`` says which).  Returns (A, vis, stats): rounds, sweeps
+    (rounds * k), launches, the active bands of each round and their
+    sum, host reads."""
     if use_cuda_kernels(packed, area):
-        return flow_solve_banded_rounds_cuda(packed, area, grid, band, k)
+        H, W = grid.shape
+        _check_band(H, band, k)
+        if plan_banded(H, W, band, k) is not None:
+            return flow_solve_banded_rounds_cuda(packed, area, grid, band, k)
+        return flow_solve_banded_sweeps_cuda(packed, area, grid, band, k)
     return flow_solve_banded_rounds_plain(packed, area, grid, band, k)
 
 
@@ -386,9 +555,7 @@ def flow_solve_2d_tma_cuda(packed, area, grid: Grid, k: int = TMA_K, *,
         raise ValueError(f"K11a's tensor maps need W a multiple of 16 (a "
                          f"row of vis in whole 16-byte units) and k >= 1, "
                          f"got W {grid.width}, k {k}")
-    rounds_cap = _max_sweeps(grid) if max_rounds is None else max_rounds
-    if rounds_cap < 1:
-        raise ValueError(f"max_rounds must be >= 1, got {rounds_cap}")
+    rounds_cap = _rounds_cap(grid, max_rounds)
     H, W = grid.shape
     ty, tx = kf.TILE
     ne = 2 * -(-H // ty) * -(-W // tx)
@@ -533,9 +700,7 @@ def flow_solve_fused_cuda(packed, area, grid: Grid, k: int = 16,
     global LAUNCHES_FUSED
     _check_cuda(packed, area, grid)
     _check_fused(grid, k, band, narrow, mode)
-    rounds_cap = _max_sweeps(grid) if max_rounds is None else max_rounds
-    if rounds_cap < 1:
-        raise ValueError(f"max_rounds must be >= 1, got {rounds_cap}")
+    rounds_cap = _rounds_cap(grid, max_rounds)
     H, W = grid.shape
     ty, tx = kf.TILE
     # entries: (field, tile) pairs, A's and in mode "both" vis's
@@ -718,9 +883,7 @@ def flow_solve_wave_tiles_cuda(packed, area, grid: Grid, k: int = WAVE_K, *,
     global LAUNCHES_WAVE_TILES
     _check_cuda(packed, area, grid)
     check_wave_tiles(grid, k)
-    rounds_cap = _max_sweeps(grid) if max_rounds is None else max_rounds
-    if rounds_cap < 1:
-        raise ValueError(f"max_rounds must be >= 1, got {rounds_cap}")
+    rounds_cap = _rounds_cap(grid, max_rounds)
     H, W = grid.shape
     ty, tx = kf.TILE
     ntw = -(-H // ty) * -(-W // tx)

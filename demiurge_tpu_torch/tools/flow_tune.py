@@ -1,7 +1,7 @@
 """Race the flow solvers on an evolved state and check each against K7/K8.
 
     python -m demiurge_tpu_torch.tools.flow_tune [W H] [--device D]
-    python -m demiurge_tpu_torch.tools.flow_tune [W H] --kernel 2d|wave
+    python -m demiurge_tpu_torch.tools.flow_tune [W H] --kernel 2d|wave|banded
 
 Defaults 2048 1024, on ``cuda``.  Evolves the reference tool's terrain
 (fBm, 6 octaves, seed 7) by 10 ``coupled_step``s at ``CoupledConfig()``
@@ -10,7 +10,9 @@ and solves the (A, vis) fixpoint with: the production pair (K7's A and
 K8's vis), the 2-D tiles (K11a: the TMA design, and the earlier one
 launch a sweep), the one-launch fused solve in mode "both" and split into
 "A" then "vis" (K11b), the delta wave (K11c: blocked in time on tiles,
-and the earlier one launch a sweep) and the banded rounds (K11d).  Each is
+and the earlier one launch a sweep) and the banded rounds (K11d: windows
+in thread-block clusters, one launch a round, and the earlier one launch
+a sweep).  Each is
 checked on its first call, then timed over ``REPS`` more, with CUDA
 events on the card (the host clock on the CPU), and prints ``ok`` only
 when its A equals K7's bit for bit (the wave's, which adds in another
@@ -19,8 +21,10 @@ every row runs the twins.  Nothing is caught: a mismatch exits 1, a
 failure raises.
 
 ``--kernel 2d`` races the TMA design's sweeps a visit (4, 8, 16),
-``--kernel wave`` the wave's sweeps a round (4, 8, 16): a row each, bit
-for bit against the default, K7+K8 timed first and last.  Card only.
+``--kernel wave`` the wave's sweeps a round (4, 8, 16), ``--kernel
+banded`` the cluster windows' sweeps a round (4, 8, 16), band 64: a row
+each, bit for bit against the default, K7+K8 (and for ``banded`` the
+earlier one launch a sweep, k 16) timed first and last.  Card only.
 
 ``run`` is the tool less its argument parsing; ``chip_smoke.py`` calls it
 with ``twins=True``, which also holds each solver to its plain twin.
@@ -49,7 +53,8 @@ COUNTERS = ((kf, "LAUNCHES_A", "flow_solve"), (kf, "LAUNCHES_VIS", "flow_vis"),
             (kd, "LAUNCHES_FUSED", "flow_solve_fused"),
             (kd, "LAUNCHES_WAVE_TILES", "flow_solve_wave_tiles"),
             (kd, "LAUNCHES_WAVE", "flow_solve_wave"),
-            (kd, "LAUNCHES_BANDED", "flow_banded_rounds"))
+            (kd, "LAUNCHES_BANDED", "flow_banded_rounds"),
+            (kd, "LAUNCHES_BANDED_SWEEPS", "flow_banded_sweeps"))
 
 
 def _timed(fn, on_card: bool, reps: int = 1):
@@ -87,16 +92,17 @@ def solvers(packed, area, grid: Grid):
     the production pair), ``twin`` is the same solve on the plain twins
     (None for the production pair, whose twins phase 5 of the smoke
     checks), and ``exact`` says whether A must equal K7's bit for bit."""
-    H = grid.height
+    H, W = grid.shape
     band = 64 if H % 64 == 0 else kd.pick_band(H)
     on_card = use_cuda_kernels(area)
     tiles_take = kd.wave_tiles_take(grid)
+    cluster_plan = kd.plan_banded(H, W, band, kd.BANDED_K) is not None
 
     def call(fn, *args):
         return lambda: fn(packed, area, grid, *args)
 
-    def earlier(cuda, plain):  # an earlier design: its twin on the CPU
-        return call(cuda if on_card else plain)
+    def earlier(cuda, plain, *args):  # an earlier design: its twin on the
+        return call(cuda if on_card else plain, *args)  # CPU
 
     def split(fused):
         def solve():
@@ -129,8 +135,17 @@ def solvers(packed, area, grid: Grid):
         ("K11c earlier: a launch a sweep", "flow_solve_wave",
          earlier(kd.flow_solve_wave_cuda, kd.flow_solve_wave_plain),
          call(kd.flow_solve_wave_plain), False),
-        (f"K11d banded rounds band={band} k=16", "flow_banded_rounds",
-         call(kd.flow_solve_banded_rounds, band, 16),
+        # (the public entry runs the earlier design where no cluster plan
+        # fits)
+        (f"K11d cluster rounds band={band} k={kd.BANDED_K}" if cluster_plan
+         else f"K11d (no cluster plan): a launch a sweep, k={kd.BANDED_K}",
+         "flow_banded_rounds" if cluster_plan else "flow_banded_sweeps",
+         call(kd.flow_solve_banded_rounds, band, kd.BANDED_K),
+         call(kd.flow_solve_banded_rounds_plain, band, kd.BANDED_K), True),
+        ("K11d earlier: a launch a sweep, k=16",
+         "flow_banded_sweeps",
+         earlier(kd.flow_solve_banded_sweeps_cuda,
+                 kd.flow_solve_banded_rounds_plain, band, 16),
          call(kd.flow_solve_banded_rounds_plain, band, 16), True),
     ]
 
@@ -177,11 +192,14 @@ def race(packed, area, grid: Grid, twins: bool = False):
     return rows, all_ok
 
 
+RACE_BAND = 64  # ``--kernel banded``'s band (the reference tool's)
+
+
 def variants(kernel: str):
     """[(label, keyword arguments)] of ``--kernel``'s race, the default
     first."""
-    name, first = {"2d": ("K11a", kd.TMA_K), "wave": ("K11c", kd.WAVE_K)}[
-        kernel]
+    name, first = {"2d": ("K11a", kd.TMA_K), "wave": ("K11c", kd.WAVE_K),
+                   "banded": ("K11d", kd.BANDED_K)}[kernel]
     return [(f"{name} k={k}", {"k": k})
             for k in [first] + [k for k in (4, 8, 16) if k != first]]
 
@@ -189,16 +207,30 @@ def variants(kernel: str):
 def race_variants(packed, area, grid: Grid, kernel: str):
     """Each of ``variants(kernel)``, held bit for bit to the default's A
     and vis and timed (``REPS`` calls, CUDA events), between two timings
-    of K7+K8.  Returns the rows ({label, ms, stats})."""
+    of K7+K8 (and, for ``banded``, of the earlier design).  Returns the
+    rows ({label, ms, stats}) and the yardsticks' times."""
+    def banded(packed, area, grid, **kw):
+        return kd.flow_solve_banded_rounds_cuda(packed, area, grid,
+                                                RACE_BAND, **kw)
+
     solve = {"2d": kd.flow_solve_2d_tma_cuda,
-             "wave": kd.flow_solve_wave_tiles_cuda}[kernel]
+             "wave": kd.flow_solve_wave_tiles_cuda, "banded": banded}[kernel]
 
     def production():
         return kf.flow_solve_area(packed, area, grid), \
             kf.vis_solve(packed, grid)
 
-    _, k78 = _timed(production, True, REPS)
-    print(f"{'K7+K8':40s} {k78:10.3f} ms", flush=True)
+    def sweeps():
+        return kd.flow_solve_banded_sweeps_cuda(packed, area, grid,
+                                                RACE_BAND, 16)
+
+    yards = {"K7+K8": production}
+    if kernel == "banded":
+        yards["K11d earlier: a launch a sweep, k=16"] = sweeps
+    times = {}
+    for label, fn in yards.items():
+        times[label] = [_timed(fn, True, REPS)[1]]
+        print(f"{label:40s} {times[label][0]:10.3f} ms", flush=True)
     rows, want = [], None
     for label, kw in variants(kernel):
         A, vis, stats = solve(packed, area, grid, **kw)
@@ -206,12 +238,14 @@ def race_variants(packed, area, grid: Grid, kernel: str):
             want = (A, vis)
         ok = torch.equal(A, want[0]) and torch.equal(vis, want[1])
         _, ms = _timed(lambda: solve(packed, area, grid, **kw), True, REPS)
+        stats = {k: v for k, v in stats.items() if k != "active"}
         print(f"{label:40s} {ms:10.3f} ms  "
               f"{'bit-exact' if ok else 'DIFFERS'}  {stats}", flush=True)
         rows.append({"label": label, "ms": ms, "ok": ok, "stats": stats})
-    _, k78b = _timed(production, True, REPS)
-    print(f"{'K7+K8':40s} {k78b:10.3f} ms", flush=True)
-    return rows, [k78, k78b]
+    for label, fn in reversed(yards.items()):
+        times[label].append(_timed(fn, True, REPS)[1])
+        print(f"{label:40s} {times[label][1]:10.3f} ms", flush=True)
+    return rows, times
 
 
 def run(W: int, H: int, device, twins: bool = False):
@@ -237,7 +271,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("size", nargs="*", type=int, metavar="W H")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--kernel", choices=("2d", "wave"))
+    p.add_argument("--kernel", choices=("2d", "wave", "banded"))
     args = p.parse_args(argv)
     if len(args.size) > 2:
         p.error("at most two numbers: W H")

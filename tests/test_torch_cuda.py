@@ -896,6 +896,10 @@ def _deadend_solvers():
             p, a, g, band=16, k=8), lambda p, a, g:
             kd.flow_solve_banded_rounds_plain(p, a, g, band=16, k=8),
             "LAUNCHES_BANDED"),
+        "banded-sweeps": (lambda p, a, g: kd.flow_solve_banded_sweeps_cuda(
+            p, a, g, band=16, k=8), lambda p, a, g:
+            kd.flow_solve_banded_rounds_plain(p, a, g, band=16, k=8),
+            "LAUNCHES_BANDED_SWEEPS"),
         "tiles": (lambda p, a, g: kd.flow_solve_2d_cuda(p, a, g, k=8),
                   lambda p, a, g: kd.flow_solve_2d_plain(p, a, g, k=8),
                   "LAUNCHES_2D"),
@@ -915,14 +919,17 @@ def _deadend_solvers():
     }
 
 
-@pytest.mark.parametrize("name", ["banded", "tiles", "fused-both", "fused-A",
-                                  "fused-vis", "fused-bands", "wave"])
+@pytest.mark.parametrize("name", ["banded", "banded-sweeps", "tiles",
+                                  "fused-both", "fused-A", "fused-vis",
+                                  "fused-bands", "wave"])
 def test_deadend_flow_kernels_equal_plain_twins(dev, name):
     """A bit for bit and vis exactly against the twin; A bit for bit
     against K7 (the wave within rtol 1e-5, atol 1e-7: it adds arrivals in
     hop order) and vis against K8.  The fused solve (K11b) is one launch
     and one host read; "fused-bands" is its earlier design, the
-    yardstick."""
+    yardstick.  The banded rounds (K11d) on cluster windows are one launch
+    and one host read a round; "banded-sweeps" is their earlier design, k
+    launches a round."""
     from demiurge_tpu_torch.kernels import flow as kf
     from demiurge_tpu_torch.kernels import flow_deadends as kd
 
@@ -946,6 +953,12 @@ def test_deadend_flow_kernels_equal_plain_twins(dev, name):
         assert launched == stats["host_reads"] == 1
     if name == "tiles":  # the activity pass and k = 8 sweeps a round
         assert stats["launches"] == 9 * stats["rounds"]
+    if name == "banded":
+        assert launched == stats["host_reads"] == stats["rounds"]
+        assert stats["cluster_runs"] == stats["band_runs"] * stats[
+            "segments"] and stats["design"] == "cluster"
+    if name == "banded-sweeps":
+        assert launched == 8 * stats["rounds"] == 8 * stats["host_reads"]
     assert torch.equal(A, wA) and torch.equal(vis, wvis)
     A7 = kf.flow_solve_area_cuda(packed, area, grid)
     vis8 = kf.vis_solve_cuda(packed, grid)
@@ -956,6 +969,92 @@ def test_deadend_flow_kernels_equal_plain_twins(dev, name):
     else:
         assert torch.equal(A, A7)
     assert torch.equal(vis, mouth if name == "fused-A" else vis8)
+
+
+# K11d on cluster windows (tests/test_torch_flow_banded_cluster.py runs the
+# schedule on the CPU): three segments a band, the last narrower, at W 8192;
+# two at W 4096; a river over the dateline and across band edges
+BANDED_CASES = {"8192x256": (8192, 256, 64, 16),
+                "4096x256": (4096, 256, 64, 16),
+                "serpentine": (1024, 200, 8, 8)}
+
+
+@pytest.mark.parametrize("case", list(BANDED_CASES))
+def test_banded_cluster_equals_twin_and_k7_k8(dev, case):
+    """K11d's cluster windows: A bit for bit with the twin and K7, vis
+    equal to the twin's and K8's; one launch and one host read a round,
+    every (band, segment) cluster run."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+    from demiurge_tpu_torch.tools import serpentine
+
+    W, H, band, k = BANDED_CASES[case]
+    if case == "serpentine":
+        grid = Grid(W, H)
+        packed, area = serpentine(grid, dev, 1000, 48, 150)
+    else:
+        grid, _, _, area, packed = _flow_inputs(W, H, dev)
+    plan = kd.plan_banded(H, W, band, k)
+    assert plan.segments == {"8192x256": 3, "4096x256": 2,
+                             "serpentine": 1}[case]
+    before = kd.LAUNCHES_BANDED
+    A, vis, st = kd.flow_solve_banded_rounds_cuda(packed, area, grid, band,
+                                                  k)
+    wA, wvis, wst = kd.flow_solve_banded_rounds_plain(packed, area, grid,
+                                                      band, k)
+    A7 = kf.flow_solve_area_cuda(packed, area, grid)
+    vis8 = kf.vis_solve_cuda(packed, grid)
+    torch.cuda.synchronize()
+    assert kd.LAUNCHES_BANDED - before == st["launches"] == st["rounds"]
+    assert st["host_reads"] == st["rounds"] >= 2
+    assert st["cluster_runs"] == st["band_runs"] * plan.segments
+    assert (st["cluster"], st["segments"], st["seg"]) == (
+        kd.CLUSTER, plan.segments, plan.seg)
+    assert 1 <= st["max_inner_sweeps"] <= k
+    assert torch.equal(A, wA) and torch.equal(vis, wvis)
+    assert torch.equal(A, A7) and torch.equal(vis, vis8)
+    assert torch.equal(wA, A7) and wst["rounds"] >= 1
+
+
+def test_banded_cluster_raises_and_takes_the_earlier_design_where_no_plan(
+        dev, monkeypatch):
+    """A solve that has not certified by ``max_rounds`` (1: the river
+    needs more) raises after that many launches; a plan the
+    entry point does not accept is refused and the wrapper raises,
+    counting nothing; where no plan fits (band 256, k 256 at 1024x256)
+    the cluster entry raises and the public entry runs the earlier design,
+    bit for bit with K7 and K8."""
+    from demiurge_tpu_torch.kernels import flow as kf
+    from demiurge_tpu_torch.kernels import flow_deadends as kd
+    from demiurge_tpu_torch.tools import serpentine
+
+    grid = Grid(1024, 200)
+    packed, area = serpentine(grid, dev, 1000, 48, 150)
+    _, _, st = kd.flow_solve_banded_rounds_cuda(packed, area, grid, 8, 8)
+    assert st["rounds"] >= 2
+    before = kd.LAUNCHES_BANDED
+    with pytest.raises(RuntimeError, match="no fixpoint after 1 rounds"):
+        kd.flow_solve_banded_rounds_cuda(packed, area, grid, 8, 8,
+                                         max_rounds=1)
+    assert kd.LAUNCHES_BANDED == before + 1
+    with monkeypatch.context() as m:  # segments past the row's end
+        m.setattr(kd, "plan_banded",
+                  lambda *a, **kw: kd.BandedPlan(3, 1024))
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kd.flow_solve_banded_rounds_cuda(packed, area, grid, 8, 8)
+    assert kd.LAUNCHES_BANDED == before + 1
+
+    grid, _, _, area, packed = _flow_inputs(1024, 256, dev)
+    assert kd.plan_banded(256, 1024, 256, 256) is None
+    with pytest.raises(ValueError, match="no cluster plan"):
+        kd.flow_solve_banded_rounds_cuda(packed, area, grid, 256, 256)
+    before = (kd.LAUNCHES_BANDED, kd.LAUNCHES_BANDED_SWEEPS)
+    A, vis, st = kd.flow_solve_banded_rounds(packed, area, grid, 256, 256)
+    torch.cuda.synchronize()
+    assert st["design"] == "sweeps" and kd.LAUNCHES_BANDED == before[0]
+    assert kd.LAUNCHES_BANDED_SWEEPS - before[1] == st["launches"] > 0
+    assert torch.equal(A, kf.flow_solve_area_cuda(packed, area, grid))
+    assert torch.equal(vis, kf.vis_solve_cuda(packed, grid))
 
 
 @pytest.mark.parametrize("coords", [GLOBAL, REGIONAL],

@@ -166,7 +166,7 @@ def test_k11_kernel_wrappers_raise_on_cpu_tensors():
     counts = (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
               kx.LAUNCHES_BANDED, kp.LAUNCHES, kx.LAUNCHES_FUSED_BANDS,
               kp.LAUNCHES_SWEEPS, kx.LAUNCHES_2D_TMA,
-              kx.LAUNCHES_WAVE_TILES)
+              kx.LAUNCHES_WAVE_TILES, kx.LAUNCHES_BANDED_SWEEPS)
     for call in (lambda: kx.flow_solve_2d_cuda(packed, z, g),
                  lambda: kx.flow_solve_2d_tma_cuda(packed, z, g),
                  lambda: kx.flow_solve_wave_tiles_cuda(packed, z, g),
@@ -174,6 +174,7 @@ def test_k11_kernel_wrappers_raise_on_cpu_tensors():
                  lambda: kx.flow_solve_fused_bands_cuda(packed, z, g),
                  lambda: kx.flow_solve_wave_cuda(packed, z, g),
                  lambda: kx.flow_solve_banded_rounds_cuda(packed, z, g),
+                 lambda: kx.flow_solve_banded_sweeps_cuda(packed, z, g),
                  lambda: kp.resident_call_packed_cuda(
                      packed, torch.zeros(128, 3), None, [z], g, 2, False,
                      True),
@@ -185,7 +186,7 @@ def test_k11_kernel_wrappers_raise_on_cpu_tensors():
     assert (kx.LAUNCHES_2D, kx.LAUNCHES_FUSED, kx.LAUNCHES_WAVE,
             kx.LAUNCHES_BANDED, kp.LAUNCHES, kx.LAUNCHES_FUSED_BANDS,
             kp.LAUNCHES_SWEEPS, kx.LAUNCHES_2D_TMA,
-            kx.LAUNCHES_WAVE_TILES) == counts
+            kx.LAUNCHES_WAVE_TILES, kx.LAUNCHES_BANDED_SWEEPS) == counts
 
 
 def test_launch_counts_name_every_counter():
@@ -200,8 +201,8 @@ def test_launch_counts_name_every_counter():
             "flow_directions_strip", "lake_relax", "lake_area_tiles",
             "lake_vis_tiles", "lake_root_tiles", "flow_solve_fused_bands",
             "jacobi_packed_sweeps", "flow_solve_2d_tma",
-            "flow_solve_wave_tiles"} <= names
-    assert len(names) == 29
+            "flow_solve_wave_tiles", "flow_banded_sweeps"} <= names
+    assert len(names) == 30
 
 
 def test_interop_round_trip_and_config():

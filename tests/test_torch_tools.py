@@ -35,8 +35,10 @@ def test_flow_rounds_prints_the_reference_lines(capsys):
     hist = json.loads(active.split(": ", 1)[1])
     assert len(hist) == rounds and hist[0] == 8 and min(hist) >= 1
     assert total == f"total band-runs: {sum(hist)}"
-    assert json.loads(launches) == {"kernel_launches":
-                                    {"flow_banded_rounds": 0}}
+    assert json.loads(launches) == {
+        "kernel_launches": {"flow_banded_rounds": 0,
+                            "flow_banded_sweeps": 0},
+        "host_reads": rounds, "design": "twin"}
 
 
 def test_flow_tune_checks_every_solver(capsys):
@@ -47,7 +49,8 @@ def test_flow_tune_checks_every_solver(capsys):
                                "cpu")
     rows = lines[1:-1]
     names = ["K7+K8", "K11a TMA", "K11a earlier", "K11b fused both",
-             "K11b fused split", "K11c wave tiles", "K11c earlier", "K11d"]
+             "K11b fused split", "K11c wave tiles", "K11c earlier",
+             "K11d cluster", "K11d earlier"]
     assert len(rows) == len(names)
     for name, row in zip(names, rows):
         assert row.startswith(name) and "  ok  " in row, row
@@ -56,7 +59,7 @@ def test_flow_tune_checks_every_solver(capsys):
     assert set(counts) == {"flow_solve", "flow_vis", "flow_solve_2d_tma",
                            "flow_solve_2d", "flow_solve_fused",
                            "flow_solve_wave_tiles", "flow_solve_wave",
-                           "flow_banded_rounds"}
+                           "flow_banded_rounds", "flow_banded_sweeps"}
     assert not any(counts.values())
 
 
@@ -84,10 +87,10 @@ def test_flow_tune_run_holds_each_solver_to_its_twin(capsys):
     assert [r["kernel"] for r in rows] == [
         None, "flow_solve_2d_tma", "flow_solve_2d", "flow_solve_fused",
         "flow_solve_fused", "flow_solve_wave_tiles", "flow_solve_wave",
-        "flow_banded_rounds"]
+        "flow_banded_rounds", "flow_banded_sweeps"]
     assert rows[0]["twin_ms"] is None
     assert all(r["twin_ms"] >= 0 and r["ms"] >= 0 for r in rows[1:])
-    assert out.count("bit-exact") == 7 and "DIFFERS" not in out
+    assert out.count("bit-exact") == 8 and "DIFFERS" not in out
     assert rows[1]["differ"] == 0 and rows[1]["stats"]["rounds"] > 0
 
 
