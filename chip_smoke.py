@@ -90,6 +90,19 @@
    ``torch.distributed.run`` (2 steps at 2048x1024): finite logs and K10
    launches; ``tools.scaling_bench`` at one rank (2048x1024, 5 steps) and
    its refusal of more ranks than cards;
+8c. the mesh cases that once ran on the gathered fields, each through its
+   entry point on the 1x1 mesh with every launch counter at 0: an
+   ``exact_quirks`` coupled step at 2048x1024, a warm-started pressure
+   solve at 2048x1024 (the 200 sweeps from the previous step's pressure),
+   a coupled step on a 2048x1024 grid whose latitudes stop short of both
+   poles (land in its three edge rows on each side: there the halo rounds
+   read zeros beyond the edge, as the reference's do, where the single
+   card clamps), and a 250-substep climate dispatch on a 2048x128 grid,
+   its row strip shallower than the dispatch; each prints its
+   ``sharded_call``s and field gathers and fails unless both are 0, and
+   is held to the same single-card call at phase 8's bounds (the
+   pressure within 2e-5 of max|p|, the mesh tests' bound), its ms beside
+   the single card's (CUDA events, 1 call after a warm-up);
 9. the reference's alternative flow solvers and the packed Jacobi (K11):
    ``tools.flow_rounds`` at 2048x1024 as a subprocess (must exit 0 and
    report K11d launches); then, with every launch counter at 0,
@@ -188,7 +201,8 @@
    tiled kernels count the erosion and tectonic-erosion runs, K1-K6 and
    K12's tiled kernels the editor session (the one-sweep K12 0 on every
    path), and
-   every kernel phase 13's CLI runs launched; K11b's and K11e's earlier
+   every kernel phase 13's CLI runs and phase 8c's cases launched; K11b's
+   and K11e's earlier
    designs, the yardsticks, 0 on every path),
    the card line and, last, the result line
    ``{"ok": true, "device": {...}}``.
@@ -1443,8 +1457,8 @@ def main() -> int:
         mark("flow blur, codes, mouths, masks (row strips; K5, K6)")
         ar = of.cell_area_lower_edge(dlocal.rows_window(grid, mesh, 0), dev)
         acc, vis = flow_solve_rows_twolevel(pk, ar, grid, mesh)
-        acc = dmesh.rows_to_blocks(acc, mesh)
-        vis = dmesh.rows_to_blocks(vis, mesh) > 0.5
+        acc = dmesh.rows_to_blocks(acc, mesh, grid.height)
+        vis = dmesh.rows_to_blocks(vis, mesh, grid.height) > 0.5
         mark("flow two-level solve (K10a x2, K10b x2, coarse graph)")
         fm = torch.where(vis, torch.pow(acc, ccfg.flow_exponent), -1.0)
         keep["fm"] = fm
@@ -1493,10 +1507,14 @@ def main() -> int:
     def rows_masks(h_, sel_):
         return dlocal.flow_masks_rows(h_, sel_, grid, mesh, ccfg.flow_preblur)
 
+    def codes_and_mouths(h_, sel_, g_, preblur):
+        code_ = of.flow_directions(ob.blur(h_, g_, preblur), sel_, g_)
+        return code_, of.incoming_mask(code_, g_)[1]
+
     def single_masks(fn):
         def run(h_, sel_):
-            code_, mouth_ = fn(of._codes_and_mouths)(h_, sel_, grid,
-                                                     ccfg.flow_preblur)
+            code_, mouth_ = fn(codes_and_mouths)(h_, sel_, grid,
+                                                 ccfg.flow_preblur)
             return code_, mouth_, fn(kf.pack_masks)(code_, mouth_, grid)
         return run
 
@@ -1660,6 +1678,104 @@ def main() -> int:
           f"{float(sb.temperature.mean()):.4g}; field gathers "
           f"{big_traffic['field_gathers']} ({card})")
     del sb
+    torch.cuda.empty_cache()
+
+    # -- 8c. the mesh cases that once ran on the gathered fields, on the 1x1
+    # mesh through their entry points: none gathers a field, each held to
+    # the same single-card call and timed beside it
+    fallback_ms = {}
+    mesh8c_forms = {n: 0 for n in counters}
+
+    def fallback_case(label, on_mesh, on_card, bounds):
+        zero_counts()
+        dmesh.reset_traffic()
+        got = on_mesh()
+        torch.cuda.synchronize()
+        tr = dmesh.traffic()
+        forms = own_forms(read_counts(list(counters)))
+        for n, v in forms.items():
+            mesh8c_forms[n] += v
+        want = on_card()
+        torch.cuda.synchronize()
+        print(f"  {label}: sharded_call {tr['sharded_call']}, field gathers "
+              f"{tr['field_gathers']}, bytes received "
+              f"{json.dumps(tr['bytes'])}; launches "
+              f"{json.dumps({k: v for k, v in forms.items() if v})}")
+        assert tr["sharded_call"] == 0 and tr["field_gathers"] == 0, (
+            label, tr)
+        for name, (rtol, atol) in bounds.items():
+            a, b = got[name], want[name]
+            assert a.shape == b.shape and bool(torch.isfinite(a).all()), (
+                label, name)
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{label} {name}: {m}")
+            print(f"    {name}: max abs err {max_err(a, b):.3e} (rtol "
+                  f"{rtol}, atol {atol:.3g})")
+        fallback_ms[label] = (cuda_ms(on_mesh, 1), cuda_ms(on_card, 1))
+        print(f"    1x1 mesh {fallback_ms[label][0]:.3f} ms, single card "
+              f"{fallback_ms[label][1]:.3f} ms (CUDA events, 1 call; "
+              f"{card})")
+
+    def state_fields(st):
+        return {n: getattr(st, n) for n in mesh_bounds}
+
+    oc = ccfg.ocean
+    quirks_cfg = dataclasses.replace(ccfg, ocean=dataclasses.replace(
+        oc, exact_quirks=True))
+    s0_mesh = model.init_coupled(terrain, grid, mesh=mesh)
+    s0_one = model.init_coupled(terrain, grid)
+    fallback_case(
+        f"exact_quirks coupled step at {W}x{H}",
+        lambda: state_fields(model.coupled_step(s0_mesh, grid, quirks_cfg,
+                                                mesh=mesh)),
+        lambda: state_fields(model.coupled_step(s0_one, grid, quirks_cfg)),
+        mesh_bounds)
+    s1 = model.coupled_step(s0_one, grid, ccfg)
+    s2 = model.coupled_step(s1, grid, ccfg)
+    p_prev = ocean.pressure_solve(ocean.divergence(
+        s1.u, s1.v, s1.height, grid, oc), s1.height, grid, oc)
+    div2 = ocean.divergence(s2.u, s2.v, s2.height, grid, oc)
+    p_scale = float(ocean.pressure_solve(div2, s2.height, grid, oc,
+                                         p0=p_prev).abs().max())
+    assert p_scale > 0
+    fallback_case(
+        f"pressure solve at {W}x{H} warm-started from the previous step's",
+        lambda: {"p": ocean.pressure_solve(div2, s2.height, grid, oc,
+                                           p0=p_prev, mesh=mesh)},
+        lambda: {"p": ocean.pressure_solve(div2, s2.height, grid, oc,
+                                           p0=p_prev)},
+        {"p": (0.0, 2e-5 * p_scale)})
+    del s0_mesh, s0_one, s1, s2, p_prev, div2
+    band_grid = Grid(W, H, coords=(-1.2, 1.1, -math.pi, math.pi))
+    walls = torch.arange(H, device=dev).reshape(-1, 1)
+    walls = (walls < 3) | (walls >= H - 3)
+    hband = cli._terrain(band_grid, SEED, dev)
+    hband = torch.where(walls, torch.clamp(hband, min=0.5), hband)
+    sb_mesh = model.init_coupled(hband, band_grid, mesh=mesh)
+    sb_one = model.init_coupled(hband, band_grid)
+    fallback_case(
+        f"coupled step at {W}x{H}, latitudes -1.2 to 1.1 (no pole)",
+        lambda: state_fields(model.coupled_step(sb_mesh, band_grid, ccfg,
+                                                mesh=mesh)),
+        lambda: state_fields(model.coupled_step(sb_one, band_grid, ccfg)),
+        mesh_bounds)
+    del sb_mesh, sb_one, hband
+    shallow = Grid(W, 128)
+    T128 = temperature.init_temperature(shallow, dev)
+    h128 = cli._terrain(shallow, SEED, dev)
+    fallback_case(
+        f"250-substep climate dispatch at {W}x128 (a 128-row strip)",
+        lambda: {"temperature": temperature.temperature_step(
+            T128, h128, 0.0, shallow, substeps=250, mesh=mesh)[0]},
+        lambda: {"temperature": temperature.temperature_step(
+            T128, h128, 0.0, shallow, substeps=250)[0]},
+        {"temperature": mesh_bounds["temperature"]})
+    del T128, h128
+    for name in ("blur_strip", "flow_directions_strip", "flow_local_solve",
+                 "flow_local_vis"):
+        assert mesh8c_forms[name] > 0, f"{name} never launched in 8c"
+    print(f"8c, the former gathered cases on the 1x1 mesh: ms mesh / single "
+          f"card {json.dumps(fallback_ms)} ({card})")
     torch.cuda.empty_cache()
     tdist.destroy_process_group()
 
@@ -3074,7 +3190,7 @@ def main() -> int:
               "advect_stage", "blur", "flow_directions", "lake_relax",
               *lake_tiles):
         main_launches[n] += session_forms[n]
-    for forms in (ckpt_forms, mesh13_forms):
+    for forms in (ckpt_forms, mesh13_forms, mesh8c_forms):
         for n, v in forms.items():
             main_launches[n] += v
     for k in kernels:

@@ -192,11 +192,11 @@ class Window(Grid):
     ``col_index``) read the global coordinates.  ``shift`` rolls the
     window's columns; at its first and last rows it reflects over a pole
     where the window spans the whole width from that pole's row, as the
-    grid does (a row group's window), and clamps anywhere else, where its
-    halo rows stand beyond a pole or inside the grid: a stencil of reach
-    k then leaves the k rings inside such an edge stale and the caller
-    crops them.  With a halo, for an x-periodic grid that touches both
-    poles; without one (a block as it is), for any x-periodic grid.
+    grid does (a row group's window), and clamps anywhere else: at the
+    grid's own edge where that is not a pole, as the grid does, and where
+    its halo rows stand beyond a pole or inside the grid, where a stencil
+    of reach k then leaves the k rings inside the edge stale and the
+    caller crops them.  For any x-periodic grid.
 
     ``width`` and ``height`` are not the globe's: every ``Grid`` method
     that reads them is overridden here, to read ``full`` or the cut

@@ -25,11 +25,12 @@ PI = math.pi
 
 def row_inv_cos(grid: Grid) -> np.ndarray:
     """1/cos(phi) of each row center, float32 numpy, computed in f32 as
-    the reference's GL fetch does."""
-    r = np.arange(grid.height, dtype=np.float32)
-    t = (r + np.float32(0.5)) / np.float32(grid.height)
+    the reference's GL fetch does (a window's rows of the whole grid's)."""
+    H = grid.base.height
+    r = np.arange(H, dtype=np.float32)
+    t = (r + np.float32(0.5)) / np.float32(H)
     phi = t * np.float32(grid.phi1 - grid.phi0) + np.float32(grid.phi0)
-    return np.float32(1.0) / np.cos(phi)
+    return (np.float32(1.0) / np.cos(phi))[grid.rows_np()]
 
 
 def texture_gradient(field: torch.Tensor, grid: Grid, *,

@@ -1,52 +1,57 @@
-"""The climate step on blocks: K substeps per one halo exchange.
+"""The climate step on row groups: up to a group's rows of substeps per
+halo exchange.
 
 Counterpart of ``demiurge_tpu/dist/climate.py``.  The stretched corner
 taps reach 1/cos(phi) columns, up to ~W/6 near the poles, beyond any fixed
-x halo, so the step works on whole rows:
+x halo, so the step works on whole rows (``dist.local``'s strips):
 
 - ``all_to_all_single`` over the mesh row into the row-group layout;
-- one K-deep row-halo exchange of T and dt/C (and of the per-row tables,
-  ``_pad_table``); the pole cap is a local flip and half-world roll;
-- K substeps locally, validity shrinking one ring a substep (the corner
-  sum is symmetric in +-dy, so reflected halo rows evolve as exact
-  antipodal mirrors);
+- the substeps in chunks of at most r substeps, r the rows of the
+  mesh's smallest row group, so that every rank runs the same chunks
+  (row groups may differ by a row): per chunk of K substeps one K-deep
+  row-halo exchange of T and dt/C (``exchange_rows_halo``, the strip
+  ending at the grid's first and last row: ``dist.local.rows_window``),
+  then the single-device substeps themselves
+  (``kernels.climate.climate_step_plain``) on the strip's window, with
+  the insolation table of that chunk's substeps, validity shrinking one
+  row a substep from each side that is not the grid's edge, and the
+  group's rows kept.  A strip at a pole reflects there as the whole grid
+  does, and at an edge that is not a pole clamps as it does;
 - ``all_to_all_single`` back.
 
-The arithmetic is ``kernels.climate``'s (the corner-tap Laplacian, dt/C
-folded), in plain PyTorch on each rank; the rank-local substeps on the
-climate kernel are later work.
+Every cell sums the same taps in the same order as the single-device
+step, so the result is the plain twin's bit for bit.  The substeps run in
+plain PyTorch on each rank; the rank-local substeps on the climate kernel
+are later work.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
-import torch
 
 from ..core.grid import Grid
-from ..core.platform import host_to_device
-from ..core.stencils import corner_shifts
-from ..kernels.climate import KELVIN, OLR_COEF, diff_scale
 from .halo import exchange_rows_halo
-from .mesh import Mesh, blocks_to_rows, rows_to_blocks
+from .local import local_supported, own_rows, rows_window
+from .mesh import Mesh, blocks_to_rows, row_groups, rows_to_blocks
 
 
-def climate_sharded_supported(grid: Grid, mesh: Mesh, substeps: int) -> bool:
-    H, W = grid.shape
-    if not (grid.wrap_x and grid.wrap_south and grid.wrap_north
-            and W % 2 == 0):
-        return False
-    if H % mesh.size != 0 or W % mesh.nx != 0:
-        return False
-    return H // mesh.size >= substeps  # the halo fits in a rank's rows
+def climate_sharded_supported(grid: Grid, mesh: Mesh) -> bool:
+    """The grids of ``dist.local``'s strips: x-periodic, whatever the
+    depth of a dispatch."""
+    return local_supported(grid, mesh)
 
 
-def _pad_table(tab, k: int, mesh: Mesh):
-    """Per-row tables pad like the rows they belong to, except that beyond
-    a pole they are flipped without the half-world roll (a row's value does
-    not depend on longitude)."""
-    return exchange_rows_halo(tab, k, mesh, edge="flip")
+def _chunks(substeps: int, rows: int):
+    """The substeps of a dispatch as (first substep, substeps) chunks of
+    at most ``rows`` substeps each, as few as that allows, of nearly equal
+    depth."""
+    n = -(-substeps // max(rows, 1))
+    out, s0 = [], 0
+    for i in range(n):
+        steps = substeps // n + (1 if i < substeps % n else 0)
+        out.append((s0, steps))
+        s0 += steps
+    return out
 
 
 def climate_step_sharded(T, terrain, i0, grid: Grid, mesh: Mesh,
@@ -54,43 +59,21 @@ def climate_step_sharded(T, terrain, i0, grid: Grid, mesh: Mesh,
                          diffusivity: float = 0.55e6):
     """``ops.temperature.temperature_step`` under a mesh, on blocks.
     Returns (T_new, i0 + substeps)."""
+    from ..kernels.climate import _check_grid, climate_step_plain
     from ..ops.temperature import (SUBSTEPS_PER_YEAR, YEAR_SECONDS, _as_index,
-                                   heat_capacity, qday)
+                                   heat_capacity, insolation_table)
 
-    H, W = grid.shape
-    K = substeps
-    if not climate_sharded_supported(grid, mesh, K):
-        raise ValueError(f"sharded climate: grid {grid.shape}, mesh "
-                         f"{mesh.shape}, {K} substeps")
-    dev = T.device
-    i0 = _as_index(i0, dev)
-    rows_loc = H // mesh.size
-    rows = slice(mesh.rank * rows_loc, (mesh.rank + 1) * rows_loc)
-
-    kneg, kpos = corner_shifts(grid)
-    shifts = host_to_device((np.stack([kneg, kpos], axis=1) % W)[rows]
-                            .astype(np.int64), dev)
-    shifts = _pad_table(shifts, K, mesh)                     # (r+2K, 2)
-    phi = _pad_table(grid.row_phi(dev)[rows], K, mesh)       # (r+2K, 1)
-    M = (2.0 * math.pi / SUBSTEPS_PER_YEAR) * (
-        i0 + torch.arange(K, dtype=torch.float32, device=dev))
-    asr = (1.0 - albedo) * qday(phi, M.reshape(1, -1))       # (r+2K, K)
-
-    cinv = YEAR_SECONDS / SUBSTEPS_PER_YEAR / heat_capacity(terrain)
-    Tp = exchange_rows_halo(blocks_to_rows(T, mesh), K, mesh, grid)
-    cinvp = exchange_rows_halo(blocks_to_rows(cinv, mesh), K, mesh, grid)
-
-    cols = torch.arange(W, device=dev).reshape(1, -1)
-    left_idx = torch.remainder(cols + shifts[:, 0:1], W).expand(Tp.shape)
-    right_idx = torch.remainder(cols + shifts[:, 1:2], W).expand(Tp.shape)
-    D = diff_scale(grid, diffusivity)
-    for s in range(K):
-        S = torch.roll(Tp, -1, dims=0) + torch.roll(Tp, 1, dims=0)
-        left = torch.gather(S, 1, left_idx)
-        right = torch.gather(S, 1, right_idx)
-        lap = 2.0 * (left + right) - 8.0 * Tp
-        Tk = Tp + KELVIN
-        T2 = Tk * Tk
-        olr = OLR_COEF * (T2 * T2)
-        Tp = Tp + (asr[:, s:s + 1] - olr + D * lap) * cinvp
-    return rows_to_blocks(Tp[K:-K].contiguous(), mesh), i0 + float(K)
+    _check_grid(grid)
+    i0 = _as_index(i0, T.device)
+    cinv = blocks_to_rows(YEAR_SECONDS / SUBSTEPS_PER_YEAR
+                          / heat_capacity(terrain), mesh)
+    Tr = blocks_to_rows(T, mesh)
+    rows = int(np.diff(row_groups(grid.height, mesh)).min())
+    for s0, steps in _chunks(substeps, rows):
+        win = rows_window(grid, mesh, steps)
+        asr = insolation_table(win, i0, steps, albedo, first=s0)
+        Tr = climate_step_plain(
+            exchange_rows_halo(Tr, steps, mesh, grid),
+            exchange_rows_halo(cinv, steps, mesh, grid), asr, win,
+            diffusivity)[own_rows(win, grid, mesh)].contiguous()
+    return rows_to_blocks(Tr, mesh, grid.height), i0 + float(substeps)

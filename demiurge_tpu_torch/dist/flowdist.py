@@ -53,8 +53,8 @@ def flow_solve_sharded_twolevel(code, area2d, mouth, grid: Grid, mesh: Mesh,
     """Distributed (A, vis) flow solve by the two-level scheme, on this
     rank's blocks of the codes and mouths: the packed masks built on the
     blocks (a 1-ring halo of the codes, ``dist.local``; on the gathered
-    fields where the local stages do not apply), regrouped into rows,
-    then ``flow_solve_rows_twolevel``.  Same fixpoint as
+    fields on a grid that is not x-periodic, which the solve refuses),
+    regrouped into rows, then ``flow_solve_rows_twolevel``.  Same fixpoint as
     ``ops.flow.flow_solve_stencil``.  Returns (A, vis bool) blocks."""
     from .local import block_or_gathered
 
@@ -63,7 +63,8 @@ def flow_solve_sharded_twolevel(code, area2d, mouth, grid: Grid, mesh: Mesh,
     A, vis = flow_solve_rows_twolevel(blocks_to_rows(packed_b, mesh),
                                       blocks_to_rows(area2d, mesh), grid,
                                       mesh, band)
-    return rows_to_blocks(A, mesh), rows_to_blocks(vis, mesh) > 0.5
+    return (rows_to_blocks(A, mesh, grid.height),
+            rows_to_blocks(vis, mesh, grid.height) > 0.5)
 
 
 def flow_solve_rows_twolevel(packed_r, ar_r, grid: Grid, mesh: Mesh,

@@ -7,7 +7,12 @@ k-wide halo once, then run k sweeps on the padded block (validity shrinks
 one ring a sweep), and repeat: k times less communication than one
 exchange a sweep.  Static inputs (the 5-point coefficients, the packed
 flow masks) are padded once, before the rounds; the coefficients are
-built on the blocks (``dist.local``).
+built on the blocks (``dist.local``).  Beyond a grid edge that is not a
+pole these rounds read a zero halo, as the reference's halo solvers do
+(where the single-device sweep clamps).  The ``exact_quirks`` viscosity
+(``diffusion_quirks_sharded``) runs the reference's own sweep in the
+same rounds, on ``dist.local``'s padded blocks, which end at such an
+edge and clamp there as the single-device sweep does.
 
 Topology, as ``core.topology.shift``:
 
@@ -22,6 +27,8 @@ Topology, as ``core.topology.shift``:
 A halo exchange is one round of paired isend/irecv: the four edges, the
 four corners and the cap rows, each straight from the rank that holds it
 (``post_halo``), then one wait for all of them (``PendingHalo.finish``).
+In the row-group layout (``exchange_rows_halo``) each halo row comes
+straight from the rank that holds it, however many groups deep.
 With ``OVERLAP`` on, the solvers sweep the centre of the block, which
 needs no halo, between the two (``_overlapped_ksweeps``, the reference's
 split); ``LAST_OVERLAP`` records whether they did.  ``pmax`` is
@@ -40,7 +47,7 @@ import torch.distributed as dist
 
 from ..core.grid import Grid
 from ..core.topology import NEIGHBORS_FLOW_ORDER, _pole_col_shift
-from .mesh import TRAFFIC, Mesh, _nbytes, _wire, any_rank, permute
+from .mesh import TRAFFIC, Mesh, _nbytes, _wire, any_rank, row_groups
 
 #: whether the solvers split each halo round that waits on another rank
 #: into the block's centre, swept while the exchange is in flight, and
@@ -236,39 +243,57 @@ def exchange_halo(block, k: int, grid: Grid, mesh: Mesh,
     return post_halo(block, k, grid, mesh, negate_pole).finish()
 
 
-def exchange_rows_halo(block, k: int, mesh: Mesh, grid: Grid = None,
-                       edge: str = "reflect") -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _rows_plan(H: int, k: int, ny: int, nx: int):
+    """Every rank's strip in the row-group layout: for each of its rows,
+    (row within the group that holds it, rank holding it).  The strip is
+    rows [lo - k, hi + k) of the rank's group [lo, hi) (``dist.mesh.
+    row_groups``), ending at the grid's first and last row."""
+    starts = np.asarray(row_groups(H, Mesh(ny, nx, 0, 0, None, None)))
+    plans = []
+    for g in range(ny * nx):
+        src = np.arange(max(starts[g] - k, 0), min(starts[g + 1] + k, H))
+        owner = np.searchsorted(starts, src, side="right") - 1
+        plans.append((src - starts[owner], owner))
+    return plans
+
+
+def exchange_rows_halo(rows, k: int, mesh: Mesh, grid: Grid) -> torch.Tensor:
     """k-row halo exchange in the row-group layout (``dist.mesh.
-    blocks_to_rows``): rank g holds full-width rows [g*r, (g+1)*r), so its
-    south halo is the last k rows of rank g-1 and its north halo the first
-    k rows of rank g+1.  ``edge`` fills the halo beyond the grid's first
-    and last row: 'reflect' (the pole wrap: flipped rows half a world
-    round, local here since rows are whole), 'flip' (flipped rows, for
-    per-row tables that do not depend on longitude), 'clamp' (the edge row
-    repeated) or 'zero'.  Returns (r + 2k, W)."""
-    g, last = mesh.rank, mesh.size - 1
-    south = permute(block[-k:], g + 1 if g < last else None,
-                    g - 1 if g > 0 else None, mesh)
-    north = permute(block[:k], g - 1 if g > 0 else None,
-                    g + 1 if g < last else None, mesh)
-
-    def edge_rows(rows, at):
-        if edge == "reflect":
-            return torch.roll(torch.flip(rows, dims=[0]),
-                              -(block.shape[1] // 2), dims=1)
-        if edge == "flip":
-            return torch.flip(rows, dims=[0])
-        if edge == "clamp":
-            return block[at:at + 1].expand(rows.shape)
-        if edge == "zero":
-            return torch.zeros_like(rows)
-        raise ValueError(f"unknown edge {edge!r}")
-
-    if g == 0:
-        south = edge_rows(block[:k], 0)
-    if g == last:
-        north = edge_rows(block[-k:], block.shape[0] - 1)
-    return torch.cat([south, block, north], dim=0)
+    blocks_to_rows``): rank g holds full-width rows [lo, hi) (``dist.
+    mesh.row_group``), and its strip is rows [lo - k, hi + k), each row
+    straight from the rank that holds it (ranks g-1, g-2, ... where k is
+    deeper than a group), one round of paired isend/irecv.  The strip
+    ends at the grid's first and last row: the rows of ``dist.local.
+    rows_window``, whose shifts apply the grid's own rule there."""
+    W = rows.shape[1]
+    plans = _rows_plan(grid.height, k, mesh.ny, mesh.nx)
+    me = mesh.rank
+    src, owner = plans[me]
+    if k == 0 or mesh.size == 1:
+        return rows                      # the strip is this rank's rows
+    wire = _wire(rows)
+    out = wire.new_empty((len(src), W))
+    ops = []
+    # the strip's rows are consecutive, so each rank's share of them is
+    # one run of consecutive rows of its group
+    for q in range(mesh.size):
+        at = np.flatnonzero(owner == q)
+        if q == me:
+            if len(at):
+                out[at[0]:at[-1] + 1] = wire[src[at[0]]:src[at[-1]] + 1]
+            continue
+        q_src, q_owner = plans[q]
+        send = q_src[q_owner == me]
+        if len(send):
+            ops.append(dist.P2POp(dist.isend, wire[send[0]:send[-1] + 1], q))
+        if len(at):
+            buf = out[at[0]:at[-1] + 1]
+            TRAFFIC["permute"] += _nbytes(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, q))
+    for req in (dist.batch_isend_irecv(ops) if ops else []):
+        req.wait()
+    return out.to(rows.dtype)
 
 
 def _swap_pole_rows(a, b, k: int, grid: Grid, mesh: Mesh):
@@ -360,13 +385,22 @@ def _padded_coefficients(coeffs, k: int, grid: Grid, mesh: Mesh):
     return cN, cS, cE, cW, cC
 
 
+def _quotas(iters: int, k: int):
+    """``iters`` sweeps as rounds of k, the last one the remainder."""
+    full, rest = divmod(iters, k)
+    return [k] * full + ([rest] if rest else [])
+
+
 def pressure_solve_sharded(divw, terrain, grid: Grid, mesh: Mesh,
-                           iters: int = 5000, k: int = 8) -> torch.Tensor:
+                           iters: int = 5000, k: int = 8,
+                           p0=None) -> torch.Tensor:
     """The pressure Poisson solve on blocks: k sweeps per k-wide halo
     exchange of p (``_overlapped_ksweeps``; the coefficients are built on
-    the blocks with a 1-ring halo, or on the gathered fields where the
-    local stages do not apply, then folded and padded once), from zero.
-    ceil(iters / k) rounds of k sweeps, as the reference runs."""
+    the blocks with a 1-ring halo, ``dist.local``, then folded and padded
+    once).  From zero, ceil(iters / k) rounds of k sweeps, as the
+    reference's halo solver runs; from this rank's block of ``p0``, a
+    warm start, exactly ``iters`` sweeps (the last round the remainder),
+    as the reference runs its single-device solve there."""
     from ..kernels.jacobi import coefficients
     from .local import block_or_gathered
 
@@ -375,10 +409,14 @@ def pressure_solve_sharded(divw, terrain, grid: Grid, mesh: Mesh,
         divw, terrain, grid)
     padded = _padded_coefficients(coeffs, k, grid, mesh) \
         + (exchange_halo(coeffs[5], k, grid, mesh),)
-    p = torch.zeros_like(divw)
-    for _ in range((iters + k - 1) // k):
+    if p0 is None:
+        p, quotas = torch.zeros_like(divw), [k] * -(-iters // k)
+    else:
+        p, quotas = p0, _quotas(iters, k)
+    for n_sw in quotas:
         p = _overlapped_ksweeps(p, k, padded,
-                                lambda q: post_halo(q, k, grid, mesh))
+                                lambda q: post_halo(q, k, grid, mesh),
+                                n_sw=n_sw)
     return p
 
 
@@ -396,15 +434,42 @@ def diffusion_solve_sharded(u, v, terrain, grid: Grid, mesh: Mesh,
                                halo=(0,))(terrain, grid)
     padded = _padded_coefficients(coeffs, k, grid, mesh)
     padded = padded + (torch.zeros_like(padded[0]),)
-    n_rounds = (iters + k - 1) // k
-    quotas = [k] * (n_rounds - 1) + [iters - (n_rounds - 1) * k]
 
     def post(q):
         return post_halo(q, k, grid, mesh, negate_pole=True)
 
-    for n_sw in quotas:
+    for n_sw in _quotas(iters, k):
         u = _overlapped_ksweeps(u, k, padded, post, n_sw=n_sw)
         v = _overlapped_ksweeps(v, k, padded, post, n_sw=n_sw)
+    return u, v
+
+
+def diffusion_quirks_sharded(u, v, terrain, grid: Grid, mesh: Mesh,
+                             iters: int = 50, k: int = 10):
+    """The ``exact_quirks`` viscosity (the reference's sweep as written,
+    ``ops.ocean._quirks_sweep``) on blocks: the terrain padded once with
+    a k-ring halo and the sweep's tables built on the padded block's
+    window (``dist.local``), then rounds of k sweeps of the padded (u, v),
+    one k-wide halo exchange of each a round, velocity pole halos
+    negated, the last round the remainder of ``iters``.  The window of a
+    block with a halo beyond a pole does not reach the pole itself, so
+    ``_neighbor_vec`` flips nothing there: the exchange's negation is the
+    single-device flip.  The sweep is symmetric in +-dy (two-term sums,
+    negation exact), so the halo rows beyond a pole evolve as the exact
+    negated mirror of the rows they reflect, and every cell of the block
+    equals the single-device sweep bit for bit; at a grid edge that is
+    not a pole the block ends and its window clamps, as the grid does."""
+    from ..ops.ocean import _quirks_sweep, _quirks_tables
+    from .local import block_window, crop_block, pad_block
+
+    win = block_window(grid, mesh, k)
+    tables = _quirks_tables(pad_block(terrain, k, grid, mesh), win)
+    for n_sw in _quotas(iters, k):
+        up = pad_block(u, k, grid, mesh, negate=True)
+        vp = pad_block(v, k, grid, mesh, negate=True)
+        for _ in range(n_sw):
+            up, vp = _quirks_sweep(up, vp, tables, win)
+        u, v = crop_block(up, grid, mesh, k), crop_block(vp, grid, mesh, k)
     return u, v
 
 
@@ -412,8 +477,8 @@ def flow_solve_sharded(code, area2d, mouth, grid: Grid, mesh: Mesh,
                        k: int = 16, max_iters: int = 1 << 20):
     """The flow fixpoint on blocks, the fallback where the two-level solve
     does not apply: the packed masks built on the blocks (``pack_masks``
-    with a 1-ring halo of the codes; on the gathered fields where the
-    local stages do not apply), then ``flow_solve_sharded_packed``.
+    with a 1-ring halo of the codes, ``dist.local``), then
+    ``flow_solve_sharded_packed``.
     Returns (A, vis bool)."""
     from ..kernels.flow import pack_masks
     from .local import block_or_gathered

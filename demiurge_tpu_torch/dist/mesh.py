@@ -11,10 +11,9 @@ Two execution paths, as in the reference:
 - the explicit paths in ``dist.local`` (the stencil stages: GSPMD's
   partitioning written out), ``dist.halo``, ``dist.flowdist``,
   ``dist.climate`` and ``dist.advect``: halo exchanges by paired
-  ``isend``/``irecv`` and row regroups by ``all_to_all_single``;
-- ``sharded_call``, kept for the options and grids that have no local
-  form (regional grids, ``exact_quirks``, ``advect_method="exact"``, a
-  warm-started pressure solve, a climate deeper than a rank's rows): it
+  ``isend``/``irecv`` and row regroups by ``all_to_all_single``, for
+  every option on any x-periodic grid;
+- ``sharded_call``, kept for what has no local form (its docstring): it
   gathers the block arguments, runs the unmodified single-device op and
   returns this rank's block of each output.  Exact, since it is the same
   code; not communication-local.
@@ -197,51 +196,56 @@ def gather_field(block: torch.Tensor, mesh: Mesh,
     return torch.cat(rows, dim=0).to(block.dtype)
 
 
+def row_groups(H: int, mesh: Mesh) -> Tuple[int, ...]:
+    """The first grid row of every rank's row group, and H: rank (yi, xi)
+    holds rows [starts[g], starts[g + 1]) of mesh row yi's block, split
+    over its nx ranks as evenly as the rows allow (rank g of the even
+    layout holds rows [g*r, (g+1)*r), r = H / (ny*nx))."""
+    h = H // mesh.ny
+    return tuple(y * h + x * h // mesh.nx for y in range(mesh.ny)
+                 for x in range(mesh.nx)) + (H,)
+
+
+def row_group(H: int, mesh: Mesh) -> Tuple[int, int]:
+    """This rank's row group: (first row, row after the last)."""
+    starts = row_groups(H, mesh)
+    return starts[mesh.rank], starts[mesh.rank + 1]
+
+
+def _row_splits(h: int, nx: int):
+    return [(x + 1) * h // nx - x * h // nx for x in range(nx)]
+
+
 def blocks_to_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """(nx*r, w) blocks -> full-width row groups (r, W) over the mesh row:
-    rank (yi, xi) gets global rows [(yi*nx + xi)*r, ...) (JAX's
-    all_to_all along 'x', split rows, concatenate columns)."""
+    """(h, w) blocks -> full-width row groups (r, W) over the mesh row:
+    rank (yi, xi) gets mesh row yi's rows of its group (``row_group``)
+    (JAX's all_to_all along 'x', split rows, concatenate columns)."""
     if mesh.nx == 1:
         return x
-    r = x.shape[0] // mesh.nx
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=mesh.row_group)
+    splits = _row_splits(x.shape[0], mesh.nx)
+    r = splits[mesh.xi]
+    out = x.new_empty((mesh.nx * r, x.shape[1]))
+    dist.all_to_all_single(out, x.contiguous(), [r] * mesh.nx, splits,
+                           group=mesh.row_group)
     TRAFFIC["all_to_all"] += _nbytes(out) * (mesh.nx - 1) // mesh.nx
     return out.reshape(mesh.nx, r, -1).permute(1, 0, 2).reshape(r, -1)
 
 
-def rows_to_blocks(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The inverse of ``blocks_to_rows``."""
+def rows_to_blocks(x: torch.Tensor, mesh: Mesh, height: int) -> torch.Tensor:
+    """The inverse of ``blocks_to_rows``; ``height`` is the grid's H
+    (the row groups of a mesh row may differ by a row)."""
     if mesh.nx == 1:
         return x
     r, W = x.shape
-    chunks = x.reshape(r, mesh.nx, W // mesh.nx).permute(1, 0, 2).contiguous()
-    out = torch.empty_like(chunks)
-    dist.all_to_all_single(out, chunks, group=mesh.row_group)
-    TRAFFIC["all_to_all"] += _nbytes(out) * (mesh.nx - 1) // mesh.nx
-    return out.reshape(mesh.nx * r, W // mesh.nx)
-
-
-def permute(x: torch.Tensor, dst: Optional[int], src: Optional[int],
-            mesh: Mesh) -> torch.Tensor:
-    """Send ``x`` to rank ``dst`` and return what rank ``src`` sent (zeros
-    where ``src`` is None; JAX's ppermute for one rank).  Both ops go out
-    together, so a ring of ranks cannot deadlock."""
-    if dst == mesh.rank and src == mesh.rank:
-        return x.clone()
-    wire = _wire(x)
-    out = torch.zeros_like(wire)
-    ops = []
-    if dst is not None:
-        ops.append(dist.P2POp(dist.isend, wire, dst))
-    if src is not None:
-        ops.append(dist.P2POp(dist.irecv, out, src))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    if src is not None:
-        TRAFFIC["permute"] += _nbytes(out)
-    return out.to(x.dtype)
+    h = height // mesh.ny
+    w = W // mesh.nx
+    chunks = x.reshape(r, mesh.nx, w).permute(1, 0, 2).reshape(-1, w)
+    out = x.new_empty((h, w))
+    dist.all_to_all_single(out, chunks.contiguous(),
+                           _row_splits(h, mesh.nx), [r] * mesh.nx,
+                           group=mesh.row_group)
+    TRAFFIC["all_to_all"] += _nbytes(out) - r * w * x.element_size()
+    return out
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -290,7 +294,19 @@ def sharded_call(fn, mesh: Mesh):
     """Run the single-device op ``fn`` under ``mesh``: every 2-D tensor
     argument is a block and is gathered into its full field, ``fn`` runs
     on the full fields (every rank the same work), and each tensor output
-    comes back as this rank's part (``local_part``)."""
+    comes back as this rank's part (``local_part``).
+
+    What still runs so, and why:
+
+    - the advect's bilinear sampler of ``advect_method="exact"``, and the
+      advect on a grid that is not x-periodic: it fetches at
+      data-dependent points, which the reference's partitioner cannot keep
+      local either (its ``sample_bilinear`` gathers);
+    - every stage on a grid that does not wrap in x (regional): the halo
+      exchange always wraps its columns (``dist.halo._source``), a
+      ``core.grid.Window``'s shifts roll them, and the reference's halo
+      solvers take x-periodic grids only; no CLI command builds such a
+      grid.  Its local form is the next item of the port's roadmap."""
 
     def call(*args, **kwargs):
         CALLS["sharded_call"] += 1

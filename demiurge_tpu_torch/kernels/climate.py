@@ -102,14 +102,14 @@ def card_launches(grid: Grid, substeps: int):
 def climate_step_plain(T, cinv, asr, grid: Grid, diffusivity: float):
     """``asr.shape[0]`` substeps in plain PyTorch, in the kernel's order."""
     _check_grid(grid)
-    from ..core.fastroll import row_roll_static
+    from ..core.fastroll import _gather_rows
 
-    kneg, kpos = corner_shifts(grid)
+    kneg, kpos = shift_table(grid, T.device).to(torch.int64).unsqueeze(-1)
     D = diff_scale(grid, diffusivity)
     for s in range(asr.shape[0]):
         S = shift(T, 0, 1, grid) + shift(T, 0, -1, grid)
-        left = row_roll_static(S, kneg)
-        right = row_roll_static(S, kpos)
+        left = _gather_rows(S, kneg)
+        right = _gather_rows(S, kpos)
         lap = 2.0 * (left + right) - 8.0 * T
         Tk = T + KELVIN
         T2 = Tk * Tk

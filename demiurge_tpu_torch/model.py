@@ -84,9 +84,11 @@ def coupled_step(state: CoupledState, grid: Grid,
     rank's blocks, and every stage runs on this rank's block or row group
     (``dist``: the climate on row groups, the ocean's stages and solvers
     and the erosion pass on blocks with their halos, the flow's masks on
-    row groups and its fixpoint by the two-level solve); where a grid or
-    an option has no local form, that stage runs on the gathered fields
-    (``dist.mesh.sharded_call``)."""
+    row groups and its fixpoint by the two-level solve), whatever the
+    options and on any x-periodic grid; on a grid that does not wrap in x
+    (regional), and with ``advect_method="exact"``, the stages that have
+    no local form run on the gathered fields (``dist.mesh.
+    sharded_call``)."""
     h = state.height
     T, ti = temperature.temperature_step(
         state.temperature, h, state.t_index, grid,

@@ -346,13 +346,6 @@ def flow_solve_stencil(code, area2d, mouth, grid: Grid, conn_from=None,
     return A, vis, None if root is None else root.to(torch.int64)
 
 
-def _codes_and_mouths(height, sel, grid: Grid, preblur: float):
-    hb = blur(height, grid, preblur)
-    code = flow_directions(hb, sel, grid)
-    _, mouth, _ = incoming_mask(code, grid)
-    return code, mouth
-
-
 def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
                        preblur: float = 0.5, acc0=None,
                        return_acc: bool = False, mesh=None):
@@ -366,11 +359,11 @@ def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
 
     ``mesh``: the fields are this rank's blocks.  The pre-blur, directions
     and masks run on this rank's row group (``dist.local.
-    flow_masks_rows``), or on the gathered fields (``sharded_call``) where
-    that does not apply; the fixpoint is the two-level sharded solve
+    flow_masks_rows``); the fixpoint is the two-level sharded solve
     (``dist.flowdist``) or, where that does not apply, the halo-exchange
     relaxation (``dist.halo``); ``acc0`` is not used there, as in the
-    reference."""
+    reference.  A grid that is not x-periodic runs the whole filter on
+    the gathered fields (``sharded_call``)."""
     if mesh is not None:
         return _flow_filter_sharded(height, sel, grid, exponent, preblur,
                                     acc0, return_acc, mesh)
@@ -388,36 +381,24 @@ def _flow_filter_sharded(height, sel, grid: Grid, exponent, preblur, acc0,
     from ..dist import local
     from ..dist.flowdist import (flow_sharded_twolevel_supported,
                                  flow_solve_rows_twolevel)
-    from ..dist.halo import flow_solve_sharded, flow_solve_sharded_packed
+    from ..dist.halo import flow_solve_sharded_packed
     from ..dist.mesh import rows_to_blocks, sharded_call
 
-    if not grid.wrap_x:
+    if not local.local_supported(grid, mesh):
         return sharded_call(flow_filter_device, mesh)(
             height, sel, grid, exponent, preblur, acc0, return_acc)
     dev = height.device
-    area = cell_area_lower_edge(local.block_window(grid, mesh, 0), dev)
-    if local.flow_rows_supported(grid, mesh, preblur):
-        _, _, packed_r = local.flow_masks_rows(height, sel, grid, mesh,
-                                               preblur)
-        if flow_sharded_twolevel_supported(grid, mesh):
-            area_r = cell_area_lower_edge(local.rows_window(grid, mesh, 0),
-                                          dev)
-            acc, vis = flow_solve_rows_twolevel(packed_r, area_r, grid, mesh)
-            acc, vis = rows_to_blocks(acc, mesh), rows_to_blocks(vis, mesh)
-            vis = vis > 0.5
-        else:
-            acc, vis = flow_solve_sharded_packed(
-                rows_to_blocks(packed_r, mesh), area, grid, mesh)
+    _, _, packed_r = local.flow_masks_rows(height, sel, grid, mesh, preblur)
+    if flow_sharded_twolevel_supported(grid, mesh):
+        area_r = cell_area_lower_edge(local.rows_window(grid, mesh, 0), dev)
+        acc, vis = flow_solve_rows_twolevel(packed_r, area_r, grid, mesh)
+        acc = rows_to_blocks(acc, mesh, grid.height)
+        vis = rows_to_blocks(vis, mesh, grid.height) > 0.5
     else:
-        code, mouth = sharded_call(_codes_and_mouths, mesh)(height, sel,
-                                                            grid, preblur)
-        if flow_sharded_twolevel_supported(grid, mesh):
-            from ..dist.flowdist import flow_solve_sharded_twolevel
-
-            acc, vis = flow_solve_sharded_twolevel(code, area, mouth, grid,
-                                                   mesh)
-        else:
-            acc, vis = flow_solve_sharded(code, area, mouth, grid, mesh)
+        acc, vis = flow_solve_sharded_packed(
+            rows_to_blocks(packed_r, mesh, grid.height),
+            cell_area_lower_edge(local.block_window(grid, mesh, 0), dev),
+            grid, mesh)
     out = torch.where(vis, torch.pow(acc, exponent), -1.0)
     return (out, acc) if return_acc else out
 

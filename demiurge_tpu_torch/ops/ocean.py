@@ -447,33 +447,45 @@ def _neighbor_vec(u, v, dx, dy, grid: Grid):
     return nu, nv
 
 
-def _diffusion_quirks(u, v, terrain, grid: Grid, cfg: OceanConfig):
-    """The reference's viscosity sweep as written, with its quirk: the x
-    component of the center velocity is the rhs of both components."""
-    dxr, dyr = grid.pixelsize_rows(u.device)
+def _quirks_tables(terrain, grid: Grid):
+    """What the reference's viscosity sweep reads besides the velocities:
+    the per-row weights wx, wy, beta and the four obstacle masks."""
+    dxr, dyr = grid.pixelsize_rows(terrain.device)
     wx = (420.0 / dxr) ** 2
     wy = (420.0 / dyr) ** 2
     beta = 2 * (wx + wy) * (1 + 1 / (2 * (wx + wy)))
-    oN = shift(terrain, 0, 1, grid) > 0
-    oS = shift(terrain, 0, -1, grid) > 0
-    oE = shift(terrain, 1, 0, grid) > 0
-    oW = shift(terrain, -1, 0, grid) > 0
+    return (wx, wy, beta, shift(terrain, 0, 1, grid) > 0,
+            shift(terrain, 0, -1, grid) > 0, shift(terrain, 1, 0, grid) > 0,
+            shift(terrain, -1, 0, grid) > 0)
+
+
+def _quirks_sweep(u, v, tables, grid: Grid):
+    """One sweep of the reference's viscosity as written, with its quirk:
+    the x component of the center velocity is the rhs of both
+    components."""
+    wx, wy, beta, oN, oS, oE, oW = tables
+    nu_, nv_ = _neighbor_vec(u, v, 0, 1, grid)
+    su_, sv_ = _neighbor_vec(u, v, 0, -1, grid)
+    eu_, ev_ = _neighbor_vec(u, v, 1, 0, grid)
+    wu_, wv_ = _neighbor_vec(u, v, -1, 0, grid)
+    nu_ = torch.where(oN, u, nu_)
+    nv_ = torch.where(oN, v, nv_)
+    su_ = torch.where(oS, u, su_)
+    sv_ = torch.where(oS, v, sv_)
+    eu_ = torch.where(oE, u, eu_)
+    ev_ = torch.where(oE, v, ev_)
+    wu_ = torch.where(oW, u, wu_)
+    wv_ = torch.where(oW, v, wv_)
+    newu = ((wu_ + eu_) * wx + (su_ + nu_) * wy + u) / beta
+    newv = ((wv_ + ev_) * wx + (sv_ + nv_) * wy + u) / beta
+    return newu, newv
+
+
+def _diffusion_quirks(u, v, terrain, grid: Grid, cfg: OceanConfig):
+    """The reference's viscosity sweeps as written (``_quirks_sweep``)."""
+    tables = _quirks_tables(terrain, grid)
     for _ in range(cfg.diffusion_iters):
-        nu_, nv_ = _neighbor_vec(u, v, 0, 1, grid)
-        su_, sv_ = _neighbor_vec(u, v, 0, -1, grid)
-        eu_, ev_ = _neighbor_vec(u, v, 1, 0, grid)
-        wu_, wv_ = _neighbor_vec(u, v, -1, 0, grid)
-        nu_ = torch.where(oN, u, nu_)
-        nv_ = torch.where(oN, v, nv_)
-        su_ = torch.where(oS, u, su_)
-        sv_ = torch.where(oS, v, sv_)
-        eu_ = torch.where(oE, u, eu_)
-        ev_ = torch.where(oE, v, ev_)
-        wu_ = torch.where(oW, u, wu_)
-        wv_ = torch.where(oW, v, wv_)
-        newu = ((wu_ + eu_) * wx + (su_ + nu_) * wy + u) / beta
-        newv = ((wv_ + ev_) * wx + (sv_ + nv_) * wy + u) / beta
-        u, v = newu, newv
+        u, v = _quirks_sweep(u, v, tables, grid)
     return u, v
 
 
@@ -481,16 +493,21 @@ def diffusion(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
     """Implicit-viscosity Jacobi sweeps.  Intent mode runs the coefficient
     sweep (the Jacobi kernel on CUDA tensors); ``exact_quirks`` keeps the
     reference's sweep as written, as the reference package does.  Under a
-    ``mesh`` (blocks) intent mode runs the amortized halo-exchange solver
-    (``dist.halo.diffusion_solve_sharded``)."""
+    ``mesh`` (blocks) the halo rounds: intent mode's amortized solver
+    (``dist.halo.diffusion_solve_sharded``), ``exact_quirks``' sweep on
+    the padded blocks (``dist.halo.diffusion_quirks_sharded``); a grid
+    that is not x-periodic on the gathered fields (``sharded_call``)."""
     if mesh is not None:
-        from ..dist.halo import diffusion_solve_sharded
+        from ..dist import halo
         from ..dist.mesh import sharded_call
 
-        if not cfg.exact_quirks and grid.wrap_x:
-            return diffusion_solve_sharded(u, v, terrain, grid, mesh,
-                                           iters=cfg.diffusion_iters)
-        return sharded_call(diffusion, mesh)(u, v, terrain, grid, cfg)
+        if not grid.wrap_x:
+            return sharded_call(diffusion, mesh)(u, v, terrain, grid, cfg)
+        if cfg.exact_quirks:
+            return halo.diffusion_quirks_sharded(u, v, terrain, grid, mesh,
+                                                 iters=cfg.diffusion_iters)
+        return halo.diffusion_solve_sharded(u, v, terrain, grid, mesh,
+                                            iters=cfg.diffusion_iters)
     if cfg.exact_quirks:
         return _diffusion_quirks(u, v, terrain, grid, cfg)
     coeffs = kj.diffusion_coefficients(terrain, grid)
@@ -524,9 +541,10 @@ def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None,
     """Jacobi Poisson solve for pressure, from zero unless ``p0`` is
     given (a warm start with the same fixpoint); with
     ``pressure_method="cg"`` and no mesh, the preconditioned CG solve
-    (``ops.pressure_cg``).  Under a ``mesh`` (blocks), from zero, the
-    amortized halo-exchange solver (``dist.halo.pressure_solve_sharded``),
-    as the reference does for every method."""
+    (``ops.pressure_cg``).  Under a ``mesh`` (blocks) the amortized
+    halo-exchange Jacobi (``dist.halo.pressure_solve_sharded``, from
+    ``p0`` where given), for every method, as the reference does; a grid
+    that is not x-periodic on the gathered fields (``sharded_call``)."""
     if cfg.pressure_method == "cg" and mesh is None:
         return pressure_solve_cg(divw, terrain, grid, iters=cfg.cg_iters,
                                  rtol=cfg.cg_rtol, p0=p0)
@@ -536,9 +554,9 @@ def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None,
         from ..dist.halo import pressure_solve_sharded
         from ..dist.mesh import sharded_call
 
-        if grid.wrap_x and p0 is None:
+        if grid.wrap_x:
             return pressure_solve_sharded(divw, terrain, grid, mesh,
-                                          iters=cfg.jacobi_iters)
+                                          iters=cfg.jacobi_iters, p0=p0)
         # the Jacobi on the gathered fields, for every method (the
         # reference's CG never runs under a mesh)
         jacobi = dataclasses.replace(cfg, pressure_method="auto")
@@ -614,8 +632,8 @@ def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig(),
     iterative solvers run their block forms (``dist.advect``,
     ``dist.halo``), divergence and projection on the blocks with a 1-ring
     halo (``dist.local``; the velocity halo negated beyond a pole), or on
-    the gathered fields (``sharded_call``) where the local stages do not
-    apply."""
+    the gathered fields (``sharded_call``) on a grid that is not
+    x-periodic."""
     if mesh is None:
         div_fn, project_fn = divergence, project
     else:

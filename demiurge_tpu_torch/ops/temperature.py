@@ -112,11 +112,12 @@ def _as_index(i0, device) -> torch.Tensor:
 
 
 def insolation_table(grid: Grid, i0: torch.Tensor, substeps: int,
-                     albedo: float) -> torch.Tensor:
+                     albedo: float, first: int = 0) -> torch.Tensor:
     """(substeps, H) absorbed shortwave (1 - albedo) * QDay(phi_r, M_s) of
-    substeps i0, i0+1, ... — built on i0's device from the 0-d index, so a
-    step waits on nothing."""
-    k = torch.arange(substeps, dtype=torch.float32, device=i0.device)
+    substeps i0 + first, i0 + first + 1, ... — built on i0's device from
+    the 0-d index, so a step waits on nothing."""
+    k = torch.arange(first, first + substeps, dtype=torch.float32,
+                     device=i0.device)
     M = (2.0 * PI / SUBSTEPS_PER_YEAR) * (i0 + k)
     phi = grid.row_phi(i0.device).reshape(1, -1)
     return ((1.0 - albedo) * qday(phi, M.reshape(-1, 1))).contiguous()
@@ -130,15 +131,16 @@ def temperature_step(T, terrain, i0, grid: Grid, substeps: int = 10,
     Returns (T_new, i0 + substeps), the index a 0-d float32 tensor.
 
     ``mesh``: a ``dist.mesh.Mesh``; T and terrain are then this rank's
-    blocks, and the substeps run in the row-group layout, K substeps per
-    row-halo exchange (``dist.climate``), or, where that does not apply,
-    on the gathered fields (``sharded_call``)."""
+    blocks, and the substeps run on this rank's row group, up to its rows
+    of substeps per row-halo exchange (``dist.climate``); a grid that is
+    not x-periodic (which the single-device step refuses too) on the
+    gathered fields (``sharded_call``)."""
     if mesh is not None:
         from ..dist.climate import (climate_sharded_supported,
                                     climate_step_sharded)
         from ..dist.mesh import sharded_call
 
-        if climate_sharded_supported(grid, mesh, substeps):
+        if climate_sharded_supported(grid, mesh):
             return climate_step_sharded(T, terrain, i0, grid, mesh,
                                         substeps=substeps, albedo=albedo,
                                         diffusivity=diffusivity)

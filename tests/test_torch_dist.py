@@ -8,7 +8,8 @@ process holds the gathered results to the JAX package on the CPU and to
 the port on one device.  Bounds, and why:
 
 - halo exchanges and row regroups: exact, against slices of the globally
-  padded field built with the port's ``shift``;
+  padded field built with the port's ``shift`` (the row-halo strip, which
+  ends at the grid's first and last row, against the field's own rows);
 - the two-level sharded flow: A within rtol 1e-5, atol 1e-7 of
   ``flow_solve_stencil`` (the chain sums reassociate f32), vis exactly;
   the halo-exchange fallback: A and vis exactly (same sums, same order);
@@ -20,8 +21,9 @@ the port on one device.  Bounds, and why:
   shape, the whole pass against the port's single-device advect (the
   reference's departure points differ by atan2/asin ulps, see
   test_torch_ocean.py);
-- where a block form does not apply, ``sharded_call`` runs the
-  single-device op: bit for bit;
+- the cases that once ran through ``sharded_call`` (a climate deeper
+  than a rank's rows, ``exact_quirks``, a warm-started pressure) run
+  their local forms: bit for bit against the single-device op;
 - two coupled steps on blocks against two on one device: height rtol 1e-5,
   atol 1e-6; T rtol 1e-5, atol 1e-4; u, v rtol 1e-5, atol 1e-6
   (tests/test_dist.py:175-181); on the 2x2 mesh also against the
@@ -171,16 +173,12 @@ def test_row_regroup_and_rows_halo_match_padded_rows(runs, inputs, shape):
     r = H // D
     np.testing.assert_array_equal(out["rows"], f)
     np.testing.assert_array_equal(out["rows_back"], f)
-    wants = {"reflect": _padded_rows(f, K),
-             "flip": np.concatenate([f[K - 1::-1], f, f[:H - K - 1:-1]]),
-             "clamp": np.concatenate([np.repeat(f[:1], K, 0), f,
-                                      np.repeat(f[-1:], K, 0)]),
-             "zero": np.pad(f, ((K, K), (0, 0)))}
-    for edge, want in wants.items():
-        got = out[f"rows_{edge}"].reshape(D, r + 2 * K, W)
-        for g in range(D):
-            np.testing.assert_array_equal(got[g], want[g * r:g * r + r + 2 * K],
-                                          err_msg=f"{edge} rank {g}")
+    # the strip ends at the grid's first and last row: NaN beyond them
+    want = np.pad(f, ((K, K), (0, 0)), constant_values=np.nan)
+    got = out["rows_strip"].reshape(D, r + 2 * K, W)
+    for g in range(D):
+        np.testing.assert_array_equal(got[g], want[g * r:g * r + r + 2 * K],
+                                      err_msg=f"rank {g}")
 
 
 @pytest.fixture(scope="module")
@@ -438,10 +436,10 @@ def test_one_process_group_runs_the_mesh_step():
 
 
 def test_one_process_group_fallbacks_equal_single_device():
-    """Where a block form does not apply (the climate's halo deeper than a
-    rank's rows, the viscosity's exact_quirks mode, a warm-started
-    pressure solve) the op runs through ``sharded_call`` and equals the
-    single-device op bit for bit."""
+    """The cases that once fell back to ``sharded_call`` (the climate's
+    halo deeper than a rank's rows, the viscosity's exact_quirks mode, a
+    warm-started pressure solve) run their local forms, gather no field
+    and equal the single-device op bit for bit."""
     import torch.distributed as dist
 
     from demiurge_tpu_torch.ops import temperature as ttemp
@@ -458,7 +456,8 @@ def test_one_process_group_fallbacks_equal_single_device():
         mesh = dm.make_mesh(device="cpu")
         from demiurge_tpu_torch.dist.climate import climate_sharded_supported
 
-        assert not climate_sharded_supported(g, mesh, 40)
+        assert climate_sharded_supported(g, mesh)
+        dm.reset_traffic()
         pairs = [(ttemp.temperature_step(T, h, 0.0, g, substeps=40,
                                          mesh=mesh),
                   ttemp.temperature_step(T, h, 0.0, g, substeps=40)),
@@ -466,6 +465,8 @@ def test_one_process_group_fallbacks_equal_single_device():
                   tocean.diffusion(u, v, h, g, cfg)),
                  ((tocean.pressure_solve(u, h, g, cfg, p0=p0, mesh=mesh),),
                   (tocean.pressure_solve(u, h, g, cfg, p0=p0),))]
+        tr = dm.traffic()
+        assert tr["sharded_call"] == tr["field_gathers"] == 0, tr
         for got, want in pairs:
             for a, b in zip(got, want):
                 assert torch.equal(a, b)

@@ -19,14 +19,14 @@ why:
   pressure (k 8), viscosity (k 10 with its remainder round) and a k the
   blocks are too small to split for (k 20); every split round issued its
   centre's sweeps before the exchange's wait;
-- the traffic counters: two default ``CoupledConfig`` mesh steps make no
-  ``sharded_call`` and no full-field gather on any rank, and an
-  ``exact_quirks`` step (whose viscosity keeps ``sharded_call``) does;
-- a grid that wraps in x but reaches neither pole, where the local
-  stages do not apply: the solvers and the flow run with the stages that
-  need the whole grid on the gathered fields, bit for bit against the
+- the traffic counters: two default ``CoupledConfig`` mesh steps, and an
+  ``exact_quirks`` step, make no ``sharded_call`` and no full-field
+  gather on any rank;
+- a grid that wraps in x but reaches neither pole: the solvers and the
+  flow run their stages on blocks and row groups that end at the grid's
+  edge rows, with no ``sharded_call``, bit for bit against the
   single-device ops (the viscosity against its one-process mesh: its
-  halo reads zeros beyond a row edge that does not wrap, as the
+  halo rounds read zeros beyond a row edge that does not wrap, as the
   reference's halo solver does, where the single-device sweep clamps);
 - a ``Window`` overrides every ``Grid`` method that reads the size.
 """
@@ -214,9 +214,9 @@ def test_overlapped_sweeps_equal_monolithic(runs, shape, solver):
 @pytest.mark.parametrize("shape", MESHES, ids=IDS)
 def test_default_mesh_steps_gather_no_field(runs, shape):
     """Two default ``CoupledConfig`` mesh steps: 0 ``sharded_call``s and 0
-    full-field gathers on every rank (the parent tree made 8 and 19 a
-    step); an ``exact_quirks`` step's viscosity still goes through
-    ``sharded_call``, and the counter counts it."""
+    full-field gathers on every rank (an earlier tree made 8 and 19 a
+    step); an ``exact_quirks`` step, whose viscosity runs its sweep on
+    the padded blocks, makes none either, and exchanges halos."""
     out = runs[shape]
     kinds = json.loads(str(out["traffic_kinds"]))
     n = 2 + len(kinds)
@@ -227,8 +227,9 @@ def test_default_mesh_steps_gather_no_field(runs, shape):
             "permute")] > 0
         assert two[2 + kinds.index("gather_field")] == 0
     for row in out["traffic_quirks"]:
-        assert row[0] >= 1 and row[1] >= row[0] and \
-            row[2 + kinds.index("gather_field")] > 0
+        assert row[0] == row[1] == 0, row
+        assert row[2 + kinds.index("gather_field")] == 0
+        assert row[2 + kinds.index("permute")] > 0
 
 
 def test_window_tables_are_the_grids_cut():
@@ -378,15 +379,16 @@ def band_viscosity(band_inputs):
 def test_band_grid_mesh_paths_equal_single_device(band_runs, band_inputs,
                                                   band_viscosity, shape):
     """A grid that wraps in x but reaches neither pole: the pressure and
-    viscosity halo solvers build their coefficients on the gathered
-    fields, the flow filter its masks (then the two-level fixpoint), the
-    halo fixpoint its packed masks, each a counted ``sharded_call``; each
-    result bit for bit the single-device op's (the viscosity the
-    one-process mesh's, module docstring)."""
+    viscosity halo solvers build their coefficients on the blocks, the
+    flow filter its masks on the row groups (then the two-level
+    fixpoint), the halo fixpoint its packed masks on the blocks, each
+    block or strip ending at the grid's edge rows, with no
+    ``sharded_call``; each result bit for bit the single-device op's (the
+    viscosity the one-process mesh's, module docstring)."""
     from demiurge_tpu_torch.dist.local import local_supported
 
     assert BAND.wrap_x and not (BAND.wrap_south or BAND.wrap_north)
-    assert not local_supported(BAND, dm.Mesh(*shape, 0, 0, None, None))
+    assert local_supported(BAND, dm.Mesh(*shape, 0, 0, None, None))
     out = band_runs[shape]
     cfg = ocean.OceanConfig(jacobi_iters=24, diffusion_iters=25)
     t = _t(band_inputs, "terrain")
@@ -406,9 +408,8 @@ def test_band_grid_mesh_paths_equal_single_device(band_runs, band_inputs,
     np.testing.assert_array_equal(out["flowh_A"], A.numpy())
     np.testing.assert_array_equal(out["flowh_vis"], vis.numpy())
     assert (fm < 0).any() and (fm > 0).any()
-    # pressure and viscosity one each; the flow filter's codes and masks
-    # and the two-level solve's masks; the halo fixpoint's masks
-    assert out["calls"].tolist() == [2, 5]
+    # none in the solvers, none in the flow filter and the halo fixpoint
+    assert out["calls"].tolist() == [0, 0]
 
 
 def test_window_overrides_every_grid_method_that_reads_the_size():

@@ -1,5 +1,5 @@
-"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py
-and tests/test_torch_dist_local.py.
+"""One rank of a gloo process group on the CPU, for tests/test_torch_dist.py,
+tests/test_torch_dist_local.py and tests/test_torch_dist_fallbacks.py.
 
     python tests/torch_mesh_worker.py INPUTS.npz OUTDIR NY NX RANK [MODE]
 
@@ -9,9 +9,10 @@ fields in INPUTS.npz (each rank takes its block), gathers the results and,
 on rank 0, writes them to OUTDIR/out.npz.  MODE ``local`` runs the
 block-local stages (``dist.local``), the overlapped halo sweeps and the
 traffic counters instead; ``band`` the mesh paths of a grid without
-poles (the inputs' ``coords``).  It imports torch, numpy and the port only
-(never JAX), so the parent test can hold the results to the reference
-package.
+poles (the inputs' ``coords``); ``fallbacks`` the cases that once ran on
+the gathered fields, counted (tests/test_torch_dist_fallbacks.py).  It
+imports torch, numpy and the port only (never JAX), so the parent test
+can hold the results to the reference package.
 """
 
 import dataclasses
@@ -105,7 +106,7 @@ def local_stages(grid, mesh, blk, meta, out):
             [[ov["rounds"], ov["split"], ov["in_flight"]]]))
 
     # the traffic of two default coupled steps, and of one exact_quirks
-    # step (its viscosity keeps sharded_call)
+    # step
     kinds = list(dm.TRAFFIC)
 
     def read():
@@ -128,11 +129,10 @@ def local_stages(grid, mesh, blk, meta, out):
 
 
 def band_paths(grid, mesh, blk, out):
-    """The mesh paths of an x-periodic grid without poles, where the local
-    stages do not apply: the halo solvers with their coefficients built on
-    the gathered fields, the flow filter (its masks on the gathered
-    fields, the two-level fixpoint) and the halo fixpoint, with the
-    ``sharded_call``s they make."""
+    """The mesh paths of an x-periodic grid without poles: the halo
+    solvers with their coefficients built on the blocks, the flow filter
+    (its masks on the row groups, the two-level fixpoint) and the halo
+    fixpoint, with the ``sharded_call``s they make (none)."""
     from demiurge_tpu_torch.ops import flow as tf
     from demiurge_tpu_torch.ops import ocean
 
@@ -160,6 +160,106 @@ def band_paths(grid, mesh, blk, out):
     out["calls"] = np.asarray([solvers, dm.traffic()["sharded_call"]])
 
 
+def fallback_paths(grid, mesh, blk, meta, out):
+    """The cases that once ran on the gathered fields, each through its
+    entry point with the traffic counters zeroed just before and read
+    just after: a climate dispatch deeper than a row group (on a grid of
+    even and of uneven row groups, and one that a group of 9 rows would
+    run in one chunk and one of 8 in two), the flow masks and the whole flow
+    filter on 4-row groups, the ``exact_quirks`` viscosity, a
+    warm-started pressure solve, the stages of a grid without poles;
+    then the row-halo exchange deeper than a row group."""
+    from demiurge_tpu_torch.dist import local
+    from demiurge_tpu_torch.kernels import jacobi as kj
+    from demiurge_tpu_torch.kernels.flow import pack_masks
+    from demiurge_tpu_torch.ops import flow as tf
+    from demiurge_tpu_torch.ops import ocean, temperature
+
+    kinds = list(dm.TRAFFIC)
+    band = Grid(*meta["shape"], coords=tuple(meta["band"]))
+    results, counts = {}, []
+
+    def case(name, fn):
+        dm.reset_traffic()
+        results[name] = fn()
+        tr = dm.traffic()
+        counts.append([tr["sharded_call"], tr["field_gathers"]]
+                      + [tr["bytes"][k] for k in kinds])
+
+    def climate(prefix, g, substeps):
+        return lambda: temperature.temperature_step(
+            blk[f"{prefix}_T"], blk[f"{prefix}_terrain"], 3.0, g,
+            substeps=substeps, mesh=mesh)[0]
+
+    W = grid.width
+    flow_grid = Grid(W, 4 * mesh.size)
+    fh, fsel = blk[f"f{mesh.size}_h"], blk[f"f{mesh.size}_sel"]
+    quirks = ocean.OceanConfig(diffusion_iters=25, exact_quirks=True)
+    warm = ocean.OceanConfig(jacobi_iters=20)
+    u, v, t = blk["u"], blk["v"], blk["terrain"]
+    case("climate", climate("c", Grid(W, 32), 40))
+    case("climate_uneven", climate("e", Grid(W, 34), 40))
+    case("climate_odd", climate("e", Grid(W, 34), 9))
+    case("flow_masks", lambda: local.flow_masks_rows(fh, fsel, flow_grid,
+                                                     mesh, 0.5))
+    case("flow_filter", lambda: tf.flow_filter_device(
+        fh, fsel, flow_grid, return_acc=True, mesh=mesh))
+    case("flow_uneven", lambda: tf.flow_filter_device(
+        blk["e_terrain"], torch.ones_like(blk["e_terrain"]), Grid(W, 34),
+        return_acc=True, mesh=mesh))
+    case("quirks", lambda: ocean.diffusion(u, v, t, grid, quirks,
+                                           mesh=mesh))
+    case("pressure_p0", lambda: ocean.pressure_solve(
+        blk["div"], t, grid, warm, p0=blk["p0"], mesh=mesh))
+    case("band_pcoef", lambda: local.block_or_gathered(
+        kj.coefficients, band, mesh, 1, halo=(1,))(blk["div"], t, band))
+    case("band_dcoef", lambda: local.block_or_gathered(
+        kj.diffusion_coefficients, band, mesh, 1, halo=(0,))(t, band))
+    case("band_pack", lambda: local.block_or_gathered(
+        pack_masks, band, mesh, 1, halo=(0,))(
+            blk["band_code"], blk["band_mouth"].bool(), band))
+    case("band_masks", lambda: local.flow_masks_rows(
+        blk["rough"], blk["sel"], band, mesh, 0.5))
+    case("band_climate", climate("b", band, 40))
+    case("band_quirks", lambda: ocean.diffusion(u, v, t, band, quirks,
+                                                mesh=mesh))
+
+    for name, res in results.items():
+        res = res if isinstance(res, tuple) else (res,)
+        for i, x in enumerate(res):
+            key = f"{name}{i}"
+            if name in ("flow_masks", "band_masks"):   # row groups
+                out[key] = dm.all_gather_rows(x, mesh).numpy()
+            else:
+                out[key] = dm.gather_field(x.float(), mesh).numpy()
+    out["cases"] = np.asarray(json.dumps(list(results)))
+    out["traffic_kinds"] = np.asarray(json.dumps(kinds))
+    out["counts"] = dm.all_gather_rows(
+        torch.tensor(counts, dtype=torch.float64).reshape(1, -1),
+        mesh).numpy()
+
+    # the row-halo exchange 1.5 groups deep
+    rows = dm.blocks_to_rows(blk["f"], mesh)
+    k = int(np.diff(dm.row_groups(grid.height, mesh)).min()) * 3 // 2
+    out["deep_k"] = np.asarray(k)
+    out["deep"] = dm.all_gather_rows(rows_strip(rows, k, grid, mesh),
+                                     mesh).numpy()
+
+
+def rows_strip(rows, k, grid, mesh):
+    """``exchange_rows_halo``'s strip set into rows [lo - k, hi + k) of
+    this rank's group, NaN beyond the grid's first and last row (every
+    rank's the same size, for ``all_gather_rows``)."""
+    from demiurge_tpu_torch.dist import local
+
+    lo, hi = dm.row_group(grid.height, mesh)
+    win = local.rows_window(grid, mesh, k)
+    full = torch.full((hi - lo + 2 * k, grid.width), float("nan"))
+    at = win.row0 - (lo - k)
+    full[at:at + win.height] = halo.exchange_rows_halo(rows, k, mesh, grid)
+    return full
+
+
 def main(inputs, outdir, ny, nx, rank, mode=""):
     torch.set_num_threads(1)
     outdir = pathlib.Path(outdir)
@@ -174,9 +274,10 @@ def main(inputs, outdir, ny, nx, rank, mode=""):
     blk = {k: dm.shard_field(v, mesh) if v.dim() == 2 else v
            for k, v in full.items()}
     out = {}
-    if mode in ("local", "band"):
-        (local_stages(grid, mesh, blk, meta, out) if mode == "local"
-         else band_paths(grid, mesh, blk, out))
+    if mode in ("local", "band", "fallbacks"):
+        {"local": local_stages,
+         "band": lambda g, m, b, _, o: band_paths(g, m, b, o),
+         "fallbacks": fallback_paths}[mode](grid, mesh, blk, meta, out)
         if rank == 0:
             np.savez(outdir / "out.npz", **out)
         dist.destroy_process_group()
@@ -192,10 +293,9 @@ def main(inputs, outdir, ny, nx, rank, mode=""):
     put("halo_neg", halo.exchange_halo(f, k, grid, mesh, negate_pole=True))
     rows = dm.blocks_to_rows(f, mesh)
     out["rows"] = dm.all_gather_rows(rows, mesh).numpy()
-    for edge in ("reflect", "flip", "clamp", "zero"):
-        out[f"rows_{edge}"] = dm.all_gather_rows(
-            halo.exchange_rows_halo(rows, k, mesh, grid, edge), mesh).numpy()
-    put("rows_back", dm.rows_to_blocks(rows, mesh))
+    out["rows_strip"] = dm.all_gather_rows(rows_strip(rows, k, grid, mesh),
+                                           mesh).numpy()
+    put("rows_back", dm.rows_to_blocks(rows, mesh, grid.height))
 
     # both sharded flow solves
     args = (blk["code"], blk["area"], blk["mouth"].bool(), grid, mesh)
