@@ -15,10 +15,14 @@ the steps are substeps, run in dispatches of 250), --seed the terrain's
 fBm seed, --jacobi the ocean command's pressure sweeps, --save out.npz,
 --png out.png (the final field through the default appearance chain:
 the terrain, or for ``climate`` the temperature, as the reference
-renders them), --log metrics.jsonl, --device (default ``cuda``;
-``--device cpu`` runs the kernels' plain twins), --mesh NYxNX (the fields
-split over NY*NX processes, started by torchrun, ``--nproc-per-node
-NY*NX``; NCCL on ``cuda``, gloo on ``cpu``).  ``coupled`` takes
+renders them), --log metrics.jsonl, --xprof DIR (the command under
+``torch.profiler``, host and card, written as one Chrome trace,
+DIR/trace.json: the program's spans, ``core.trace``, with the kernels,
+copies and fills they launched; under a mesh rank 0's), --device
+(default ``cuda``; ``--device cpu`` runs the kernels' plain twins),
+--mesh NYxNX (the fields split over NY*NX processes, started by
+torchrun, ``--nproc-per-node NY*NX``; NCCL on ``cuda``, gloo on
+``cpu``).  ``coupled`` takes
 --checkpoint FILE (the state written every --checkpoint-every steps and
 at the end, in the reference's format) and --resume (restart from FILE
 when it exists).  ``erosion`` is the reference's fluvial
@@ -72,6 +76,8 @@ def _build_parser():
         sp.add_argument("--checkpoint-every", type=int, default=10)
         sp.add_argument("--resume", action="store_true",
                         help="resume from --checkpoint if it exists")
+        sp.add_argument("--xprof", type=str, default=None,
+                        help="write a profiler trace to DIR/trace.json")
 
     common(sub.add_parser("erosion", help="fluvial erosion (BASELINE 1)"),
            1024, 512, 100)
@@ -198,10 +204,17 @@ def main(argv=None):
     # no fallback: without a card the default device fails at the first
     # tensor it creates (or, under a mesh, at the NCCL group)
     lay = _Layout(parser, args)
-    device, mesh = lay.device, lay.mesh
     grid = Grid(args.width, args.height)
     logger = M.StepLogger(grid, path=args.log if lay.lead else None)
+    with M.maybe_profile(args.xprof if lay.lead else None):
+        return _command(args, grid, lay, logger)
 
+
+def _command(args, grid, lay, logger):
+    """Run ``args.cmd``; returns what ``main`` returns."""
+    from ..utils import metrics as M
+
+    device, mesh = lay.device, lay.mesh
     if args.cmd in ("erosion", "tectonic-erosion"):
         from ..ops import erosion
 

@@ -32,7 +32,9 @@ local fixpoint and writes back what changed; a round in which no tile
 wrote certifies the fixpoint (the argument is in the source).
 ``LAUNCHES_A`` / ``LAUNCHES_VIS`` count kernel launches (one per round);
 ``LAST_SOLVE`` holds the last CUDA solve's rounds, launches, host reads,
-tile visits and the most inner sweeps a visit took.
+tile visits and the most inner sweeps a visit took.  Each host read of a
+solve's flags sits in a span ``flow.read`` (``core.trace``): the spans in a
+profile count the reads and hold their waits.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 from ..core.grid import Grid
 from ..core.platform import check_kernel_inputs, use_cuda_kernels
 from ..core.topology import DIR_CODE, NEIGHBORS_FLOW_ORDER, shift
+from ..core.trace import span
 
 LAUNCHES_A = 0
 LAUNCHES_VIS = 0
@@ -135,7 +138,8 @@ def solve_rounds_cuda(entry: str, args, device, max_sweeps: int) -> dict:
         flags[:n].zero_()
         build.check(fn(*args(flags.data_ptr(), n)), entry)
         launched += n
-        changed = flags[:n].tolist()  # the round's one host read
+        with span("flow.read"):
+            changed = flags[:n].tolist()  # the round's one host read
         reads += 1
         if 0 in changed:
             return {"sweeps": sweeps + changed.index(0) + 1,
@@ -185,7 +189,8 @@ def solve_tiles_cuda(solves, device, shape, max_rounds: int,
                     BATCH)), entry)
         for st in side:
             current.wait_stream(st)
-        rows = stats.tolist()  # the batch's one read
+        with span("flow.read"):
+            rows = stats.tolist()  # the batch's one read
         reads += 1
         for j, (visits, passes, *wrote) in enumerate(rows):
             if out[j] is None and 0 in wrote:

@@ -25,6 +25,7 @@ import dataclasses
 import torch
 
 from .core.grid import Grid
+from .core.trace import span
 from .ops import erosion, flow, ocean, temperature
 
 
@@ -88,24 +89,27 @@ def coupled_step(state: CoupledState, grid: Grid,
     options and on any x-periodic grid; on a grid that does not wrap in x
     (regional), and with ``advect_method="exact"``, the stages that have
     no local form run on the gathered fields (``dist.mesh.
-    sharded_call``)."""
-    h = state.height
-    T, ti = temperature.temperature_step(
-        state.temperature, h, state.t_index, grid,
-        substeps=cfg.climate_substeps, mesh=mesh)
-    u, v, _, _ = ocean.ocean_step(state.u, state.v, h, grid, cfg.ocean,
-                                  mesh=mesh)
-    fm, acc = flow.flow_filter_device(h, state.sel, grid,
-                                      exponent=cfg.flow_exponent,
-                                      preblur=cfg.flow_preblur,
-                                      acc0=state.flow_acc, return_acc=True,
+    sharded_call``).  Spans (``core.trace``): ``coupled_step`` around
+    the step, ``erosion`` around the erosion pass."""
+    with span("coupled_step"):
+        h = state.height
+        T, ti = temperature.temperature_step(
+            state.temperature, h, state.t_index, grid,
+            substeps=cfg.climate_substeps, mesh=mesh)
+        u, v, _, _ = ocean.ocean_step(state.u, state.v, h, grid, cfg.ocean,
                                       mesh=mesh)
-    erode = erosion.erosion_pass
-    if mesh is not None:
-        from .dist.local import block_or_gathered
+        fm, acc = flow.flow_filter_device(h, state.sel, grid,
+                                          exponent=cfg.flow_exponent,
+                                          preblur=cfg.flow_preblur,
+                                          acc0=state.flow_acc,
+                                          return_acc=True, mesh=mesh)
+        erode = erosion.erosion_pass
+        if mesh is not None:
+            from .dist.local import block_or_gathered
 
-        erode = block_or_gathered(erode, grid, mesh, 1, halo=(0,))
-    h = erode(h, fm, state.uplift, grid, cfg.erosion_factor,
-              cfg.erosion_slope_exponent)
+            erode = block_or_gathered(erode, grid, mesh, 1, halo=(0,))
+        with span("erosion"):
+            h = erode(h, fm, state.uplift, grid, cfg.erosion_factor,
+                      cfg.erosion_slope_exponent)
     return CoupledState(height=h, uplift=state.uplift, sel=state.sel, u=u,
                         v=v, temperature=T, t_index=ti, flow_acc=acc)

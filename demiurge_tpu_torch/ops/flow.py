@@ -50,6 +50,7 @@ import torch
 from ..core.grid import Grid
 from ..core.platform import host_to_device
 from ..core.topology import CODE_DIR, DIR_CODE, NEIGHBORS_FLOW_ORDER, shift
+from ..core.trace import span
 from ..kernels import directions as kd
 from ..kernels import flow as kf
 from ..kernels import lakeflow as kl
@@ -363,16 +364,27 @@ def flow_filter_device(height, sel, grid: Grid, exponent: float = 0.5,
     (``dist.flowdist``) or, where that does not apply, the halo-exchange
     relaxation (``dist.halo``); ``acc0`` is not used there, as in the
     reference.  A grid that is not x-periodic runs the whole filter on
-    the gathered fields (``sharded_call``)."""
-    if mesh is not None:
-        return _flow_filter_sharded(height, sel, grid, exponent, preblur,
-                                    acc0, return_acc, mesh)
-    hb = blur(height, grid, preblur)
-    _, packed = kd.directions_packed(hb.contiguous(), sel.contiguous(), grid)
-    area = cell_area_lower_edge(grid, height.device)
-    acc = kf.flow_solve_area(packed, area, grid, a0=acc0)
-    vis = kf.vis_solve(packed, grid)
-    out = torch.where(vis, torch.pow(acc, exponent), -1.0)
+    the gathered fields (``sharded_call``).
+
+    Spans (``core.trace``): ``flow`` around the call and, on one card,
+    ``flow.blur``, ``flow.directions``, ``flow.area``, ``flow.vis`` and
+    ``flow.map`` around its stages."""
+    with span("flow"):
+        if mesh is not None:
+            return _flow_filter_sharded(height, sel, grid, exponent,
+                                        preblur, acc0, return_acc, mesh)
+        with span("flow.blur"):
+            hb = blur(height, grid, preblur)
+        with span("flow.directions"):
+            _, packed = kd.directions_packed(hb.contiguous(),
+                                             sel.contiguous(), grid)
+        with span("flow.area"):
+            area = cell_area_lower_edge(grid, height.device)
+            acc = kf.flow_solve_area(packed, area, grid, a0=acc0)
+        with span("flow.vis"):
+            vis = kf.vis_solve(packed, grid)
+        with span("flow.map"):
+            out = torch.where(vis, torch.pow(acc, exponent), -1.0)
     return (out, acc) if return_acc else out
 
 
@@ -602,7 +614,9 @@ def flow_filter(height, sel, grid: Grid, cfg: FlowConfig = FlowConfig(),
     direction pass (K6's codes form) run on the tensors' device; mask,
     mouths, the unblurred height and the parent pointers are copied to the
     host once for ``lake_solver`` (default: ``default_lake_solver()``),
-    and its connections copied back for the relaxation."""
+    and its connections (and the lakes' water heights) copied back for
+    the relaxation.  Spans (``core.trace``): ``flow.lake_copies`` around
+    the copies each way, ``flow.lake_solve`` around the host solve."""
     if lake_solver is None:
         lake_solver = default_lake_solver()
     dev = height.device
@@ -612,12 +626,18 @@ def flow_filter(height, sel, grid: Grid, cfg: FlowConfig = FlowConfig(),
     mask, mouth, _ = incoming_mask(code, grid)
     parent = parent_pointers(code, grid)
 
-    sol = lake_solver(mask.cpu().numpy().reshape(-1),
-                      mouth.cpu().numpy().reshape(-1),
-                      height.cpu().numpy().reshape(-1),
-                      parent.cpu().numpy(), grid)
-    conn_from = host_to_device(sol.conn_from.astype(np.int64), dev)
-    conn_to = host_to_device(sol.conn_to.astype(np.int64), dev)
+    with span("flow.lake_copies"):
+        host = (mask.cpu().numpy().reshape(-1),
+                mouth.cpu().numpy().reshape(-1),
+                height.cpu().numpy().reshape(-1), parent.cpu().numpy())
+    with span("flow.lake_solve"):
+        sol = lake_solver(*host, grid)
+    with span("flow.lake_copies"):
+        conn_from = host_to_device(sol.conn_from.astype(np.int64), dev)
+        conn_to = host_to_device(sol.conn_to.astype(np.int64), dev)
+        if cfg.lakes:
+            wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf),
+                                dev)
 
     area = cell_area_lower_edge(grid, dev, cfg.area_scale)
     acc, vis, root = flow_solve_stencil(code, area, mouth, grid,
@@ -626,7 +646,6 @@ def flow_filter(height, sel, grid: Grid, cfg: FlowConfig = FlowConfig(),
     flow = torch.where(vis, torch.pow(acc, cfg.exponent), -1.0)
 
     if cfg.lakes:
-        wh = host_to_device(np.nan_to_num(sol.lake_wh, nan=-np.inf), dev)
         cell_wh = torch.where(root >= 0, wh[torch.clamp(root, min=0)],
                               -math.inf)
         flow = torch.where(vis & (height <= cell_wh), 0.0, flow)

@@ -36,6 +36,7 @@ import torch
 from ..core.grid import Grid
 from ..core.platform import host_to_device, use_cuda_kernels
 from ..core.topology import sample_bilinear, shift
+from ..core.trace import span
 from ..kernels import advect as ka
 from ..kernels import jacobi as kj
 from .pressure_cg import pressure_solve_cg
@@ -510,7 +511,8 @@ def diffusion(u, v, terrain, grid: Grid, cfg: OceanConfig, mesh=None):
                                             iters=cfg.diffusion_iters)
     if cfg.exact_quirks:
         return _diffusion_quirks(u, v, terrain, grid, cfg)
-    coeffs = kj.diffusion_coefficients(terrain, grid)
+    with span("ocean.viscosity.coefficients"):
+        coeffs = kj.diffusion_coefficients(terrain, grid)
     return kj.diffusion_solve(*coeffs, u, v, grid, cfg.diffusion_iters)
 
 
@@ -562,7 +564,8 @@ def pressure_solve(divw, terrain, grid: Grid, cfg: OceanConfig, p0=None,
         jacobi = dataclasses.replace(cfg, pressure_method="auto")
         return sharded_call(pressure_solve, mesh)(divw, terrain, grid,
                                                   jacobi, p0)
-    coeffs = kj.coefficients(divw, terrain, grid)
+    with span("ocean.pressure.coefficients"):
+        coeffs = kj.coefficients(divw, terrain, grid)
     p = torch.zeros_like(divw) if p0 is None else p0
     return kj.pressure_solve(*coeffs, p, grid, cfg.jacobi_iters)
 
@@ -633,20 +636,32 @@ def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig(),
     ``dist.halo``), divergence and projection on the blocks with a 1-ring
     halo (``dist.local``; the velocity halo negated beyond a pole), or on
     the gathered fields (``sharded_call``) on a grid that is not
-    x-periodic."""
-    if mesh is None:
-        div_fn, project_fn = divergence, project
-    else:
-        from ..dist.local import block_or_gathered
+    x-periodic.  Spans (``core.trace``): ``ocean`` around the step,
+    ``ocean.advect``, ``ocean.viscosity``, ``ocean.divergence``,
+    ``ocean.pressure`` and ``ocean.project`` around its stages, and on
+    one card ``ocean.viscosity.coefficients`` and
+    ``ocean.pressure.coefficients`` around the solves' coefficient
+    builds."""
+    with span("ocean"):
+        if mesh is None:
+            div_fn, project_fn = divergence, project
+        else:
+            from ..dist.local import block_or_gathered
 
-        div_fn = block_or_gathered(divergence, grid, mesh, 1,
-                                   halo=(0, 1, 2), negate=(0, 1))
-        project_fn = block_or_gathered(project, grid, mesh, 1, halo=(2, 3))
-    u, v = advect(u, v, terrain, grid, cfg, mesh=mesh)
-    u, v = diffusion(u, v, terrain, grid, cfg, mesh=mesh)
-    div = div_fn(u, v, terrain, grid, cfg)
-    p = pressure_solve(div, terrain, grid, cfg, mesh=mesh)
-    u, v = project_fn(u, v, p, terrain, grid, cfg)
+            div_fn = block_or_gathered(divergence, grid, mesh, 1,
+                                       halo=(0, 1, 2), negate=(0, 1))
+            project_fn = block_or_gathered(project, grid, mesh, 1,
+                                           halo=(2, 3))
+        with span("ocean.advect"):
+            u, v = advect(u, v, terrain, grid, cfg, mesh=mesh)
+        with span("ocean.viscosity"):
+            u, v = diffusion(u, v, terrain, grid, cfg, mesh=mesh)
+        with span("ocean.divergence"):
+            div = div_fn(u, v, terrain, grid, cfg)
+        with span("ocean.pressure"):
+            p = pressure_solve(div, terrain, grid, cfg, mesh=mesh)
+        with span("ocean.project"):
+            u, v = project_fn(u, v, p, terrain, grid, cfg)
     return u, v, p, div
 
 

@@ -29,6 +29,7 @@ import torch
 
 from ..core.grid import Grid
 from ..core.stencils import texture_laplacian
+from ..core.trace import span
 from ..kernels import climate as kc
 
 PI = math.pi
@@ -134,26 +135,28 @@ def temperature_step(T, terrain, i0, grid: Grid, substeps: int = 10,
     blocks, and the substeps run on this rank's row group, up to its rows
     of substeps per row-halo exchange (``dist.climate``); a grid that is
     not x-periodic (which the single-device step refuses too) on the
-    gathered fields (``sharded_call``)."""
-    if mesh is not None:
-        from ..dist.climate import (climate_sharded_supported,
-                                    climate_step_sharded)
-        from ..dist.mesh import sharded_call
+    gathered fields (``sharded_call``).  The span ``climate``
+    (``core.trace``) holds the call."""
+    with span("climate"):
+        if mesh is not None:
+            from ..dist.climate import (climate_sharded_supported,
+                                        climate_step_sharded)
+            from ..dist.mesh import sharded_call
 
-        if climate_sharded_supported(grid, mesh):
-            return climate_step_sharded(T, terrain, i0, grid, mesh,
-                                        substeps=substeps, albedo=albedo,
-                                        diffusivity=diffusivity)
-        return sharded_call(temperature_step, mesh)(
-            T, terrain, i0, grid, substeps, albedo, diffusivity)
-    i0 = _as_index(i0, T.device)
-    if substeps == 0:
-        return T, i0
-    asr = insolation_table(grid, i0, substeps, albedo)
-    cinv = (YEAR_SECONDS / SUBSTEPS_PER_YEAR / heat_capacity(terrain)
-            ).contiguous()
-    T = kc.climate_step(T.contiguous(), cinv, asr, grid, diffusivity)
-    return T, i0 + float(substeps)
+            if climate_sharded_supported(grid, mesh):
+                return climate_step_sharded(T, terrain, i0, grid, mesh,
+                                            substeps=substeps, albedo=albedo,
+                                            diffusivity=diffusivity)
+            return sharded_call(temperature_step, mesh)(
+                T, terrain, i0, grid, substeps, albedo, diffusivity)
+        i0 = _as_index(i0, T.device)
+        if substeps == 0:
+            return T, i0
+        asr = insolation_table(grid, i0, substeps, albedo)
+        cinv = (YEAR_SECONDS / SUBSTEPS_PER_YEAR / heat_capacity(terrain)
+                ).contiguous()
+        T = kc.climate_step(T.contiguous(), cinv, asr, grid, diffusivity)
+        return T, i0 + float(substeps)
 
 
 def run_years(T, terrain, grid: Grid, years: float = 1.0, i0=0.0,

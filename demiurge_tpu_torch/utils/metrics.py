@@ -2,8 +2,10 @@
 
 Counterpart of ``demiurge_tpu/utils/metrics.py``: per-step physical
 diagnostics (mass, divergence norm, mean temperature), throughput accounting
-(grid-points/s), and a JSON-lines step logger.  The reference's ``--xprof``
-trace flag is not ported; the CLI does not accept it.  Under a ``mesh``
+(grid-points/s), a JSON-lines step logger, and ``maybe_profile``, the
+CLI's ``--xprof DIR``: one Chrome trace of a command's steps, the
+program's spans (``core.trace``) and the device's events on one clock.
+Under a ``mesh``
 (``dist.mesh``) the fields are this rank's blocks: each rank sums its own
 block and one all_reduce adds the sums, so no field leaves its rank (the
 sums' order differs from one device's, an ulp or so).
@@ -11,7 +13,9 @@ sums' order differs from one device's, an ulp or so).
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import time
 from typing import Optional
@@ -119,3 +123,23 @@ class StepLogger:
     def close(self):
         if self.file:
             self.file.close()
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: Optional[str]):
+    """A ``torch.profiler`` profile of the block, host and (where this
+    build of torch traces one) card, written as one Chrome trace,
+    ``trace_dir/trace.json``, when a directory is given (the ``--xprof``
+    flag); otherwise nothing."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, \
+        supported_activities
+
+    acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+            if a in supported_activities()]
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
