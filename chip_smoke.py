@@ -21,13 +21,17 @@
    of max|u| with NaN and inf where the twin's are, the count of
    differing values printed; the fused kernels timed on the device with
    their launches queued ahead of the host (``tools.timing.device_ms``);
+   the projection kernel (K13) against ``ocean.project`` at 8192x4096 and
+   2048x1024 (``tools.project_race``, the CLI's terrain and a step's
+   projection inputs): bit for bit, timed on the device beside the twin
+   and the stage's 24-byte bounds, 0.240 and 0.015 ms;
 4. the ocean path with every launch counter at 0: the ``ocean`` CLI (1 step
    at --jacobi 1000, 5 at --jacobi 200, 1 at 2048x1000, which takes the
    one-row table) and 5 ``ocean_step``s at the coupled model's solver
-   depths; fails unless its kernels launched, the advect stage ran as one
-   fused launch a step, the
-   fields are finite, the CLI logged ``advect_clamped``, and the kernel
-   path's (u, v) match the same 5 steps through the plain twins (1e-5 of
+   depths; fails unless its kernels launched, the advect stage and the
+   projection ran as one fused launch each a step, the fields are
+   finite, the CLI logged ``advect_clamped``, and the kernel path's
+   (u, v) match the same 5 steps through the plain twins (1e-5 of
    max|u|);
 5. the coupled step's kernels at 2048x1024 (the same terrain, and a state
    after one coupled step through the plain twins), each against its twin:
@@ -308,11 +312,13 @@ def main() -> int:
     from demiurge_tpu_torch.kernels import jacobi as kj
     from demiurge_tpu_torch.kernels import jacobi_packed as kp
     from demiurge_tpu_torch.kernels import lakeflow as kl
+    from demiurge_tpu_torch.kernels import project as kpr
     from demiurge_tpu_torch.ops import blur as ob
     from demiurge_tpu_torch.ops import erosion, ocean, temperature
     from demiurge_tpu_torch.ops import flow as of
     from demiurge_tpu_torch.tools import flow_tune as ft
     from demiurge_tpu_torch.tools import flow_inputs, serpentine
+    from demiurge_tpu_torch.tools import project_race
     from demiurge_tpu_torch.tools.timing import device_ms
 
     # -- 1. setup ------------------------------------------------------------
@@ -362,14 +368,15 @@ def main() -> int:
                 "lake_relax": (kl, "LAUNCHES"),
                 "lake_area_tiles": (kl, "LAUNCHES_AREA_TILES"),
                 "lake_vis_tiles": (kl, "LAUNCHES_VIS_TILES"),
-                "lake_root_tiles": (kl, "LAUNCHES_ROOT_TILES")}
+                "lake_root_tiles": (kl, "LAUNCHES_ROOT_TILES"),
+                "ocean_project": (kpr, "LAUNCHES")}
     # K12's tiled solve: its three kernels, one for each field
     lake_tiles = ["lake_area_tiles", "lake_vis_tiles", "lake_root_tiles"]
     # the kernels of the single-card coupled path; the mesh path's are
     # phase 8's, the one-row table's phase 4's, K11's phase 9's
     single_card = ["jacobi_pressure", "jacobi_diffusion", "climate", "blur",
                    "flow_solve", "flow_vis", "advect_stage",
-                   "flow_directions_packed"]
+                   "flow_directions_packed", "ocean_project"]
 
     def zero_counts():
         for mod, attr in counters.values():
@@ -401,6 +408,7 @@ def main() -> int:
                  (kj, "diffusion_solve", kj.diffusion_solve_plain),
                  (ka, "advect_sample", ka.advect_sample_tiered_plain),
                  (ka, "advect_stage", ka.advect_stage_plain),
+                 (kpr, "project_stage", ocean.project),
                  (kc, "climate_step", kc.climate_step_plain),
                  (kb, "blur", kb.blur_plain),
                  (kd, "flow_directions", kd.flow_directions_plain),
@@ -675,6 +683,25 @@ def main() -> int:
            f"around the plain tap sum): {note_b}")
     del terrain_b
 
+    # the projection stage (K13) against its twin at the two CLI sizes
+    tile = f"{kpr.TILE[0]}x{kpr.TILE[1]}"
+    races = {}
+    for size in (BIG, (W, H)):
+        races[size] = project_race.race(*size, [kpr.TILE], 50, SEED)
+        print(f"  projection: {json.dumps(races[size])} ({card})")
+    big_race, race = races[BIG], races[(W, H)]
+    record("ocean_project", "demiurge_tpu_torch/csrc/project.cu",
+           "none: XLA's fused project, demiurge_tpu/ops/ocean.py:596", 0.0,
+           big_race["tiles"][tile]["ms"], big_race["twin_ms"],
+           24.0 * BIG[0] * BIG[1], 100 * BIG[0] * BIG[1],
+           f"the whole single-card projection in one launch at "
+           f"{BIG[0]}x{BIG[1]}, bit for bit there and at {W}x{H} (device "
+           f"time, launches queued ahead); {W}x{H}: "
+           f"{race['tiles'][tile]['ms']} ms, twin {race['twin_ms']} ms, "
+           f"bound {race['bound_ms']} ms; what the inputs need (12 bytes "
+           f"a land pixel): {big_race['need_ms']} and {race['need_ms']} ms")
+    del races
+
     # -- 4. the ocean path, counted ------------------------------------------
     zero_counts()
     log_text = io.StringIO()
@@ -693,7 +720,7 @@ def main() -> int:
     ocean_launches = read_counts(["jacobi_pressure", "jacobi_diffusion",
                                   "advect_sample_tiered",
                                   "advect_sample_pallas", "advect_stage",
-                                  "advect_stage_one_row"])
+                                  "advect_stage_one_row", "ocean_project"])
     ocean_forms = own_forms(read_counts(list(counters)))
     records = [json.loads(line) for line in log_text.getvalue().splitlines()
                if line.startswith("{")]
@@ -709,6 +736,7 @@ def main() -> int:
     assert ocean_launches["advect_sample_tiered"] == 12, ocean_launches
     assert ocean_launches["advect_sample_pallas"] == 1, ocean_launches
     assert ocean_launches["advect_stage_one_row"] == 1, ocean_launches
+    assert ocean_launches["ocean_project"] == 12, ocean_launches
     for f in (u, v, p, d):
         assert f.shape == (H, W) and bool(torch.isfinite(f).all())
     u_ref, v_ref = u0, v0
@@ -2797,7 +2825,8 @@ def main() -> int:
     for name, ms, _, _ in rows:
         print(f"  {name:32s} {ms:10.2f} ms  {100 * ms / sess_ms:5.1f}%")
     for name in ("climate", "jacobi_pressure", "jacobi_diffusion",
-                 "advect_stage", "blur", "flow_directions", *lake_tiles):
+                 "advect_stage", "ocean_project", "blur", "flow_directions",
+                 *lake_tiles):
         assert session_forms[name] > 0, f"{name} never launched"
     assert session_forms["flow_directions_packed"] == 0, session_forms
     assert session_forms["lake_relax"] == 0, session_forms
@@ -3187,8 +3216,8 @@ def main() -> int:
     for n in ("blur", "flow_directions", "lake_relax", *lake_tiles):
         main_launches[n] += erosion_forms[n] + tecto_forms[n]
     for n in ("climate", "jacobi_pressure", "jacobi_diffusion",
-              "advect_stage", "blur", "flow_directions", "lake_relax",
-              *lake_tiles):
+              "advect_stage", "ocean_project", "blur", "flow_directions",
+              "lake_relax", *lake_tiles):
         main_launches[n] += session_forms[n]
     for forms in (ckpt_forms, mesh13_forms, mesh8c_forms):
         for n, v in forms.items():

@@ -3,10 +3,10 @@ its plain PyTorch twin.  ``build`` compiles the sources at first use; it is
 imported only by a wrapper that was handed a CUDA tensor."""
 
 from . import (advect, blur, climate, directions, flow, flow2,
-               flow_deadends, jacobi, jacobi_packed, lakeflow)
+               flow_deadends, jacobi, jacobi_packed, lakeflow, project)
 
 __all__ = ["advect", "blur", "climate", "directions", "flow", "flow2",
-           "flow_deadends", "jacobi", "jacobi_packed", "lakeflow",
+           "flow_deadends", "jacobi", "jacobi_packed", "lakeflow", "project",
            "launch_counts"]
 
 
@@ -41,4 +41,5 @@ def launch_counts() -> dict:
             "lake_relax": lakeflow.LAUNCHES,
             "lake_area_tiles": lakeflow.LAUNCHES_AREA_TILES,
             "lake_vis_tiles": lakeflow.LAUNCHES_VIS_TILES,
-            "lake_root_tiles": lakeflow.LAUNCHES_ROOT_TILES}
+            "lake_root_tiles": lakeflow.LAUNCHES_ROOT_TILES,
+            "ocean_project": project.LAUNCHES}

@@ -50,6 +50,9 @@ SIGNATURES = {
     # nscalars, ou ov, H W Ry Rf stride, stream
     "demiurge_advect_stage": [_P] * 5 + [_I] * 2 + [_P, _I] + [_P] * 2
     + [_I] * 5 + [_P],
+    # u v p terrain tables, scalars(host) nscalars, fu fv, H W wrap_s wrap_n
+    # pole_shift th tw, stream
+    "demiurge_project_stage": [_P] * 6 + [_I] + [_P] * 2 + [_I] * 7 + [_P],
     # T cinv asr shifts out, H W wrap_s wrap_n pole_shift steps cluster seg
     # th, diff_scale olr_coef, stream
     "demiurge_climate_band": [_P] * 5 + [_I] * 9 + [_F] * 2 + [_P],

@@ -16,11 +16,13 @@ Counterpart of ``demiurge_tpu/ops/ocean.py`` (intent mode in full, and
 
 On CUDA tensors the three solves run on the hand-written kernels, and the
 whole single-card advect stage is one launch (``kernels.advect``'s stage
-form); on CPU tensors they run on their plain twins (``advect_plain`` for
-the stage).  ``advect_method="exact"``, and any grid that is not
-x-periodic, samples by bilinear gathers instead (``advect_gather``), as
-the reference does on either device.  ``pressure_method="cg"`` solves
-the pressure by preconditioned CG instead (``ops.pressure_cg``).
+form), as is the single-card projection on an x-periodic grid
+(``kernels.project``); on CPU tensors they run on their plain twins
+(``advect_plain`` and ``project`` for the stages).
+``advect_method="exact"``, and any grid that is not x-periodic, samples by
+bilinear gathers instead (``advect_gather``), as the reference does on
+either device.  ``pressure_method="cg"`` solves the pressure by
+preconditioned CG instead (``ops.pressure_cg``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..core.topology import sample_bilinear, shift
 from ..core.trace import span
 from ..kernels import advect as ka
 from ..kernels import jacobi as kj
+from ..kernels import project as kpr
 from .pressure_cg import pressure_solve_cg
 
 PI = math.pi
@@ -50,6 +53,7 @@ STRESS_EXP = -2.0 / 24.0
 DRAG = 1.0 - 0.4 ** (1.0 / 24.0)
 
 _TABLES: dict = {}  # (grid, device) -> StageTables
+_PROJECT_TABLES: dict = {}  # (grid, device) -> project_tables
 _PLANS: dict = {}   # (grid, cfg, tiered, device) -> sampler_plan
 
 
@@ -627,16 +631,50 @@ def project(u, v, p, terrain, grid: Grid, cfg: OceanConfig):
     return fu, fv
 
 
+def project_tables(grid: Grid, device) -> torch.Tensor:
+    """The projection kernel's per-grid table [pwx (H) | area (H) | pwy],
+    built once per grid and device by the torch ops that ``project`` runs
+    on every call."""
+    key = (grid, str(device))
+    if key not in _PROJECT_TABLES:
+        dxr, dyr = grid.pixelsize_rows(device)
+        pwx = dxr / 420.0
+        pwy = dyr / 420.0
+        area = dxr * dyr
+        _PROJECT_TABLES[key] = torch.cat(
+            [pwx.reshape(-1), area.reshape(-1), pwy.reshape(1)]).contiguous()
+    return _PROJECT_TABLES[key]
+
+
+@functools.lru_cache(maxsize=None)
+def project_scalars(cfg: OceanConfig) -> np.ndarray:
+    """The projection kernel's scalars (csrc/project.cu ProjectScalars),
+    each the float32 that torch makes of the Python number ``project``
+    writes, the divisors as float32 reciprocals (as ``stage_scalars``):
+    1/pressurefactor, 1/PI, 2*PI, then dx/norm and dy/norm of the 8
+    directions.  Built once per config; callers must not write to it."""
+    f = np.float32
+    offsets = [(1, 0), (1, 1), (0, 1), (-1, 1), (-1, 0), (-1, -1), (0, -1),
+               (1, -1)]                                # project's, its order
+    norms = [math.sqrt(dx * dx + dy * dy) for dx, dy in offsets]
+    return np.array([f(1) / f(cfg.pressurefactor), f(1) / f(PI), 2 * PI,
+                     *(dx / n for (dx, _), n in zip(offsets, norms)),
+                     *(dy / n for (_, dy), n in zip(offsets, norms))],
+                    np.float32)
+
+
 def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig(),
                mesh=None):
     """One full outer step. Returns (u, v, p, div).
 
+    One card: the projection is ``kernels.project.project_stage``, one
+    launch on CUDA tensors of an x-periodic grid, else ``project``.
     ``mesh``: the fields are this rank's blocks; the sampler and the two
     iterative solvers run their block forms (``dist.advect``,
-    ``dist.halo``), divergence and projection on the blocks with a 1-ring
-    halo (``dist.local``; the velocity halo negated beyond a pole), or on
-    the gathered fields (``sharded_call``) on a grid that is not
-    x-periodic.  Spans (``core.trace``): ``ocean`` around the step,
+    ``dist.halo``), divergence and projection (``project``) on the blocks
+    with a 1-ring halo (``dist.local``; the velocity halo negated beyond a
+    pole), or on the gathered fields (``sharded_call``) on a grid that is
+    not x-periodic.  Spans (``core.trace``): ``ocean`` around the step,
     ``ocean.advect``, ``ocean.viscosity``, ``ocean.divergence``,
     ``ocean.pressure`` and ``ocean.project`` around its stages, and on
     one card ``ocean.viscosity.coefficients`` and
@@ -644,7 +682,7 @@ def ocean_step(u, v, terrain, grid: Grid, cfg: OceanConfig = OceanConfig(),
     builds."""
     with span("ocean"):
         if mesh is None:
-            div_fn, project_fn = divergence, project
+            div_fn, project_fn = divergence, kpr.project_stage
         else:
             from ..dist.local import block_or_gathered
 

@@ -205,11 +205,102 @@ def test_advect_stage_raises_on_a_refused_launch(dev, monkeypatch):
     assert (ka.LAUNCHES, ka.LAUNCHES_STAGE) == before
 
 
+BAND = (-1.0, 0.9, -PI, PI)  # x-periodic, clamped in y
+
+
+def _project_case(W, H, coords, dev):
+    """A terrain with coasts, random (u, v) and a random pressure whose
+    gradient term is as large as (u, v) at mid-latitude."""
+    grid, h, u, v = _case(W, H, coords, dev, seed=5)
+    tab = ocean.project_tables(grid, dev)
+    scale = float(0.1 / 0.5 * tab[H // 2] * tab[H + H // 2] * 100.0)
+    p = torch.randn(grid.shape, generator=torch.Generator().manual_seed(6))
+    return grid, (h - 0.05) * 20, u, v, (p * scale).to(dev)
+
+
+def _redirects(fu, fv, terrain):
+    """Sea pixels whose velocity points exactly along each of the 8
+    directions, in ``ocean.project``'s order: the redirected ones (an
+    unredirected velocity lies off these lines but by chance)."""
+    sea = terrain <= 0
+    counts = []
+    for dx, dy in ((1, 0), (1, 1), (0, 1), (-1, 1), (-1, 0), (-1, -1),
+                   (0, -1), (1, -1)):
+        on = (torch.sign(fu) == dx) & (torch.sign(fv) == dy)
+        if dx and dy:
+            on &= fu.abs() == fv.abs()
+        counts.append(int((sea & on & ((fu != 0) | (fv != 0))).sum()))
+    return counts
+
+
+@pytest.mark.parametrize("shape,coords", [((256, 128), GLOBAL),
+                                          ((256, 120), GLOBAL),
+                                          ((256, 128), BAND),
+                                          ((250, 121), GLOBAL)],
+                         ids=["global", "height-120", "band", "ragged"])
+def test_project_stage_kernel_equals_twin(dev, shape, coords):
+    """The projection kernel against ``ocean.project`` on the card, bit
+    for bit, NaN-free, one launch; every one of the 8 redirect directions
+    taken somewhere.  250x121 leaves partial blocks in both directions."""
+    from demiurge_tpu_torch.kernels import project as kpr
+
+    grid, h, u, v, p = _project_case(*shape, coords, dev)
+    cfg = ocean.OceanConfig()
+    before = kpr.LAUNCHES
+    gu, gv = kpr.project_stage_cuda(u, v, p, h, grid, cfg)
+    assert kpr.LAUNCHES - before == 1
+    wu, wv = ocean.project(u, v, p, h, grid, cfg)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(wu).all() and torch.isfinite(wv).all())
+    assert min(_redirects(wu, wv, h)) > 0, _redirects(wu, wv, h)
+    differ = int((gu != wu).sum() + (gv != wv).sum())
+    assert torch.equal(gu, wu) and torch.equal(gv, wv), differ
+
+
+def test_project_stage_raises_on_a_refused_launch(dev, monkeypatch):
+    """A scalar table of another length than csrc/project.cu's is refused
+    by the entry point, and the wrapper raises; nothing is counted."""
+    from demiurge_tpu_torch.kernels import project as kpr
+
+    grid, h, u, v, p = _project_case(256, 128, GLOBAL, dev)
+    real = ocean.project_scalars
+    monkeypatch.setattr(ocean, "project_scalars", lambda c: np.append(
+        real(c), np.float32(0.0)))
+    before = kpr.LAUNCHES
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kpr.project_stage_cuda(u, v, p, h, grid, ocean.OceanConfig())
+    assert kpr.LAUNCHES == before
+
+
+def test_project_stage_rejects_bad_inputs(dev):
+    from demiurge_tpu_torch.kernels import project as kpr
+
+    grid = Grid(64, 32)
+    z = torch.zeros(grid.shape, device=dev)
+    cfg = ocean.OceanConfig()
+    before = kpr.LAUNCHES
+    with pytest.raises(ValueError, match="float32"):
+        kpr.project_stage_cuda(z, z, z.double(), z, grid, cfg)
+    with pytest.raises(ValueError, match="shape"):
+        kpr.project_stage_cuda(z, z, z, z[:16], grid, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        zt = torch.zeros(64, 32, device=dev).t()
+        kpr.project_stage_cuda(zt, z, z, z, grid, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        kpr.project_stage_cuda(z, z, z, z.cpu(), grid, cfg)
+    with pytest.raises(NotImplementedError):
+        kpr.project_stage_cuda(z, z, z, z, Grid(64, 32, REGIONAL), cfg)
+    assert kpr.LAUNCHES == before
+
+
 def test_ocean_step_on_the_card_matches_the_cpu(dev):
     """Three steps at 256x128 on the card (tiered advect, Jacobi kernels)
     against the CPU (single-radius advect, plain twins): the two advect
     forms agree wherever no pixel is clamped, which holds at these
-    speeds; the rest is f32 rounding of the card's libm."""
+    speeds; the rest is f32 rounding of the card's libm.  The card's
+    projection is one kernel launch a step, the CPU's none."""
+    from demiurge_tpu_torch.kernels import launch_counts
+
     grid, h, _, _ = _case(256, 128, GLOBAL, dev)
     h = (h - 0.1) * 20
     cfg = ocean.OceanConfig(jacobi_iters=40, diffusion_iters=50)
@@ -217,8 +308,11 @@ def test_ocean_step_on_the_card_matches_the_cpu(dev):
     for where in (dev, torch.device("cpu")):
         u, v = ocean.init_ocean(grid, where)
         hh = h.to(where)
+        before = launch_counts()["ocean_project"]
         for _ in range(3):
             u, v, p, _ = ocean.ocean_step(u, v, hh, grid, cfg)
+        launched = launch_counts()["ocean_project"] - before
+        assert launched == (3 if where.type == "cuda" else 0), launched
         fields[where.type] = (u.cpu(), v.cpu(), p.cpu())
     for got, want in zip(fields["cuda"], fields["cpu"]):
         assert bool(torch.isfinite(got).all())

@@ -201,8 +201,9 @@ def test_launch_counts_name_every_counter():
             "flow_directions_strip", "lake_relax", "lake_area_tiles",
             "lake_vis_tiles", "lake_root_tiles", "flow_solve_fused_bands",
             "jacobi_packed_sweeps", "flow_solve_2d_tma",
-            "flow_solve_wave_tiles", "flow_banded_sweeps"} <= names
-    assert len(names) == 30
+            "flow_solve_wave_tiles", "flow_banded_sweeps",
+            "ocean_project"} <= names
+    assert len(names) == 31
 
 
 def test_interop_round_trip_and_config():
